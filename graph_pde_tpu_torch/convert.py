@@ -1,0 +1,63 @@
+"""Carries weights and normalizer state over from the JAX package.
+
+``gkn_params_from_numpy`` takes a GKN parameter tree as numpy arrays
+(for example ``jax.tree.map(np.asarray, params)`` of a JAX ``gkn_init``
+or checkpoint tree) and returns the same tree of float32 tensors. The
+layout is the same in both packages, so the port computes the same
+function from the same numbers.
+
+``normalizer_from_state`` rebuilds a normalizer from the state dict the
+JAX package's bundle export writes (train/export.py): ``{"kind": "unit"
+| "gaussian", "mean", "std", "eps"}`` or ``{"kind": "range", "a",
+"b"}``.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .device import DeviceLike, resolve_device
+from .utils.normalizers import (GaussianNormalizer, RangeNormalizer,
+                                UnitGaussianNormalizer)
+
+
+def gkn_params_from_numpy(tree, device: DeviceLike = None):
+    """Numpy parameter tree (dicts, tuples, lists of arrays) -> the same
+    tree of float32 tensors on ``device`` (None -> CUDA)."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(conv(v) for v in node)
+        return torch.from_numpy(np.array(node, np.float32)).to(dev)
+
+    return conv(tree)
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, np.float32))
+
+
+def normalizer_from_state(state: Mapping[str, Any]):
+    """A normalizer from its exported state (stats as CPU tensors)."""
+    kind = state["kind"]
+    if kind == "unit":
+        norm = UnitGaussianNormalizer.__new__(UnitGaussianNormalizer)
+    elif kind == "gaussian":
+        norm = GaussianNormalizer.__new__(GaussianNormalizer)
+    elif kind == "range":
+        norm = RangeNormalizer.__new__(RangeNormalizer)
+        norm.a, norm.b = _f32(state["a"]), _f32(state["b"])
+        return norm
+    else:
+        raise ValueError(f"unknown normalizer kind {kind!r}")
+    norm.mean, norm.std = _f32(state["mean"]), _f32(state["std"])
+    norm.eps = state["eps"]
+    return norm
+
+
+__all__ = ["gkn_params_from_numpy", "normalizer_from_state"]

@@ -1,0 +1,28 @@
+"""Device resolution for the port's entry points.
+
+The port is written for one CUDA device. ``device=None`` means that
+device; a machine without one raises rather than running on the CPU
+unnoticed. ``device="cpu"`` is the explicit opt-in (the parity tests use
+it), and there every kernel wrapper takes its plain PyTorch version.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Optional[Union[str, torch.device]]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` -> ``cuda`` (raises without a GPU); anything else as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU explicitly")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+__all__ = ["resolve_device", "DeviceLike"]

@@ -1,0 +1,342 @@
+"""Padded, receiver-sorted graph container (counterpart of
+graph_pde_tpu/graph/graph.py).
+
+A ``Graph`` is built on the host as numpy arrays, exactly as the JAX
+package builds it: edges sorted by (receiver, sender), edge capacity
+padded to a multiple of 512, padding edges parked at ``receiver =
+N_pad - 1`` and excluded by the edge mask. ``Graph.to(device)`` returns
+the same graph as torch tensors (float32 features, int64 indices, bool
+masks) on that device; with no device given it resolves to CUDA and
+raises when there is none.
+
+Batching is a leading axis of same-capacity graphs (``stack_graphs``).
+``flatten_stacked`` turns such a stack into one disjoint-union graph,
+which is how the port runs a batch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+
+# Edge-block size of the receiver-span bound (the JAX package's
+# ops/segment.py _SORTED_BLOCK_EB); also the edge padding multiple.
+_SORTED_BLOCK_EB = 512
+
+
+def round_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+def _sorted_span_flag(receivers_padded: np.ndarray, limit: int = 64) -> int:
+    """``limit`` when every 512-edge block of the sorted, padded receiver
+    array spans fewer than ``limit`` nodes, else 0. The kcached fused
+    iteration is gated on it, as in the JAX package."""
+    eb = _SORTED_BLOCK_EB
+    e = receivers_padded.shape[0]
+    if e == 0 or e % eb != 0:
+        return 0
+    rb = receivers_padded.reshape(-1, eb)
+    span = int((rb[:, -1] - rb[:, 0]).max()) + 1
+    return limit if span <= limit else 0
+
+
+def _sender_sort(senders_padded: np.ndarray):
+    """Sender-sort permutation and its verified span, or (None, 0) when
+    the span bound fails."""
+    perm = np.argsort(senders_padded, kind="stable").astype(np.int32)
+    span = _sorted_span_flag(senders_padded[perm])
+    return (perm, span) if span else (None, 0)
+
+
+def _to_tensor(a, device: torch.device):
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.as_tensor(a, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a.astype(np.int64), device=device)
+    return torch.as_tensor(a.astype(np.float32), device=device)
+
+
+_ARRAY_FIELDS = ("x", "senders", "receivers", "edge_attr", "n_node",
+                 "n_edge", "y", "sample_idx", "edge_valid", "sender_perm")
+
+
+@dataclasses.dataclass
+class Graph:
+    """A padded, receiver-sorted edge-list graph.
+
+    Attributes:
+      x: [N_pad, F] node features.
+      senders: [E_pad] source node of each edge (message source).
+      receivers: [E_pad] target node, sorted ascending; the padding tail
+        points at N_pad - 1.
+      edge_attr: [E_pad, A] edge features.
+      n_node / n_edge: number of valid nodes / edges (valid prefixes).
+      y: optional [N_pad, out] node targets.
+      sample_idx: optional [N_pad] original-grid index of each node.
+      edge_valid: optional explicit [E_pad] edge mask (blocked layout and
+        flattened batches, where validity is not a prefix).
+      node_block: blocked-CSR block size (0 = flat layout).
+      sorted_span: host-verified receiver-span bound (0 = not verified).
+      sender_perm / sender_span: sender-sort permutation and its bound.
+    """
+
+    x: object
+    senders: object
+    receivers: object
+    edge_attr: object
+    n_node: object
+    n_edge: object
+    y: object = None
+    sample_idx: object = None
+    edge_valid: object = None
+    node_block: int = 0
+    sorted_span: int = 0
+    sender_perm: object = None
+    sender_span: int = 0
+
+    @property
+    def num_nodes_padded(self) -> int:
+        return self.x.shape[-2]
+
+    @property
+    def num_edges_padded(self) -> int:
+        return self.senders.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    def edge_mask(self):
+        """[E_pad] bool mask of valid edges (torch graphs only)."""
+        if self.edge_valid is not None:
+            return self.edge_valid
+        ar = torch.arange(self.num_edges_padded, device=self.senders.device)
+        return ar < self.n_edge
+
+    def to(self, device: DeviceLike = None) -> "Graph":
+        """This graph as torch tensors on ``device`` (None -> CUDA)."""
+        dev = resolve_device(device)
+        return dataclasses.replace(
+            self, **{f: _to_tensor(getattr(self, f), dev)
+                     for f in _ARRAY_FIELDS})
+
+
+def build_graph(
+    x: np.ndarray,
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    edge_attr: np.ndarray,
+    *,
+    n_node_pad: Optional[int] = None,
+    n_edge_pad: Optional[int] = None,
+    node_multiple: int = 8,
+    edge_multiple: int = 512,
+    y: Optional[np.ndarray] = None,
+    sample_idx: Optional[np.ndarray] = None,
+    node_block: int = 0,
+    block_edge_cap: Optional[int] = None,
+) -> Graph:
+    """Pads and sorts host numpy arrays into a ``Graph``; the arrays are
+    identical to the JAX package's ``build_graph``.
+
+    Edges are sorted by (receiver, sender); capacities default to the
+    actual sizes rounded up to ``node_multiple`` / ``edge_multiple``.
+    With ``node_block`` set, nodes are grouped into blocks and each
+    block's edge run is padded to a common capacity (blocked layout).
+    """
+    x = np.asarray(x, np.float32)
+    if x.ndim == 1:
+        x = x[:, None]
+    senders = np.asarray(senders, np.int32).reshape(-1)
+    receivers = np.asarray(receivers, np.int32).reshape(-1)
+    edge_attr = np.asarray(edge_attr, np.float32)
+    if edge_attr.ndim == 1:
+        edge_attr = edge_attr[:, None]
+
+    n, f = x.shape
+    e, a = edge_attr.shape
+    if senders.shape != (e,) or receivers.shape != (e,):
+        raise ValueError(f"senders/receivers must have shape ({e},)")
+
+    order = np.lexsort((senders, receivers))
+    senders = senders[order]
+    receivers = receivers[order]
+    edge_attr = edge_attr[order]
+
+    if node_block:
+        n_pad = round_up(n_node_pad or n, node_block)
+    else:
+        n_pad = (n_node_pad if n_node_pad is not None
+                 else round_up(max(n, 1), node_multiple))
+    if n_pad < n:
+        raise ValueError(f"node capacity {n_pad} < {n}")
+
+    if node_block:
+        n_blocks = n_pad // node_block
+        starts = np.searchsorted(receivers,
+                                 np.arange(n_blocks) * node_block)
+        ends = np.append(starts[1:], e)
+        per_block = ends - starts
+        eb = block_edge_cap or round_up(int(per_block.max()),
+                                        edge_multiple)
+        if eb < per_block.max():
+            raise ValueError(
+                f"block edge capacity {eb} < {per_block.max()}")
+        e_pad = n_blocks * eb
+        sp = np.zeros((e_pad,), np.int32)
+        rp = np.zeros((e_pad,), np.int32)
+        ap = np.zeros((e_pad, a), np.float32)
+        ev = np.zeros((e_pad,), bool)
+        for b in range(n_blocks):
+            cnt = per_block[b]
+            o = b * eb
+            sp[o:o + cnt] = senders[starts[b]:ends[b]]
+            rp[o:o + cnt] = receivers[starts[b]:ends[b]]
+            # padding inside block b parks on the block's last node
+            rp[o + cnt:o + eb] = (b + 1) * node_block - 1
+            ap[o:o + cnt] = edge_attr[starts[b]:ends[b]]
+            ev[o:o + cnt] = True
+        xp = np.zeros((n_pad, f), np.float32)
+        xp[:n] = x
+        sperm, sspan = _sender_sort(sp)
+        return Graph(x=xp, senders=sp, receivers=rp, edge_attr=ap,
+                     n_node=np.int32(n), n_edge=np.int32(e),
+                     y=_pad_y(y, n_pad),
+                     sample_idx=_pad_sample_idx(sample_idx, n_pad),
+                     edge_valid=ev, node_block=node_block,
+                     sender_perm=sperm, sender_span=sspan)
+
+    e_pad = (n_edge_pad if n_edge_pad is not None
+             else round_up(max(e, 1), edge_multiple))
+    if e_pad < e:
+        raise ValueError(f"edge capacity {e_pad} < {e}")
+
+    xp = np.zeros((n_pad, f), np.float32)
+    xp[:n] = x
+    sp = np.zeros((e_pad,), np.int32)
+    sp[:e] = senders
+    rp = np.full((e_pad,), n_pad - 1, np.int32)
+    rp[:e] = receivers
+    ap = np.zeros((e_pad, a), np.float32)
+    ap[:e] = edge_attr
+
+    sperm, sspan = _sender_sort(sp)
+    return Graph(
+        x=xp,
+        senders=sp,
+        receivers=rp,
+        edge_attr=ap,
+        n_node=np.int32(n),
+        n_edge=np.int32(e),
+        y=_pad_y(y, n_pad),
+        sample_idx=_pad_sample_idx(sample_idx, n_pad),
+        sorted_span=_sorted_span_flag(rp),
+        sender_perm=sperm,
+        sender_span=sspan,
+    )
+
+
+def _pad_y(y, n_pad):
+    if y is None:
+        return None
+    y = np.asarray(y, np.float32)
+    if y.ndim == 1:
+        y = y[:, None]
+    yp = np.zeros((n_pad, y.shape[1]), np.float32)
+    yp[: y.shape[0]] = y
+    return yp
+
+
+def _pad_sample_idx(sample_idx, n_pad):
+    if sample_idx is None:
+        return None
+    sample_idx = np.asarray(sample_idx, np.int32).reshape(-1)
+    sip = np.zeros((n_pad,), np.int32)
+    sip[: sample_idx.shape[0]] = sample_idx
+    return sip
+
+
+def stack_graphs(graphs) -> Graph:
+    """Stacks same-capacity host graphs along a new leading batch axis.
+    The span bounds hold for the batch only if they hold for every
+    member, so the stack keeps their minimum."""
+    graphs = list(graphs)
+    span = min(g.sorted_span for g in graphs)
+    sspan = min(g.sender_span for g in graphs)
+    first = graphs[0]
+    fields = {}
+    for f in _ARRAY_FIELDS:
+        vals = [getattr(g, f) for g in graphs]
+        if f == "sender_perm" and not sspan:
+            vals = [None] * len(graphs)
+        if any(v is None for v in vals):
+            if not all(v is None for v in vals):
+                raise ValueError(f"field {f!r} is set on only some graphs")
+            fields[f] = None
+        else:
+            fields[f] = np.stack([np.asarray(v) for v in vals])
+    return Graph(**fields, node_block=first.node_block, sorted_span=span,
+                 sender_span=sspan)
+
+
+def flatten_stacked(g: Graph) -> Graph:
+    """Flattens a stacked batch (torch tensors) into ONE disjoint-union
+    graph: node indices of graph b are offset by b * N_pad.
+
+    Receivers stay globally sorted (graph b's receivers, padding parked
+    at its own N_pad - 1, land below graph b+1's), and per-graph edge
+    capacities are 512-multiples, so the span bound still holds. Valid
+    nodes are no longer a prefix: ``n_node``/``n_edge`` become the full
+    capacities and edge validity rides the explicit ``edge_valid`` mask.
+    """
+    if g.node_block:
+        raise ValueError("flatten_stacked: blocked-CSR not supported")
+    if g.x.ndim != 3:
+        raise ValueError("flatten_stacked expects a stacked batch")
+    b, n_pad = g.x.shape[0], g.x.shape[1]
+    e_pad = g.senders.shape[1]
+    dev = g.senders.device
+    offs = (torch.arange(b, device=dev) * n_pad)[:, None]
+    if g.edge_valid is not None:
+        ev = g.edge_valid
+    else:
+        ev = torch.arange(e_pad, device=dev)[None] < g.n_edge[:, None]
+    sender_perm = None
+    if g.sender_perm is not None:
+        sender_perm = (g.sender_perm
+                       + (torch.arange(b, device=dev) * e_pad)[:, None]
+                       ).reshape(b * e_pad)
+    return Graph(
+        x=g.x.reshape(b * n_pad, -1),
+        senders=(g.senders + offs).reshape(b * e_pad),
+        receivers=(g.receivers + offs).reshape(b * e_pad),
+        edge_attr=g.edge_attr.reshape(b * e_pad, -1),
+        n_node=torch.tensor(b * n_pad, device=dev),
+        n_edge=torch.tensor(b * e_pad, device=dev),
+        y=None if g.y is None else g.y.reshape(b * n_pad, -1),
+        sample_idx=(None if g.sample_idx is None
+                    else g.sample_idx.reshape(b * n_pad)),
+        edge_valid=ev.reshape(b * e_pad),
+        sorted_span=g.sorted_span,
+        sender_perm=sender_perm,
+        sender_span=g.sender_span,
+    )
+
+
+__all__ = [
+    "Graph",
+    "build_graph",
+    "stack_graphs",
+    "flatten_stacked",
+    "round_up",
+]

@@ -1,0 +1,183 @@
+"""Serving API (counterpart of GKNPredictor in graph_pde_tpu/inference.py).
+
+``GKNPredictor`` maps raw Darcy coefficient fields to decoded solution
+fields at any grid resolution:
+
+- small grids: one full radius graph per sample, all samples of a call
+  run as one batch;
+- large grids (more than ``split_threshold`` nodes): split/assemble
+  through ``RandomGridSplitter`` shards, one batch of shards per sample.
+
+Graphs are built on the host as in the JAX package, moved to the
+predictor's device once per batch, and run by ``gkn_apply_batched``.
+The predictor runs on CUDA unless it is given ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .device import DeviceLike, resolve_device
+from .graph import (RandomGridSplitter, SquareMeshGenerator, build_graph,
+                    edge_attributes, make_box_grid, round_up, stack_graphs)
+from .models.gkn import GKNConfig, gkn_apply_batched, params_to
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def derive_aux_fields(coeff, kcoeff, kx, ky, s):
+    """Derives each missing auxiliary Darcy field independently: the
+    smoothed coefficient (gaussian_filter, sigma 1) and its central
+    differences on the unit grid, as data/synthetic.py makes them."""
+    if kcoeff is None:
+        from scipy.ndimage import gaussian_filter as gf
+
+        kcoeff = np.stack([gf(np.asarray(c).reshape(s, s), sigma=1.0)
+                           for c in coeff])
+    if kx is None or ky is None:
+        h = 1.0 / (s - 1)
+        grads = [np.gradient(np.asarray(k).reshape(s, s), h)
+                 for k in kcoeff]
+        if kx is None:
+            kx = np.stack([g[0] for g in grads])
+        if ky is None:
+            ky = np.stack([g[1] for g in grads])
+    return kcoeff, kx, ky
+
+
+@dataclasses.dataclass
+class GKNPredictor:
+    params: object
+    cfg: GKNConfig
+    input_normalizers: dict     # 'a', 'a_smooth', 'a_gradx', 'a_grady'
+    u_normalizer: object
+    radius: float = 0.2
+    split_threshold: int = 10_000   # nodes above which to shard
+    split_m: int = 400
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.params = params_to(self.params, self.device)
+        self._mesh_cache: Dict[int, tuple] = {}
+
+    # -------------------------------------------------------------- build
+
+    def _node_features(self, grid, fields, j, idx=None):
+        cols = [grid]
+        for key in ("a", "a_smooth", "a_gradx", "a_grady"):
+            v = fields[key][j] if idx is None else fields[key][j][idx]
+            cols.append(np.asarray(v).reshape(-1, 1))
+        return np.concatenate(cols, axis=1)
+
+    def _encode_fields(self, coeff, kcoeff, kx, ky):
+        n = coeff.shape[0]
+
+        def enc(key, a):
+            norm = self.input_normalizers[key]
+            return _np(norm.encode(np.asarray(a).reshape(n, -1)))
+
+        return {"a": enc("a", coeff), "a_smooth": enc("a_smooth", kcoeff),
+                "a_gradx": enc("a_gradx", kx), "a_grady": enc("a_grady", ky)}
+
+    def _fwd(self, batch) -> np.ndarray:
+        with torch.inference_mode():
+            out = gkn_apply_batched(self.params, self.cfg,
+                                    batch.to(self.device))
+            return _np(out[:, :, 0])
+
+    # ------------------------------------------------------------ predict
+
+    def predict(self, coeff, kcoeff=None, kx=None, ky=None) -> np.ndarray:
+        """coeff (+ optional smoothed/gradient fields): [n, s, s].
+        Missing auxiliary fields are derived. Returns decoded solutions
+        [n, s*s]."""
+        coeff = np.asarray(coeff)
+        n, s = coeff.shape[0], coeff.shape[1]
+        # Per-node stats of a unit u-normalizer belong to the training
+        # grid: decoding another resolution would read the wrong rows.
+        u_stats = _np(getattr(self.u_normalizer, "mean", 0.0))
+        if u_stats.ndim >= 1 and u_stats.size > 1 \
+                and u_stats.size != s * s:
+            raise ValueError(
+                f"unit u-normalizer has per-node stats for {u_stats.size} "
+                f"training-grid nodes but input is s={s} ({s * s} nodes); "
+                f"serve at the training resolution, or use a gaussian "
+                f"u-normalizer for resolution-free serving")
+        kcoeff, kx, ky = derive_aux_fields(coeff, kcoeff, kx, ky, s)
+        fields = self._encode_fields(coeff, kcoeff, kx, ky)
+        if s * s > self.split_threshold:
+            return self._predict_split(fields, s)
+        return self._predict_full(fields, s)
+
+    def _predict_full(self, fields, s) -> np.ndarray:
+        n = fields["a"].shape[0]
+        if s not in self._mesh_cache:
+            gen = SquareMeshGenerator([[0, 1], [0, 1]], [s, s])
+            ei = gen.ball_connectivity(self.radius)
+            self._mesh_cache[s] = (gen.get_grid(), ei)
+        grid, ei = self._mesh_cache[s]
+        graphs = []
+        e_pad = round_up(ei.shape[1], 512)
+        for j in range(n):
+            attr = edge_attributes(grid, ei, theta=fields["a"][j])
+            x = self._node_features(grid, fields, j)
+            graphs.append(build_graph(
+                x, ei[0], ei[1], attr, sample_idx=np.arange(s * s),
+                n_edge_pad=e_pad))
+        batch = stack_graphs(graphs)
+        out = self._fwd(batch)
+        dec = self._decode(out, batch.sample_idx)
+        return dec[:, : s * s]
+
+    def _predict_split(self, fields, s) -> np.ndarray:
+        n = fields["a"].shape[0]
+        n_nodes = s * s
+        m = _largest_divisor_leq(n_nodes, self.split_m)
+        grid = make_box_grid([[0, 1], [0, 1]], [s, s])
+        sp = RandomGridSplitter(grid, s, d=2, m=m, l=1, radius=self.radius,
+                                seed=0)
+        out = np.zeros((n, n_nodes), np.float32)
+        for j in range(n):
+            theta = np.stack([fields["a"][j], fields["a_smooth"][j],
+                              fields["a_gradx"][j],
+                              fields["a_grady"][j]], axis=1)
+            shards = sp.get_data(theta)
+            batch = stack_graphs(shards)
+            pred = self._fwd(batch)
+            idx = batch.sample_idx
+            dec = self._decode(pred, idx)
+            preds = [dec[i][:m] for i in range(len(shards))]
+            idxs = [idx[i][:m] for i in range(len(shards))]
+            out[j] = sp.assemble(preds, idxs)
+        return out
+
+    def _decode(self, values, idx) -> np.ndarray:
+        """Decodes on the host, with the stats gathered at ``idx`` where
+        the normalizer takes it (falls back as the JAX predictor does)."""
+        try:
+            return _np(self.u_normalizer.decode(values, sample_idx=idx))
+        except (TypeError, IndexError):
+            return _np(self.u_normalizer.decode(values))
+
+
+def _largest_divisor_leq(n: int, m: int) -> int:
+    best = 1
+    d = 1
+    while d * d <= n:
+        if n % d == 0:
+            for c in (d, n // d):
+                if c <= m:
+                    best = max(best, c)
+        d += 1
+    return best
+
+
+__all__ = ["GKNPredictor", "derive_aux_fields"]

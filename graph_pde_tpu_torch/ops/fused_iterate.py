@@ -1,0 +1,160 @@
+"""Cached-K iteration: per-edge contraction and per-node masked sum in
+one kernel (counterpart of graph_pde_tpu/ops/fused_iterate.py, forward
+only).
+
+    total[n] = sum_{e: recv[e] = n, mask[e]} x[senders[e]] @ K[e].reshape(in, out)
+
+The kcached GKN path computes K once per forward and runs this once per
+depth step. ``sorted_iterate_setup`` builds, once per forward, what is
+invariant across the steps: the CSR row pointer of the sorted receivers
+and the clamped valid-edge counts (the mean's divisor). The CUDA kernel
+(``csrc/fused_iterate.cu``, K2) walks each node's CSR row and writes the
+node's sum once; the [E, out] messages never reach device memory and no
+one-hot is built. ``fused_iterate_total`` launches it for CUDA tensors
+and runs ``fused_iterate_total_plain`` for CPU tensors.
+
+K may be float32 or bfloat16; either way it is upcast to float32 before
+the multiply and x is not rounded (the JAX kernel does the same).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from . import kernels
+from .segment import segment_counts
+
+BLOCK_E = 512    # the JAX kernel's edge block (edge capacity multiple)
+C_CHUNK = 1024   # the JAX kernel's column chunk
+_MAX_OUT = 1024  # out_channels bound of the CUDA kernel (the gate implies it)
+_PLAIN_CHUNK = 65536
+
+
+def fused_iterate_supported(e: int, in_channels: int, out_channels: int,
+                            span: int) -> bool:
+    """The JAX package's gate (fused_iterate.py:53-58). The CUDA kernel
+    takes every shape it admits."""
+    c = in_channels * out_channels
+    chunk = min(C_CHUNK, c)
+    return (e > 0 and e % BLOCK_E == 0 and span > 0
+            and c % chunk == 0 and chunk % out_channels == 0)
+
+
+@dataclasses.dataclass
+class IterateSetup:
+    """Once-per-forward aggregation operands of ``fused_iterate_total``."""
+
+    receivers: torch.Tensor   # [E] int64, sorted ascending
+    mask: torch.Tensor        # [E] bool
+    rowptr: torch.Tensor      # [N + 1] int64 CSR row pointer
+    counts: torch.Tensor      # [N, 1] float32 valid edges, clamped to 1
+
+    @property
+    def num_segments(self) -> int:
+        return self.rowptr.shape[0] - 1
+
+
+def sorted_iterate_setup(receivers: torch.Tensor, mask: torch.Tensor,
+                         num_segments: int) -> IterateSetup:
+    """Row pointer and clamped counts from receiver-sorted edges."""
+    receivers = receivers.contiguous()
+    if receivers.numel() > 1 and bool((receivers[1:] < receivers[:-1]).any()):
+        raise ValueError("fused iteration needs receiver-sorted edges")
+    bounds = torch.arange(num_segments + 1, device=receivers.device,
+                          dtype=receivers.dtype)
+    rowptr = torch.searchsorted(receivers, bounds)
+    counts = segment_counts(receivers, mask, num_segments)[:, None]
+    return IterateSetup(receivers=receivers, mask=mask.contiguous(),
+                        rowptr=rowptr, counts=counts)
+
+
+def fused_iterate_total_plain(x, senders, K, setup: IterateSetup, *,
+                              in_channels: int,
+                              out_channels: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: [N, out] float32 sums,
+    computed in edge chunks."""
+    e = senders.shape[0]
+    total = torch.zeros((setup.num_segments, out_channels),
+                        dtype=torch.float32, device=x.device)
+    for s0 in range(0, e, _PLAIN_CHUNK):
+        s1 = min(e, s0 + _PLAIN_CHUNK)
+        xj = x.index_select(0, senders[s0:s1]).to(torch.float32)
+        kk = K[s0:s1].to(torch.float32).view(s1 - s0, in_channels,
+                                              out_channels)
+        msg = torch.einsum("ei,eio->eo", xj, kk)
+        msg = torch.where(setup.mask[s0:s1, None], msg, 0.0)
+        total.index_add_(0, setup.receivers[s0:s1], msg)
+    return total
+
+
+def _kernel_fn():
+    lib = kernels.load("fused_iterate")
+    fn = lib.gpde_iterate_total
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6
+                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x, senders, K, setup: IterateSetup, in_channels: int,
+            out_channels: int) -> torch.Tensor:
+    c = in_channels * out_channels
+    if out_channels > _MAX_OUT:
+        raise ValueError(f"CUDA iteration kernel takes out_channels <= "
+                         f"{_MAX_OUT}, not {out_channels}")
+    dev = x.device
+    if K.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"cached K must be float32 or bfloat16, not "
+                         f"{K.dtype}")
+    if x.dtype != torch.float32 or x.shape[1] != in_channels:
+        raise ValueError("x must be float32 [N, in_channels]")
+    e = senders.shape[0]
+    if K.shape != (e, c) or setup.mask.shape != (e,):
+        raise ValueError("K / mask / senders shapes disagree")
+    tensors = [x.contiguous(), senders.contiguous(), K.contiguous(),
+               setup.mask, setup.rowptr]
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError("iteration kernel operands must share one "
+                             "CUDA device")
+    if senders.dtype != torch.int64 or setup.rowptr.dtype != torch.int64:
+        raise ValueError("senders and rowptr must be int64")
+    n = setup.num_segments
+    out = torch.empty((n, out_channels), dtype=torch.float32, device=dev)
+    ptrs = tensors + [out]
+    if any(t.data_ptr() % 16 for t in (ptrs[0], ptrs[2])):
+        raise ValueError("iteration kernel needs 16-byte aligned x and K")
+    fn = _kernel_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in ptrs], n, in_channels,
+                 out_channels, int(K.dtype == torch.bfloat16), stream)
+    kernels.check(err, "iteration kernel launch")
+    fused_iterate_total.launches += 1
+    return out
+
+
+def fused_iterate_total(x, senders, K, setup: IterateSetup, *,
+                        in_channels: int, out_channels: int) -> torch.Tensor:
+    """Masked per-node message SUM of one kcached depth step, [N, out]
+    float32. The caller multiplies by 1/counts for the mean.
+
+    CUDA tensors launch the K2 kernel (counted in
+    ``fused_iterate_total.launches``); CPU tensors take the plain
+    version."""
+    if x.is_cuda:
+        return _launch(x, senders, K, setup, in_channels, out_channels)
+    return fused_iterate_total_plain(x, senders, K, setup,
+                                     in_channels=in_channels,
+                                     out_channels=out_channels)
+
+
+fused_iterate_total.launches = 0
+
+__all__ = ["fused_iterate_total", "fused_iterate_total_plain",
+           "sorted_iterate_setup", "fused_iterate_supported",
+           "IterateSetup", "BLOCK_E"]

@@ -1,0 +1,207 @@
+"""Port parity: the GKN model of graph_pde_tpu_torch against
+graph_pde_tpu, on the CPU, from the same parameters (JAX gkn_init
+carried over with convert.gkn_params_from_numpy) and the same padded
+graphs.
+
+Tolerance: float32 model outputs agree to 1e-4 relative to the output's
+max-abs (a few depth steps of sums, each in a different order). The
+kcached_fused='on' JAX side runs its Pallas kernel in interpret mode."""
+import dataclasses
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from graph_pde_tpu.graph import graph as jgraph
+from graph_pde_tpu.models import gkn as jgkn
+
+from graph_pde_tpu_torch.convert import gkn_params_from_numpy
+from graph_pde_tpu_torch.graph import graph as tgraph
+from graph_pde_tpu_torch.models import gkn as tgkn
+from graph_pde_tpu_torch.ops.fused_iterate import fused_iterate_total
+
+MODEL_TOL = 1e-4
+_REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _close(got, want, tol=MODEL_TOL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+    assert err <= tol, f"max-abs error {err:.3g} > {tol:g} of max-abs"
+
+
+def _graph_args(seed, n=60, e=1500):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, 6)).astype(np.float32),
+            rng.integers(0, n, e), rng.integers(0, n, e),
+            0.5 * rng.normal(size=(e, 6)).astype(np.float32))
+
+
+def _both_graphs(seed, **kw):
+    args = _graph_args(seed)
+    jg = jgraph.build_graph(*args, **kw)
+    tg = tgraph.build_graph(*args, **kw)
+    return jax.tree_util.tree_map(jnp.asarray, jg), tg.to("cpu")
+
+
+def _cfg(**kw):
+    base = dict(width=16, ker_width=32, depth=2, ker_in=6, in_width=6,
+                kernel_layers=(6, 16, 32, 256), relu_last=False)
+    base.update(kw)
+    return jgkn.GKNConfig(**base), tgkn.GKNConfig(**base)
+
+
+def _params(jcfg, seed=0):
+    jp = jgkn.gkn_init(jax.random.PRNGKey(seed), jcfg)
+    return jp, gkn_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+@pytest.mark.parametrize("impl,relu_last,decoder_mlp,fused", [
+    ("auto", False, False, "off"),
+    ("reference", True, False, "off"),
+    ("reference", False, True, "off"),
+    ("kcached", False, False, "off"),
+    ("kcached", True, False, "on"),
+    ("kcached", False, True, "auto"),
+])
+def test_gkn_apply_matches(impl, relu_last, decoder_mlp, fused):
+    jcfg, tcfg = _cfg(impl=impl, relu_last=relu_last,
+                      decoder_mlp=decoder_mlp, kcached_fused=fused)
+    jp, tp = _params(jcfg)
+    jg, tg = _both_graphs(1)
+    assert tg.sorted_span > 0
+    before = fused_iterate_total.launches
+    got = tgkn.gkn_apply(tp, tcfg, tg)
+    want = jgkn.gkn_apply(jp, jcfg, jg)
+    _close(got.numpy(), want)
+    assert fused_iterate_total.launches == before   # CPU: plain version
+
+
+def test_gkn_apply_blocked_layout_matches():
+    jcfg, tcfg = _cfg(impl="reference")
+    jp, tp = _params(jcfg, seed=1)
+    jg, tg = _both_graphs(2, node_block=16)
+    _close(tgkn.gkn_apply(tp, tcfg, tg).numpy(),
+           jgkn.gkn_apply(jp, jcfg, jg))
+
+
+@pytest.mark.parametrize("impl,batch_mode,node_block", [
+    ("reference", "vmap", 0), ("kcached", "vmap", 0),
+    ("kcached", "flatten", 0), ("reference", "vmap", 16)])
+def test_gkn_apply_batched_matches(impl, batch_mode, node_block):
+    jcfg, tcfg = _cfg(impl=impl, kcached_fused="on", batch_mode=batch_mode)
+    jp, tp = _params(jcfg, seed=2)
+    args = [_graph_args(s) for s in range(3)]
+    kw = (dict(node_block=node_block, block_edge_cap=512) if node_block
+          else dict(n_edge_pad=2048))
+    jst = jgraph.stack_graphs([jgraph.build_graph(*a, **kw) for a in args])
+    tst = tgraph.stack_graphs([tgraph.build_graph(*a, **kw) for a in args])
+    want = jgkn.gkn_apply_batched(
+        jp, jcfg, jax.tree_util.tree_map(jnp.asarray, jst))
+    got = tgkn.gkn_apply_batched(tp, tcfg, tst.to("cpu"))
+    _close(got.numpy(), want)
+
+
+def test_kcached_k_dtype_gate_is_per_graph(monkeypatch):
+    """A flattened batch must take the per-graph K dtype decision: with
+    the f32 budget between one graph's K and the batch's, the batched
+    forward equals the per-graph forwards (float32 K), not a bf16 run."""
+    _, tcfg = _cfg(impl="kcached")
+    _, tp = _params(_cfg()[0], seed=3)
+    args = [_graph_args(s) for s in range(3)]
+    graphs = [tgraph.build_graph(*a, n_edge_pad=2048) for a in args]
+    one_graph_bytes = 2048 * 16 * 16 * 4
+    monkeypatch.setattr(tgkn, "_KCACHED_F32_MAX_BYTES", 2 * one_graph_bytes)
+    batched = tgkn.gkn_apply_batched(tp, tcfg,
+                                     tgraph.stack_graphs(graphs).to("cpu"))
+    singles = torch.stack([tgkn.gkn_apply(tp, tcfg, g.to("cpu"))
+                           for g in graphs])
+    _close(batched.numpy(), singles.numpy(), 1e-5)
+    bf16 = tgkn.gkn_apply_batched(
+        tp, dataclasses.replace(tcfg, compute_dtype="bfloat16"),
+        tgraph.stack_graphs(graphs).to("cpu"))
+    assert not torch.allclose(bf16, batched, rtol=0, atol=1e-6)
+
+
+def test_gkn_init_shapes_and_bounds():
+    jcfg, tcfg = _cfg(decoder_mlp=True)
+    jp, _ = _params(jcfg)
+    tp = tgkn.gkn_init(torch.Generator().manual_seed(0), tcfg,
+                          device="cpu")
+    jshapes = jax.tree.map(lambda a: tuple(a.shape), jp)
+    tshapes = jax.tree.map(lambda a: tuple(a.shape), tp)
+    assert jshapes == tshapes
+    assert float(tp["root"].abs().max()) <= 1.0 / np.sqrt(16)
+    again = tgkn.gkn_init(torch.Generator().manual_seed(0), tcfg,
+                          device="cpu")
+    torch.testing.assert_close(again["kernel"][2]["w"], tp["kernel"][2]["w"],
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("field", [{"loop_vjp": True},
+                                   {"k_storage": "float8_e4m3"}])
+def test_unported_kcached_options_raise(field):
+    _, tcfg = _cfg(impl="kcached", **field)
+    _, tp = _params(_cfg()[0])
+    _, tg = _both_graphs(4)
+    with pytest.raises(NotImplementedError):
+        tgkn.gkn_apply(tp, tcfg, tg)
+
+
+def test_gkn_apply_host_graph_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = _cfg()
+    _, tp = _params(_cfg()[0])
+    host = tgraph.build_graph(*_graph_args(5))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tgkn.gkn_apply(tp, tcfg, host)
+
+
+def test_gkn_init_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tcfg = _cfg()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tgkn.gkn_init(torch.Generator().manual_seed(0), tcfg)
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports and runs a tiny forward with jax
+    and graph_pde_tpu blocked (fresh interpreter: conftest has already
+    imported jax here)."""
+    code = textwrap.dedent("""
+        import pkgutil, sys, importlib
+        sys.modules["jax"] = None
+        sys.modules["graph_pde_tpu"] = None
+        import numpy as np, torch
+        import graph_pde_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        import chip_smoke
+        from graph_pde_tpu_torch.graph import build_graph
+        from graph_pde_tpu_torch.models import GKNConfig, gkn_init, gkn_apply
+        rng = np.random.default_rng(0)
+        g = build_graph(rng.normal(size=(10, 6)), rng.integers(0, 10, 40),
+                        rng.integers(0, 10, 40), rng.normal(size=(40, 6)))
+        cfg = GKNConfig(width=8, ker_width=16, depth=2, impl="kcached",
+                        kcached_fused="on")
+        p = gkn_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+        out = gkn_apply(p, cfg, g.to("cpu"))
+        assert out.shape == (16, 1) and bool(torch.isfinite(out).all())
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                      "graph_pde_tpu")
+               and sys.modules[m] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=_REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")

@@ -1,0 +1,245 @@
+"""Port parity: ops of graph_pde_tpu_torch against graph_pde_tpu, on the
+CPU, where the kernel wrappers run their plain PyTorch versions and the
+JAX Pallas kernels run in interpret mode.
+
+Tolerance: float32 ops agree to 1e-5 relative to the output's max-abs
+(sums over at most a few hundred terms, taken in different orders).
+bf16 paths round at the same places in both packages; what differs is
+the fp32 summation order before a rounding, which can flip one bf16
+ulp, so they are held at 1e-2 relative to the max-abs."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from graph_pde_tpu.ops import dense as jdense
+from graph_pde_tpu.ops import edge_conv as jconv
+from graph_pde_tpu.ops import segment as jseg
+from graph_pde_tpu.ops.fused_iterate import (fused_iterate_total as
+                                             j_iterate_total,
+                                             sorted_iterate_setup as
+                                             j_iterate_setup)
+from graph_pde_tpu.ops.pallas_edge_conv import fused_edge_messages as j_fused
+
+from graph_pde_tpu_torch.convert import gkn_params_from_numpy
+from graph_pde_tpu_torch.ops import dense as tdense
+from graph_pde_tpu_torch.ops import edge_conv as tconv
+from graph_pde_tpu_torch.ops import segment as tseg
+from graph_pde_tpu_torch.ops.cached_contraction import (apply_cached_kernel,
+                                                        maybe_quantize_k)
+from graph_pde_tpu_torch.ops.fused_edge_conv import (edge_messages_plain,
+                                                     fused_edge_messages,
+                                                     fused_path_supported)
+from graph_pde_tpu_torch.ops.fused_iterate import (fused_iterate_supported,
+                                                   fused_iterate_total,
+                                                   sorted_iterate_setup)
+
+F32_TOL = 1e-5
+BF16_TOL = 1e-2
+
+
+def _close(got, want, tol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+    assert err <= tol, f"max-abs error {err:.3g} > {tol:g} of max-abs"
+
+
+def _kparams(layers, seed):
+    jp = jdense.dense_init(jax.random.PRNGKey(seed), layers)
+    return jp, gkn_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def test_dense_apply_matches():
+    rng = np.random.default_rng(0)
+    jp, tp = _kparams([6, 16, 32, 64], 0)
+    a = rng.normal(size=(50, 6)).astype(np.float32)
+    _close(tdense.dense_apply(tp, _t(a)).numpy(),
+           jdense.dense_apply(jp, jnp.asarray(a)), F32_TOL)
+
+
+def test_dense_init_distributions():
+    gen = torch.Generator().manual_seed(0)
+    p = tdense.linear_init(gen, 100, 400, device="cpu")
+    assert p["w"].shape == (100, 400) and p["b"].shape == (400,)
+    bound = 1.0 / np.sqrt(100)
+    w = p["w"].numpy()
+    assert np.abs(w).max() <= bound
+    # U(-b, b): mean 0, std b / sqrt(3); 40k draws
+    assert abs(w.mean()) < 0.02 * bound
+    assert abs(w.std() - bound / np.sqrt(3)) < 0.02 * bound
+    u = tdense.pyg_uniform_init(gen, 64, (64, 64), device="cpu").numpy()
+    assert np.abs(u).max() <= 1.0 / 8.0
+    net = tdense.dense_init(gen, [6, 16, 32], device="cpu")
+    assert [tuple(l["w"].shape) for l in net] == [(6, 16), (16, 32)]
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_masked_segment_mean_matches(with_mask):
+    rng = np.random.default_rng(1)
+    e, n = 400, 50
+    data = rng.normal(size=(e, 8)).astype(np.float32)
+    ids = np.sort(rng.integers(0, n - 10, e))   # last 10 segments empty
+    mask = rng.uniform(size=e) > 0.3 if with_mask else np.ones(e, bool)
+    want = jseg.masked_segment_mean(jnp.asarray(data), jnp.asarray(ids),
+                                    jnp.asarray(mask), n)
+    got = tseg.masked_segment_mean(_t(data), _t(ids).long(), _t(mask), n)
+    _close(got.numpy(), want, F32_TOL)
+    assert np.all(got.numpy()[n - 10:] == 0.0)
+    want_s = jseg.masked_segment_sum(jnp.asarray(data), jnp.asarray(ids),
+                                     jnp.asarray(mask), n)
+    got_s = tseg.masked_segment_sum(_t(data), _t(ids).long(), _t(mask), n)
+    _close(got_s.numpy(), want_s, F32_TOL)
+
+
+def _conv_inputs(seed, n=60, e=700, w=8, kernel_type="full"):
+    rng = np.random.default_rng(seed)
+    out_k = w * w if kernel_type == "full" else w
+    jp, tp = _kparams([6, 16, 32, out_k], seed)
+    x = rng.normal(size=(n, w)).astype(np.float32)
+    send = rng.integers(0, n, e)
+    recv = np.sort(rng.integers(0, n, e))
+    attr = rng.normal(size=(e, 6)).astype(np.float32)
+    mask = np.arange(e) < e - 40
+    root = rng.normal(size=(w, w)).astype(np.float32) * 0.3
+    bias = rng.normal(size=(w,)).astype(np.float32)
+    return jp, tp, x, send, recv, attr, mask, root, bias
+
+
+@pytest.mark.parametrize("kernel_type,impl,aggr", [
+    ("full", "reference", "mean"), ("diag", "reference", "mean"),
+    ("full", "scan", "mean"), ("full", "reference", "add"),
+    ("full", "auto", "mean"), ("full", "pallas", "mean")])
+def test_edge_kernel_conv_matches(kernel_type, impl, aggr):
+    w = 8
+    jp, tp, x, s, r, a, m, root, bias = _conv_inputs(2, w=w,
+                                                     kernel_type=kernel_type)
+    kw = dict(in_channels=w, out_channels=w, aggr=aggr,
+              kernel_type=kernel_type, impl=impl, chunk_size=256)
+    want = jconv.edge_kernel_conv(
+        jnp.asarray(x), jnp.asarray(s), jnp.asarray(r), jnp.asarray(a),
+        jnp.asarray(m), jp, root=jnp.asarray(root), bias=jnp.asarray(bias),
+        **kw)
+    got = tconv.edge_kernel_conv(
+        _t(x), _t(s).long(), _t(r).long(), _t(a), _t(m), tp,
+        root=_t(root), bias=_t(bias), **kw)
+    _close(got.numpy(), want, F32_TOL)
+
+
+def _k1_inputs(seed, e, w=16):
+    rng = np.random.default_rng(seed)
+    jp, tp = _kparams([6, 16, 32, w * w], seed)
+    x = rng.normal(size=(40, w)).astype(np.float32)
+    s = rng.integers(0, 40, e)
+    a = rng.normal(size=(e, 6)).astype(np.float32)
+    return jp, tp, x, s, a
+
+
+@pytest.mark.parametrize("e,dtype", [(1024, None), (1000, None),
+                                     (1024, "bfloat16")])
+def test_fused_edge_messages_plain_matches_pallas(e, dtype):
+    """K1's plain version vs the JAX fused kernel (interpret mode),
+    including a ragged E and bf16 compute."""
+    w = 16
+    jp, tp, x, s, a = _k1_inputs(3, e, w)
+    want = j_fused(jnp.asarray(x), jnp.asarray(s), jnp.asarray(a), jp,
+                   in_channels=w, out_channels=w, compute_dtype=dtype,
+                   interpret=True)
+    got = edge_messages_plain(_t(x), _t(s).long(), _t(a), tp,
+                              in_channels=w, out_channels=w,
+                              compute_dtype=dtype)
+    _close(got.numpy(), want, F32_TOL if dtype is None else BF16_TOL)
+    # the wrapper takes the plain version for CPU tensors, uncounted
+    before = fused_edge_messages.launches
+    wrapped = fused_edge_messages(_t(x), _t(s).long(), _t(a), tp,
+                                  in_channels=w, out_channels=w,
+                                  compute_dtype=dtype)
+    torch.testing.assert_close(wrapped, got, rtol=0, atol=0)
+    assert fused_edge_messages.launches == before
+
+
+def test_fused_path_gate():
+    """The port's gates are the JAX package's, shape for shape: the CUDA
+    kernels take every shape the JAX gates admit, so 'auto' and
+    kcached_fused pick the same branch in both packages."""
+    from graph_pde_tpu.ops.fused_iterate import (fused_iterate_supported
+                                                 as j_iter_ok)
+    from graph_pde_tpu.ops.pallas_edge_conv import (fused_path_supported
+                                                    as j_fused_ok)
+
+    shapes = [([6, 128, 256, 64 * 64], 64, 64),      # neurips1 GKN
+              ([6, 1024, 1024, 64 * 64], 64, 64),    # ker_width 1024 'nn'
+              ([6, 500, 1000, 64 * 64], 64, 64),     # ker_width 1000 'nn3'
+              ([6, 16, 32, 16 * 16], 16, 16),
+              ([6, 32, 64], 64, 64),                 # diag-shaped output
+              ([6, 16, 3000, 64 * 64], 64, 64)]      # last layer too wide
+    for layers, i, o in shapes:
+        jp, tp = _kparams(layers, 0)
+        assert fused_path_supported(tp, i, o) == j_fused_ok(jp, i, o), layers
+    assert fused_path_supported(_kparams([6, 1024, 1024, 4096], 0)[1], 64, 64)
+    assert not fused_path_supported(_kparams([6, 32, 64], 0)[1], 64, 64)
+    for args in [(1024, 64, 64, 64), (1000, 64, 64, 64), (1024, 64, 64, 0),
+                 (1024, 128, 128, 64), (1024, 6, 6, 64), (512, 16, 16, 8)]:
+        assert fused_iterate_supported(*args) == j_iter_ok(*args), args
+    assert fused_iterate_supported(1024, 128, 128, 64)
+
+
+@pytest.mark.parametrize("k_dtype", [np.float32, "bfloat16"])
+def test_fused_iterate_plain_matches_pallas(k_dtype):
+    """K2's plain version vs the JAX fused iteration (interpret mode),
+    with padding edges parked on the last node, which is real here."""
+    rng = np.random.default_rng(4)
+    n, e, w = 30, 1024, 8
+    recv = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    recv[-100:] = n - 1
+    mask = np.arange(e) < e - 100
+    s = rng.integers(0, n, e).astype(np.int32)
+    x = rng.normal(size=(n, w)).astype(np.float32)
+    kk = rng.normal(size=(e, w * w)).astype(np.float32)
+    jk = jnp.asarray(kk)
+    tk = _t(kk)
+    if k_dtype == "bfloat16":
+        jk, tk = jk.astype(jnp.bfloat16), tk.to(torch.bfloat16)
+    span = 64
+    oh, ids, counts = j_iterate_setup(jnp.asarray(recv), jnp.asarray(mask),
+                                      n, span)
+    want = j_iterate_total(jnp.asarray(x)[jnp.asarray(s)], jk, oh, ids, n,
+                           span, in_channels=w, out_channels=w,
+                           interpret=True)
+    setup = sorted_iterate_setup(_t(recv).long(), _t(mask), n)
+    got = fused_iterate_total(_t(x), _t(s).long(), tk, setup,
+                              in_channels=w, out_channels=w)
+    _close(got.numpy(), want, F32_TOL)
+    np.testing.assert_array_equal(setup.counts.numpy(), np.asarray(counts))
+    assert setup.rowptr[-1].item() == e
+
+
+def test_sorted_iterate_setup_rejects_unsorted():
+    with pytest.raises(ValueError, match="receiver-sorted"):
+        sorted_iterate_setup(torch.tensor([0, 2, 1]),
+                             torch.ones(3, dtype=torch.bool), 3)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_apply_cached_kernel_matches(bf16):
+    from graph_pde_tpu.ops.cached_contraction import (apply_cached_kernel
+                                                      as j_apply)
+
+    rng = np.random.default_rng(5)
+    e, w = 300, 8
+    x = rng.normal(size=(e, w)).astype(np.float32)
+    kk = rng.normal(size=(e, w * w)).astype(np.float32)
+    jk, tk = jnp.asarray(kk), _t(kk)
+    if bf16:
+        jk, tk = jk.astype(jnp.bfloat16), tk.to(torch.bfloat16)
+    want = j_apply(jnp.asarray(x), jk, w, w)
+    got = apply_cached_kernel(_t(x), tk, w, w)
+    _close(got.numpy(), want, F32_TOL if not bf16 else BF16_TOL)
+    assert maybe_quantize_k(tk, None) is tk
+    with pytest.raises(NotImplementedError):
+        maybe_quantize_k(tk, "float8_e4m3")
