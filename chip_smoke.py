@@ -5,22 +5,40 @@
 
 Phases, each fatal on failure:
   1. card identity (nvidia-smi) and the build of every CUDA kernel;
-  2. each kernel against its plain PyTorch version on the card, at the
-     serving shapes (a real s=61, r=0.2 Darcy graph; an edge slice where
-     the plain version materialises [E, 64, 64]); then the kernels'
-     general forms at registry shapes the serving path does not reach;
+  2. each kernel against its plain PyTorch version on the card: K1 and
+     K2 at the serving shapes (a real s=61, r=0.2 Darcy graph; an edge
+     slice where the plain version materialises [E, 64, 64]), B1-bwd
+     (all four outputs, fp32 and bf16) on a 65,536-edge slice of the
+     uai4 s=241 training graph and B2-bwd (fp32 and bf16 K) on a slice
+     of the uai1 s=61 training graph; then every kernel at registry
+     shapes the main paths do not reach (the general forms);
   3. serving: the full-width neurips1 GKN (random weights from a seed,
      Gaussian normalizers fitted on synthetic Darcy samples) answers
      requests through GKNPredictor.predict at s=61 (full graph) and
      s=241 (split path), under impl='auto' (kernel K1) and
-     impl='kcached', kcached_fused='on' (kernel K2). Both launch
-     counters are zeroed just before each (impl, request) and read just
+     impl='kcached', kcached_fused='on' (kernel K2). Every launch
+     counter is zeroed just before each (impl, request) and read just
      after: the path's own kernel must launch once per depth step, the
-     other never. Outputs must be finite, and the impls must agree with
+     others never. Outputs must be finite, and the impls must agree with
      each other and with plain-path (impl='scan') requests at s=61 and
      s=241;
   4. per-kernel times at the s=61 shapes (CUDA events), bounds, plain
-     and library times, and the latency of each request.
+     and library times, and the latency of each request;
+  5. training: fit() takes TRAIN_EPOCHS epochs of N_TRAIN steps (batch
+     1) at full width on two registry configs: uai4_full_grid_241
+     (impl='auto', bf16, node_block=512, s=241, MSE: K1 + B1-bwd) and
+     uai1_full_resolution (impl='kcached', kcached_fused='auto', s=61,
+     L1: K2 + B2-bwd). The counters are zeroed around every step and
+     every test evaluation: a step must launch its path's forward and
+     backward kernel `depth` times each and the other path's never.
+     Losses and parameters must be finite; the peak device memory of
+     each fit is logged. The step-1 gradients of both configs are held
+     on a smaller graph with the same stencil against the plain path
+     (impl='scan', kcached_fused='off'; uai4 in fp32), and uai4's in
+     bf16 against its Function's plain versions run on the card;
+  6. B1-bwd (bf16 and fp32) and B2-bwd times at the full training
+     shapes, bounds, plain and library times, and the step time of each
+     training path.
 
 Prints one JSON line of kernel records before the last line, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, with no result
@@ -28,6 +46,7 @@ line, when there is no CUDA device or a phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -48,9 +67,28 @@ GENERAL_TIME_SLICE = 131072  # edges of the general-form timing
 F32_TOL = 1e-4       # max-abs error / max-abs output, fp32
 BF16_TOL = 5e-3      # the same, where bf16 rounding enters
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 SIMT rate and HBM3 bandwidth.
+# Training configurations (graph_pde_tpu/experiments/registry.py):
+# uai4_full_grid_241 (:184-195) and uai1_full_resolution (:157-165), at
+# full width and depth; N_TRAIN synthetic samples each.
+S_UAI4, R_UAI4 = 241, 0.01
+S_UAI1, R_UAI1 = 61, 0.1
+N_TRAIN = 2
+TRAIN_EPOCHS = 2
+# The step-1 gradient check's graphs: the same stencil (radius / grid
+# spacing) on a coarser grid, under ~110 k edges.
+S_GRAD4, R_GRAD4 = 61, 0.04
+S_GRAD1, R_GRAD1 = 31, 0.2
+
+# H100 SXM peaks (NVIDIA data sheet, dense): fp32 SIMT rate, bf16 tensor
+# core rate and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# bf16 step-1 gradients, kernels against the plain versions on the card:
+# the CPU test suite measures how far one float32 ulp on every parameter
+# moves a depth-3 model's bf16 gradients (tests/test_torch_gkn.py), and
+# tests/test_torch_cuda.py holds the card to the same bound.
+GRAD_BF16_TOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -195,7 +233,8 @@ def phase_general_forms(g, dev) -> dict:
     versions, at shapes of registry configs that the serving path does
     not reach: the ker_width=1024 'nn' kappa (6, 1024, 1024, 4096), a
     width-16 kappa (6, 16, 32, 256), K2 at width 128 (K rows of 16384)
-    and at width 12 (the element-wise path). On the first GENERAL_SLICE
+    and at width 12 (the element-wise path); B1-bwd at the same two
+    kappas and B2-bwd at the same two widths. On the first GENERAL_SLICE
     edges of the s=61 graph, weights and features from a seed."""
     import torch
 
@@ -250,21 +289,83 @@ def phase_general_forms(g, dev) -> dict:
                         name)
                 errs[name] = ab
             del kk, K
+        # B1-bwd at the same kappas (one code path for every shape)
+        for layers, w in (((6, 1024, 1024, 4096), 64), ((6, 16, 32, 256), 16)):
+            kp = dense_init(gen, layers, device=dev)
+            x = torch.randn(n, w, generator=gen).to(dev)
+            h2 = dense_apply(kp[:-1], a, out_nonlinearity=torch.relu)
+            gg = torch.randn(GENERAL_SLICE, w, generator=gen).to(dev)
+            for dt, tol in ((None, F32_TOL), ("bfloat16", BF16_TOL)):
+                name = f"B1-bwd {layers} {dt or 'float32'}"
+                check_b1_bwd(name, x, s, h2, gg, kp[-1]["w"], w, dt, tol)
+        # B2-bwd at width 128 (two column passes) and 12 (element-wise)
+        for w in (128, 12):
+            kp = dense_init(gen, (6, 32, w * w), device=dev)
+            kk = dense_apply(kp, a)
+            dt = torch.randn(n, w, generator=gen).to(dev)
+            for k_dtype in (torch.float32, torch.bfloat16):
+                name = f"B2-bwd width {w} K={str(k_dtype).split('.')[-1]}"
+                check_b2_bwd(name, kk.to(k_dtype), setup, dt, w)
+            del kk
     return errs
 
 
+def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol) -> float:
+    """B1-bwd against its plain version, all four outputs; returns the
+    largest max-abs error."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.fused_edge_conv import (
+        edge_messages_bwd_plain, fused_edge_messages_bwd)
+
+    kw = dict(in_channels=w, out_channels=w, compute_dtype=dt)
+    got = fused_edge_messages_bwd(x, s, h2, g, wl, **kw)
+    want = edge_messages_bwd_plain(x, s, h2, g, wl, **kw)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for out, a, b in zip(("dx_src", "dh2", "dWl", "dbl"), got, want):
+        ab, rel = rel_err(a, b)
+        log(f"phase 2: {name} {out}: max-abs err {ab:.3e}, relative "
+            f"{rel:.3e} (tol {tol:g})")
+        require(rel <= tol and bool(torch.isfinite(a).all()),
+                f"{name} {out}")
+        worst = max(worst, ab)
+    return worst
+
+
+def check_b2_bwd(name, K, setup, dtotal, w) -> float:
+    """B2-bwd against its plain version (dxj and dmsg); returns the
+    largest max-abs error."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.fused_iterate import (
+        fused_iterate_bwd, fused_iterate_bwd_plain)
+
+    kw = dict(in_channels=w, out_channels=w)
+    got = fused_iterate_bwd(K, setup, dtotal, **kw)
+    want = fused_iterate_bwd_plain(K, setup, dtotal, **kw)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for out, a, b in zip(("dxj", "dmsg"), got, want):
+        ab, rel = rel_err(a, b)
+        log(f"phase 2: {name} {out}: max-abs err {ab:.3e}, relative "
+            f"{rel:.3e} (tol {F32_TOL:g})")
+        require(rel <= F32_TOL and bool(torch.isfinite(a).all()),
+                f"{name} {out}")
+        worst = max(worst, ab)
+    return worst
+
+
 def phase_serving(cfg, params, norms, u_norm, full, split) -> dict:
-    """Requests through GKNPredictor.predict on the default device. Both
+    """Requests through GKNPredictor.predict on the default device. All
     launch counters are zeroed just before each (impl, request) path and
     read just after it: the path's own kernel must launch once per depth
-    step and batch, the other kernel never. Returns the launches of each
-    path."""
+    step and batch, the other kernels (and the backward ones) never.
+    Returns the launches of each path."""
     import numpy as np
     import torch
 
     from graph_pde_tpu_torch.inference import GKNPredictor
-    from graph_pde_tpu_torch.ops.fused_edge_conv import fused_edge_messages
-    from graph_pde_tpu_torch.ops.fused_iterate import fused_iterate_total
 
     cfgs = {"auto": cfg,
             "kcached": dataclasses.replace(cfg, impl="kcached",
@@ -280,14 +381,12 @@ def phase_serving(cfg, params, norms, u_norm, full, split) -> dict:
 
     for impl, pred in preds.items():
         for name, coeff in requests:
-            fused_edge_messages.launches = 0
-            fused_iterate_total.launches = 0
+            zero_counts()
             t0 = time.perf_counter()
             out = pred.predict(coeff)
             torch.cuda.synchronize()
             lat[(impl, name)] = time.perf_counter() - t0
-            got = {"K1": fused_edge_messages.launches,
-                   "K2": fused_iterate_total.launches}
+            got = read_counts()
             outs[(impl, name)] = out
             launches[f"{impl} {name}"] = got
             # one batch per request: the s=61 samples of a call form one
@@ -324,15 +423,13 @@ def phase_serving(cfg, params, norms, u_norm, full, split) -> dict:
                          norms, u_norm, radius=RADIUS,
                          split_threshold=SPLIT_THRESHOLD)
     for name, coeff in (requests[0], requests[-1]):
-        fused_edge_messages.launches = 0
-        fused_iterate_total.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         ref = plain.predict(coeff)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         log(f"phase 3: plain (impl='scan') {name} latency {dt * 1e3:.1f} ms")
-        require(fused_edge_messages.launches == 0
-                and fused_iterate_total.launches == 0,
+        require(all(v == 0 for v in read_counts().values()),
                 f"plain {name} launched no kernel")
         f32 = "split" in name
         agree(outs[("auto", name)], ref, F32_TOL, f"auto vs plain, {name}")
@@ -364,6 +461,19 @@ def library_spmm(x, senders, K, setup):
                                 size=(setup.num_segments, e * w))
     kv = K.view(e * w, c // w)
     return lambda: torch.sparse.mm(a, kv)
+
+
+def set_bound(r: dict) -> None:
+    """bound_ms and bound_by of a kernel record: the larger of its bytes
+    over the memory rate and its operations over the peak rate of their
+    type (``flops`` on the fp32 SIMT units, ``bf16_flops`` on the bf16
+    tensor cores; the two kinds of unit run at once, so the operations
+    take the longer of the two)."""
+    t_ops = max(r["flops"] / PEAK_F32_FLOPS,
+                r.get("bf16_flops", 0.0) / PEAK_BF16_FLOPS) * 1e3
+    t_bytes = r["bytes"] / PEAK_BYTES * 1e3
+    r["bound_ms"] = max(t_ops, t_bytes)
+    r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
 
 
 def forward_times(g, cfg, params) -> dict:
@@ -450,15 +560,387 @@ def phase_times(g, h, params) -> dict:
                          library_ms=time_ms(lib, 3))
         del K, lib
     for r in rec.values():
-        t_ops = r["flops"] / PEAK_F32_FLOPS * 1e3
-        t_bytes = r["bytes"] / PEAK_BYTES * 1e3
-        r["bound_ms"] = max(t_ops, t_bytes)
-        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        set_bound(r)
     log(f"phase 4: s={S_FULL} shapes: E={e} ({e_valid} valid), N={n}")
     for name, r in rec.items():
         log(f"phase 4: {name}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
             f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
             f"library {r['library_ms']}")
+    return rec
+
+
+COUNTED = ("K1", "B1-bwd", "K2", "B2-bwd")
+
+
+def counters() -> dict:
+    from graph_pde_tpu_torch.ops.fused_edge_conv import (
+        fused_edge_messages, fused_edge_messages_bwd)
+    from graph_pde_tpu_torch.ops.fused_iterate import (fused_iterate_bwd,
+                                                       fused_iterate_total)
+
+    return dict(zip(COUNTED, (fused_edge_messages, fused_edge_messages_bwd,
+                              fused_iterate_total, fused_iterate_bwd)))
+
+
+def zero_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def uai4_config(dtype="bfloat16"):
+    from graph_pde_tpu_torch.models import GKNConfig
+
+    return GKNConfig(width=64, ker_width=256, depth=4, ker_in=6, in_width=6,
+                     kernel_layers=(6, 128, 256, 4096), relu_last=False,
+                     impl="auto", compute_dtype=dtype)
+
+
+def uai1_config():
+    from graph_pde_tpu_torch.models import GKNConfig
+
+    return GKNConfig(width=64, ker_width=1024, depth=6, ker_in=6, in_width=6,
+                     kernel_layers=(6, 1024, 1024, 4096), relu_last=True,
+                     impl="kcached", kcached_fused="auto")
+
+
+def training_data(n, s, r, u_norm, node_block, seed):
+    """n synthetic Darcy samples at s x s, prepared and built into the
+    stacked host graphs of the full grid at radius r."""
+    from graph_pde_tpu_torch.data import (darcy_dataset, darcy_gkn_graphs,
+                                          prepare_darcy)
+
+    t0 = time.perf_counter()
+    fields = darcy_dataset(n, s, seed=seed)
+    arrays, _ = prepare_darcy(fields, n=n, u_norm=u_norm)
+    graphs = darcy_gkn_graphs(arrays, radius=r, node_block=node_block)
+    log(f"phase 5: data s={s} r={r} node_block={node_block}: {n} graphs, "
+        f"N_pad={graphs.x.shape[1]}, E_pad={graphs.senders.shape[1]}, "
+        f"valid edges {int(graphs.n_edge[0])} "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+    return arrays, graphs
+
+
+def phase_backward_vs_plain(g4, kp4, g1, kp1) -> dict:
+    """B1-bwd on the first SLICE edges of the uai4 s=241 graph (fp32
+    and bf16) and B2-bwd on the first SLICE edges of the uai1 s=61 graph
+    (fp32 and bf16 K), against their plain versions. x is the fc1 width,
+    h2 the recomputed small layers, g and dtotal from a seed."""
+    import torch
+
+    from graph_pde_tpu_torch.models.gkn import _cached_kernel
+    from graph_pde_tpu_torch.ops.dense import dense_apply
+    from graph_pde_tpu_torch.ops.fused_iterate import sorted_iterate_setup
+
+    dev = g4.x.device
+    gen = torch.Generator().manual_seed(SEED + 5)
+    errs = {}
+    with torch.inference_mode():
+        x4 = torch.randn(g4.x.shape[0], 64, generator=gen).to(dev)
+        s, a = g4.senders[:SLICE], g4.edge_attr[:SLICE]
+        h2 = dense_apply(kp4[:-1], a, out_nonlinearity=torch.relu)
+        gg = torch.randn(SLICE, 64, generator=gen).to(dev)
+        for dt, tol in ((None, F32_TOL), ("bfloat16", BF16_TOL)):
+            name = f"B1-bwd {dt or 'float32'}"
+            errs[name] = check_b1_bwd(f"{name} (uai4 s={S_UAI4})", x4, s, h2,
+                                      gg, kp4[-1]["w"], 64, dt, tol)
+        n1 = g1.x.shape[0]
+        setup = sorted_iterate_setup(g1.receivers[:SLICE],
+                                     g1.edge_mask()[:SLICE], n1)
+        kk = _cached_kernel(kp1, g1.edge_attr[:SLICE], torch.float32)
+        dt = torch.randn(n1, 64, generator=gen).to(dev)
+        for k_dtype in (torch.float32, torch.bfloat16):
+            name = f"B2-bwd K={str(k_dtype).split('.')[-1]}"
+            errs[name] = check_b2_bwd(f"{name} (uai1 s={S_UAI1})",
+                                      kk.to(k_dtype), setup, dt, 64)
+    return errs
+
+
+def phase_training(name, cfg, arrays, graphs, loss, u_norm, gamma) -> dict:
+    """fit() on the card for TRAIN_EPOCHS epochs of batch-1 steps, with a
+    test evaluation on the same graphs after each epoch. Every counter is
+    zeroed before fit and after each step and evaluation, and read after
+    each: a step launches the path's forward and backward kernel `depth`
+    times each, an evaluation the forward kernel `depth` times per
+    graph, and the other path's kernels never."""
+    import numpy as np
+    import torch
+
+    from graph_pde_tpu_torch.models import gkn_init
+    from graph_pde_tpu_torch.train import GKNTask, TrainConfig, fit
+    from graph_pde_tpu_torch.train.trainer import param_leaves
+
+    fwd, bwd = ("K1", "B1-bwd") if cfg.impl == "auto" else ("K2", "B2-bwd")
+    task = GKNTask(cfg, u_normalizer=arrays.u_normalizer, loss_type=loss,
+                   use_sample_idx=u_norm == "unit")
+    params = gkn_init(torch.Generator().manual_seed(SEED), cfg)
+    tc = TrainConfig(epochs=TRAIN_EPOCHS, batch_size=1, learning_rate=1e-4,
+                     weight_decay=5e-4, scheduler_step=50,
+                     scheduler_gamma=gamma, loss=loss, seed=SEED)
+    steps, evals, clock = [], [], [0.0]
+
+    def on_step(ep, step, metrics):
+        lv = float(metrics["loss"])
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        got = read_counts()
+        zero_counts()
+        steps.append(dict(epoch=ep, step=step, loss=lv,
+                          ms=(now - clock[0]) * 1e3, launches=got))
+        clock[0] = now
+        log(f"phase 5: {name} epoch {ep} step {step}: loss {lv:.6g}, "
+            f"{steps[-1]['ms']:.1f} ms, launches {got}")
+        want = {k: cfg.depth if k in (fwd, bwd) else 0 for k in COUNTED}
+        require(got == want, f"{name} step launches {got}, expected {want}")
+        require(bool(np.isfinite(lv)), f"{name} loss finite")
+
+    def on_epoch(ep, p, train_l2, test_l2):
+        torch.cuda.synchronize()
+        got = read_counts()
+        zero_counts()
+        evals.append(got)
+        log(f"phase 5: {name} epoch {ep}: train rel-L2 {train_l2:.6g}, "
+            f"test rel-L2 {test_l2:.6g}, evaluation launches {got}")
+        want = {k: cfg.depth * N_TRAIN if k == fwd else 0 for k in COUNTED}
+        require(got == want, f"{name} evaluation launches {got}")
+        require(bool(np.isfinite(train_l2) and np.isfinite(test_l2)),
+                f"{name} rel-L2 finite")
+        clock[0] = time.perf_counter()
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    clock[0] = time.perf_counter()
+    res = fit(task, params, graphs, tc, test_data=graphs, callback=on_epoch,
+              step_callback=on_step)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(len(steps) == TRAIN_EPOCHS * N_TRAIN, f"{name} step count")
+    require(all(bool(torch.isfinite(t).all())
+                for t in param_leaves(res.params)), f"{name} params finite")
+    launches = {k: sum(st["launches"][k] for st in steps)
+                + sum(ev[k] for ev in evals) for k in COUNTED}
+    warm = [st["ms"] for st in steps[1:]]
+    log(f"phase 5: {name}: {len(steps)} steps, step times (ms) "
+        f"{[round(st['ms'], 1) for st in steps]}, warm mean "
+        f"{sum(warm) / len(warm):.1f} ms; launches {launches}; peak "
+        f"device memory {peak_gib:.2f} GiB (max_memory_allocated over fit)")
+    profile_step(name, task, res.params, graphs)
+    return dict(launches=launches, step_ms=[st["ms"] for st in steps],
+                warm_step_ms=sum(warm) / len(warm), peak_gib=peak_gib,
+                losses=[st["loss"] for st in steps])
+
+
+def profile_step(name, task, params, graphs) -> None:
+    """One more train step on the first graph under torch.profiler: the
+    device time of each kernel, the device's busy time and its idle
+    share of the step's wall time, the wall time taken in an unprofiled
+    step just before."""
+    import torch
+
+    from graph_pde_tpu_torch.data.datasets import map_arrays
+    from graph_pde_tpu_torch.train import (adam_steplr, make_train_step,
+                                           profile_trace)
+    from graph_pde_tpu_torch.train.trainer import param_leaves
+
+    opt, _ = adam_steplr(param_leaves(params), 1e-4, weight_decay=5e-4)
+    step = make_train_step(task, opt)
+    batch = map_arrays(lambda a: a[:1], graphs.to())
+    step(params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    zero_counts()
+    with profile_trace(f"results/profile_{name}_step") as prof:
+        step(params, batch)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    busy = sum(r[0] for r in rows)
+    log(f"phase 6: {name} step profile: wall {wall:.1f} ms (unprofiled), "
+        f"device busy {busy:.1f} ms, idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}")
+    for ms, count, key in rows[:8]:
+        log(f"phase 6: {name} step profile: {ms:9.3f} ms ({ms / busy:6.1%}) "
+            f"x {count:4d}  {key[:70]}")
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Within it, the fused edge-message Function runs its plain
+    versions on CUDA tensors: the same rounding points as K1 and B1-bwd,
+    and no launch. The reference of the bf16 gradient check, where the
+    plain path (impl='scan') rounds elsewhere."""
+    from graph_pde_tpu_torch.ops import fused_edge_conv as fe
+    from graph_pde_tpu_torch.ops.dense import unflatten_params
+
+    saved = fe._launch, fe._launch_bwd
+    fe._launch = lambda x, s, a, w, i, o, dt: fe.edge_messages_plain(
+        x, s, a, unflatten_params(w), in_channels=i, out_channels=o,
+        compute_dtype=dt)
+    fe._launch_bwd = lambda x, s, h2, g, wl, i, o, dt: (
+        fe.edge_messages_bwd_plain(x, s, h2, g, wl, in_channels=i,
+                                   out_channels=o, compute_dtype=dt))
+    try:
+        yield
+    finally:
+        fe._launch, fe._launch_bwd = saved
+
+
+def phase_train_grads(name, cfg, plain_cfg, loss, u_norm, s, r,
+                      node_block, tol=F32_TOL,
+                      plain_ctx=contextlib.nullcontext) -> None:
+    """The step-1 loss gradients of ``cfg`` (kernels) against
+    ``plain_cfg`` run inside ``plain_ctx`` (plain versions, no kernel
+    launch) from the same parameters and one graph, every parameter
+    within ``tol`` of its max-abs."""
+    import torch
+
+    from graph_pde_tpu_torch.models import gkn_init
+    from graph_pde_tpu_torch.train import GKNTask, make_loss_fn
+    from graph_pde_tpu_torch.train.trainer import param_leaves, trainable
+
+    from graph_pde_tpu_torch.data.datasets import map_arrays
+
+    # two samples so that the per-node normalizer has a spread; the
+    # gradients are taken on the first
+    arrays, graphs = training_data(2, s, r, u_norm, node_block, SEED + 7)
+    batch = map_arrays(lambda a: a[:1], graphs.to())
+    params = gkn_init(torch.Generator().manual_seed(SEED + 8), cfg)
+
+    def grads(c):
+        task = GKNTask(c, u_normalizer=arrays.u_normalizer, loss_type=loss,
+                       use_sample_idx=u_norm == "unit")
+        p = trainable(params)
+        zero_counts()
+        lv, _ = make_loss_fn(task, loss)(p, batch)
+        lv.backward()
+        torch.cuda.synchronize()
+        return (float(lv.detach()), [t.grad for t in param_leaves(p)],
+                read_counts())
+
+    lk, gk, ck = grads(cfg)
+    with plain_ctx():
+        lp, gp, cp = grads(plain_cfg)
+    fwd, bwd = ("K1", "B1-bwd") if cfg.impl == "auto" else ("K2", "B2-bwd")
+    want = {k: cfg.depth if k in (fwd, bwd) else 0 for k in COUNTED}
+    require(ck == want, f"{name} gradient launches {ck}, expected {want}")
+    require(all(v == 0 for v in cp.values()), f"{name} plain path launches")
+    worst = 0.0
+    for j, (a, b) in enumerate(zip(gk, gp)):
+        _, rel = rel_err(a, b)
+        require(rel <= tol and bool(torch.isfinite(a).all()),
+                f"{name} gradient {j}: relative {rel:.3e}")
+        worst = max(worst, rel)
+    log(f"phase 5: {name} step-1 gradients vs plain: loss {lk:.6g} vs "
+        f"{lp:.6g}, worst parameter relative max-abs err {worst:.3e} "
+        f"(tol {tol:g}) over {len(gk)} parameters")
+
+
+def profile_kernels(name, fn) -> None:
+    """Device time of each CUDA kernel in one call of ``fn``, from a
+    torch.profiler trace (written under results/)."""
+    import torch
+
+    from graph_pde_tpu_torch.train import profile_trace
+
+    with profile_trace(f"results/profile_{name}") as prof:
+        fn()
+        torch.cuda.synchronize()
+    for ms, count, key in kernel_rows(prof):
+        log(f"phase 6: {name} profile: {key[:60]}: {ms:.3f} ms x {count}")
+
+
+def kernel_rows(prof) -> list:
+    """(device ms, count, name) of every kernel in a profile, largest
+    first. A kernel's row has device time and no CPU time of its own;
+    the CPU ops that launched it, which carry its device time too, are
+    left out so that nothing counts twice."""
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = getattr(evt, "cuda_time_total", 0.0)
+        if us > 0 and evt.self_cpu_time_total == 0:
+            rows.append((us / 1e3, evt.count, evt.key))
+    return sorted(rows, reverse=True)
+
+
+def backward_times(g4, kp4, g1, kp1) -> dict:
+    """B1-bwd (bf16, the uai4 training dtype, and float32) at the full
+    uai4 s=241 graph and B2-bwd (bf16 K) at the full uai1 s=61 graph:
+    kernel, plain and library times, operations, bytes."""
+    import torch
+
+    from graph_pde_tpu_torch.models.gkn import _cached_kernel
+    from graph_pde_tpu_torch.ops.dense import dense_apply
+    from graph_pde_tpu_torch.ops.fused_edge_conv import (
+        edge_messages_bwd_plain, fused_edge_messages_bwd)
+    from graph_pde_tpu_torch.ops.fused_iterate import (
+        fused_iterate_bwd, fused_iterate_bwd_plain, sorted_iterate_setup)
+
+    dev = g4.x.device
+    gen = torch.Generator().manual_seed(SEED + 6)
+    rec = {}
+    with torch.inference_mode():
+        e, n = g4.senders.shape[0], g4.x.shape[0]
+        wl = kp4[-1]["w"]
+        kw, c = wl.shape
+        x = torch.randn(n, 64, generator=gen).to(dev)
+        h2 = dense_apply(kp4[:-1], g4.edge_attr, out_nonlinearity=torch.relu)
+        gg = torch.randn(e, 64, generator=gen).to(dev)
+        # three products of E*kw*C multiply-adds, plus dpre, the dx fold
+        # and dbl (3 per element of [E, C]); every input read once and
+        # every output written once
+        prods, elems = 6.0 * e * kw * c, 3.0 * e * c
+        nbytes = (4 * (e * kw + n * 64 + e * 64 + kw * c) + 8 * e
+                  + 4 * (e * 64 + e * kw + kw * c + c))
+        for dt in ("bfloat16", None):
+            kw_args = dict(in_channels=64, out_channels=64, compute_dtype=dt)
+            b1 = lambda: fused_edge_messages_bwd(x, g4.senders, h2, gg, wl,
+                                                 **kw_args)
+            b1p = lambda: edge_messages_bwd_plain(x, g4.senders, h2, gg,
+                                                  wl, **kw_args)
+            # bf16 mode: the products' operands are bf16, so their peak
+            # is the bf16 tensor-core rate, whatever units the kernel uses
+            ops = (dict(bf16_flops=prods, flops=elems) if dt
+                   else dict(flops=prods + elems))
+            key = "B1-bwd" if dt else "B1-bwd float32"
+            rec[key] = dict(ms=time_ms(b1, 2), plain_ms=time_ms(b1p, 1),
+                            library_ms=None, bytes=nbytes,
+                            shape=f"E={e}, kw={kw}, C={c}, {dt or 'float32'}",
+                            **ops)
+            if dt:
+                profile_kernels("B1-bwd", b1)
+        del h2
+        e1, n1 = g1.senders.shape[0], g1.x.shape[0]
+        mask = g1.edge_mask()
+        valid = int(mask.sum())
+        K = _cached_kernel(kp1, g1.edge_attr, torch.bfloat16)
+        setup = sorted_iterate_setup(g1.receivers, mask, n1)
+        dt = torch.randn(n1, 64, generator=gen).to(dev)
+        b2 = lambda: fused_iterate_bwd(K, setup, dt, in_channels=64,
+                                       out_channels=64)
+        b2p = lambda: fused_iterate_bwd_plain(K, setup, dt, in_channels=64,
+                                              out_channels=64)
+        kv = K.view(e1, 64, 64)
+        dm = b2p()[1].to(torch.bfloat16)[:, :, None]
+        lib = lambda: torch.bmm(kv, dm)
+        # K read for the valid edges only (a masked edge reads none)
+        rec["B2-bwd"] = dict(
+            ms=time_ms(b2, 5), plain_ms=time_ms(b2p, 2),
+            library_ms=time_ms(lib, 5), flops=2.0 * valid * 64 * 64,
+            bytes=2 * valid * 64 * 64 + 9 * e1 + 4 * n1 * 64
+            + 4 * e1 * 64 * 2,
+            shape=f"E={e1} ({valid} valid), C=4096, bf16 K")
+        del K, kv, dm
+    for name, r in rec.items():
+        set_bound(r)
+        log(f"phase 6: {name} ({r['shape']}): {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), library {r['library_ms']}")
     return rec
 
 
@@ -486,35 +968,72 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"phase 1: {name}: {line.strip()}")
 
+    from graph_pde_tpu_torch.models import gkn_init
+    from graph_pde_tpu_torch.models.gkn import _member
+
     cfg, params, norms, u_norm, full, split = serving_setup(dev)
     g, h = full_graph(dev, params, norms, full[0])
+    arr4, train4 = training_data(N_TRAIN, S_UAI4, R_UAI4, "unit", 512, SEED)
+    arr1, train1 = training_data(N_TRAIN, S_UAI1, R_UAI1, "gaussian", 0,
+                                 SEED + 1)
+    g4 = _member(train4.to(dev), 0)
+    g1 = _member(train1.to(dev), 0)
+    kp4 = gkn_init(torch.Generator().manual_seed(SEED), uai4_config(),
+                   device=dev)["kernel"]
+    kp1 = gkn_init(torch.Generator().manual_seed(SEED), uai1_config(),
+                   device=dev)["kernel"]
+
     errs = phase_kernels_vs_plain(g, h, params)
+    errs.update(phase_backward_vs_plain(g4, kp4, g1, kp1))
     phase_general_forms(g, dev)
     launches = phase_serving(cfg, params, norms, u_norm, full, split)
     times = phase_times(g, h, params)
     forward_times(g, cfg, params)
 
+    trained = {
+        "uai4 train": phase_training("uai4", uai4_config(), arr4, train4,
+                                     "mse", "unit", 0.5),
+        "uai1 train": phase_training("uai1", uai1_config(), arr1, train1,
+                                     "l1", "gaussian", 0.8)}
+    phase_train_grads("uai4 (fp32)", uai4_config(None),
+                      dataclasses.replace(uai4_config(None), impl="scan"),
+                      "mse", "unit", S_GRAD4, R_GRAD4, 512)
+    phase_train_grads("uai4 (bf16)", uai4_config(), uai4_config(), "mse",
+                      "unit", S_GRAD4, R_GRAD4, 512, tol=GRAD_BF16_TOL,
+                      plain_ctx=plain_on_card)
+    phase_train_grads("uai1", uai1_config(),
+                      dataclasses.replace(uai1_config(), kcached_fused="off"),
+                      "l1", "gaussian", S_GRAD1, R_GRAD1, 0)
+    times.update(backward_times(g4, kp4, g1, kp1))
+    log("phase 6: training step times " + json.dumps(
+        {k: dict(warm_step_ms=v["warm_step_ms"], step_ms=v["step_ms"],
+                 peak_gib=v["peak_gib"]) for k, v in trained.items()}))
+
+    by_path = {f"serving {k}": v for k, v in launches.items()}
+    by_path.update({k: v["launches"] for k, v in trained.items()})
+
+    def record(name, key, source, replaces, err_key):
+        t = times[key]
+        return dict(name=name, route="cuda",
+                    source=f"graph_pde_tpu_torch/csrc/{source}",
+                    replaces=f"graph_pde_tpu/ops/{replaces}",
+                    launches=sum(v.get(key, 0) for v in by_path.values()),
+                    launches_by_path={k: v.get(key, 0)
+                                      for k, v in by_path.items()},
+                    max_abs_err=errs[err_key], ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=t["library_ms"])
+
     records = [
-        dict(name="K1 fused_edge_messages", route="cuda",
-             source="graph_pde_tpu_torch/csrc/fused_edge_conv.cu",
-             replaces="graph_pde_tpu/ops/pallas_edge_conv.py:279",
-             launches=sum(v["K1"] for v in launches.values()),
-             launches_by_path={k: v["K1"] for k, v in launches.items()},
-             max_abs_err=errs["K1 float32"], ms=times["K1"]["ms"],
-             plain_ms=times["K1"]["plain_ms"],
-             bound_ms=times["K1"]["bound_ms"],
-             bound_by=times["K1"]["bound_by"],
-             library_ms=times["K1"]["library_ms"]),
-        dict(name="K2 fused_iterate_total", route="cuda",
-             source="graph_pde_tpu_torch/csrc/fused_iterate.cu",
-             replaces="graph_pde_tpu/ops/fused_iterate.py:61",
-             launches=sum(v["K2"] for v in launches.values()),
-             launches_by_path={k: v["K2"] for k, v in launches.items()},
-             max_abs_err=errs["K2 K=bfloat16"], ms=times["K2"]["ms"],
-             plain_ms=times["K2"]["plain_ms"],
-             bound_ms=times["K2"]["bound_ms"],
-             bound_by=times["K2"]["bound_by"],
-             library_ms=times["K2"]["library_ms"]),
+        record("K1 fused_edge_messages", "K1", "fused_edge_conv.cu",
+               "pallas_edge_conv.py:279", "K1 float32"),
+        record("K2 fused_iterate_total", "K2", "fused_iterate.cu",
+               "fused_iterate.py:61", "K2 K=bfloat16"),
+        record("B1-bwd fused_edge_messages_bwd", "B1-bwd",
+               "fused_edge_conv_bwd.cu", "pallas_edge_conv.py:347",
+               "B1-bwd float32"),
+        record("B2-bwd fused_iterate_bwd", "B2-bwd", "fused_iterate_bwd.cu",
+               "fused_iterate.py:85", "B2-bwd K=bfloat16"),
     ]
     log(json.dumps({"kernels": records}))
     log(ident)

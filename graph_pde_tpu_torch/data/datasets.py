@@ -1,0 +1,223 @@
+"""Darcy dataset builders: PDE fields -> padded, stacked Graph batches
+(counterpart of the Darcy part of graph_pde_tpu/data/datasets.py).
+
+- ``load_or_generate_darcy``: synthetic Darcy fields, cached on disk.
+- ``prepare_darcy``: downsample, flatten, normalize (GaussianNormalizer
+  on coeff/Kcoeff/Kcoeff_x/Kcoeff_y; UnitGaussian or Gaussian on sol).
+- ``darcy_gkn_graphs``: full-grid (UAI1 protocol, one mesh shared by all
+  samples) or Nystrom-sampled (m nodes, k graphs per sample) GKN graphs,
+  flat or blocked-CSR (``node_block``). Node features [x, y, a, a_smooth,
+  a_gradx, a_grady]; edge attributes [x_i, x_j, a_i, a_j].
+- ``batch_iterator``: stacked sub-batches of a leading-batch-axis tree.
+
+The builders are host numpy and give the same arrays as the JAX
+package's from the same seed. Burgers and MGKN data are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..graph.graph import (_ARRAY_FIELDS, Graph, build_graph, round_up,
+                           stack_graphs)
+from ..graph.mesh import RandomMeshGenerator, SquareMeshGenerator
+from ..utils.normalizers import GaussianNormalizer, UnitGaussianNormalizer
+
+
+def load_or_generate_darcy(n: int, s: int, seed: int = 0,
+                           cache_dir: str = ".data_cache"
+                           ) -> Dict[str, np.ndarray]:
+    """Synthetic Darcy fields, cached as ``.npz`` under ``cache_dir``
+    (generation at s=241 costs about half a second per sample)."""
+    os.makedirs(cache_dir, exist_ok=True)
+    path = os.path.join(cache_dir, f"darcy_n{n}_s{s}_seed{seed}.npz")
+    if os.path.exists(path):
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+    from .synthetic import darcy_dataset
+
+    data = darcy_dataset(n, s, seed=seed)
+    np.savez_compressed(path, **data)
+    return data
+
+
+def _np(v) -> np.ndarray:
+    return v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+@dataclasses.dataclass
+class DarcyArrays:
+    """Normalized flat per-sample fields [n, s*s] and the u normalizer."""
+    a: np.ndarray
+    a_smooth: np.ndarray
+    a_gradx: np.ndarray
+    a_grady: np.ndarray
+    u: np.ndarray           # encoded
+    u_normalizer: object
+    s: int
+
+
+def prepare_darcy(fields: Dict[str, np.ndarray], n: int, r: int = 1,
+                  normalizers: Optional[dict] = None,
+                  u_norm: str = "unit",
+                  u_normalizer=None) -> Tuple[DarcyArrays, dict]:
+    """Downsamples by r, flattens and normalizes. Returns the arrays and
+    the fitted input normalizers (pass them back in for a test set). With
+    ``u_normalizer`` given, u stays un-encoded, as in the reference."""
+    def ds(x):
+        return x[:n, ::r, ::r].reshape(n, -1)
+
+    a = ds(fields["coeff"])
+    a_s = ds(fields["Kcoeff"])
+    a_gx = ds(fields["Kcoeff_x"])
+    a_gy = ds(fields["Kcoeff_y"])
+    u = ds(fields["sol"])
+    s = fields["coeff"][:, ::r, ::r].shape[1]
+
+    if normalizers is None:
+        normalizers = {
+            "a": GaussianNormalizer(a),
+            "a_smooth": GaussianNormalizer(a_s),
+            "a_gradx": GaussianNormalizer(a_gx),
+            "a_grady": GaussianNormalizer(a_gy),
+        }
+    a = _np(normalizers["a"].encode(a))
+    a_s = _np(normalizers["a_smooth"].encode(a_s))
+    a_gx = _np(normalizers["a_gradx"].encode(a_gx))
+    a_gy = _np(normalizers["a_grady"].encode(a_gy))
+
+    if u_normalizer is None:
+        u_normalizer = (UnitGaussianNormalizer(u) if u_norm == "unit"
+                        else GaussianNormalizer(u))
+        u_enc = _np(u_normalizer.encode(u))
+    else:
+        u_enc = u
+    return (DarcyArrays(a, a_s, a_gx, a_gy, u_enc, u_normalizer, s),
+            normalizers)
+
+
+def _darcy_node_features(grid, arrays: DarcyArrays, j: int, idx):
+    cols = [grid]
+    for f in (arrays.a, arrays.a_smooth, arrays.a_gradx, arrays.a_grady):
+        v = f[j] if idx is None else f[j][idx]
+        cols.append(v.reshape(-1, 1))
+    return np.concatenate(cols, axis=1)
+
+
+def darcy_gkn_graphs(
+    arrays: DarcyArrays,
+    *,
+    m: Optional[int] = None,
+    k: int = 1,
+    radius: float = 0.25,
+    seed: int = 0,
+    edge_multiple: int = 512,
+    n_edge_pad: Optional[int] = None,
+    node_block: int = 0,
+) -> Graph:
+    """Stacked host GKN graphs. m=None: the full grid, one mesh shared
+    by every sample; m set: Nystrom sampling, k graphs per sample.
+    ``node_block`` > 0 emits the blocked-CSR layout with one per-block
+    edge capacity across the batch."""
+    s = arrays.s
+    n = arrays.a.shape[0]
+    raw = []
+    if m is None:
+        gen = SquareMeshGenerator([[0, 1], [0, 1]], [s, s])
+        ei = gen.ball_connectivity(radius)
+        grid = gen.get_grid()
+        for j in range(n):
+            attr = gen.attributes(theta=arrays.a[j])
+            x = _darcy_node_features(grid, arrays, j, None)
+            raw.append((x, ei, attr, arrays.u[j], np.arange(s * s)))
+    else:
+        gen = RandomMeshGenerator([[0, 1], [0, 1]], [s, s], sample_size=m,
+                                  seed=seed)
+        for j in range(n):
+            for _ in range(k):
+                idx = gen.sample()
+                grid = gen.get_grid()
+                ei = gen.ball_connectivity(radius)
+                attr = gen.attributes(theta=arrays.a[j])
+                x = _darcy_node_features(grid, arrays, j, idx)
+                raw.append((x, ei, attr, arrays.u[j][idx], idx))
+
+    e_max = max(r[1].shape[1] for r in raw)
+    e_pad = n_edge_pad or round_up(e_max, edge_multiple)
+    n_pad = round_up(raw[0][0].shape[0], 8)
+    if node_block:
+        bec = 0
+        for (x, ei, attr, y, si) in raw:
+            g = build_graph(x, ei[0], ei[1], attr, node_block=node_block,
+                            edge_multiple=edge_multiple)
+            bec = max(bec, g.senders.shape[0] // (g.x.shape[0] // node_block))
+        graphs = [
+            build_graph(x, ei[0], ei[1], attr, y=y, sample_idx=si,
+                        n_node_pad=n_pad, node_block=node_block,
+                        block_edge_cap=bec, edge_multiple=edge_multiple)
+            for (x, ei, attr, y, si) in raw
+        ]
+        return stack_graphs(graphs)
+    graphs = [
+        build_graph(x, ei[0], ei[1], attr, y=y, sample_idx=si,
+                    n_node_pad=n_pad, n_edge_pad=e_pad)
+        for (x, ei, attr, y, si) in raw
+    ]
+    return stack_graphs(graphs)
+
+
+def map_arrays(fn, tree):
+    """``fn`` applied to every array (numpy or torch) of a tree of
+    Graphs, dicts, tuples and lists; other leaves are kept."""
+    if isinstance(tree, Graph):
+        return dataclasses.replace(tree, **{
+            f: fn(getattr(tree, f)) for f in _ARRAY_FIELDS
+            if getattr(tree, f) is not None})
+    if isinstance(tree, dict):
+        return {k: map_arrays(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_arrays(fn, v) for v in tree)
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
+        return fn(tree)
+    return tree
+
+
+def leading_size(tree) -> int:
+    """The leading (batch) size of a stacked tree."""
+    if isinstance(tree, Graph):
+        return tree.x.shape[0]
+    if isinstance(tree, dict):
+        return leading_size(next(iter(tree.values())))
+    if isinstance(tree, (tuple, list)):
+        return leading_size(tree[0])
+    return tree.shape[0]
+
+
+def batch_iterator(stacked, batch_size: int,
+                   rng: Optional[np.random.Generator] = None,
+                   drop_remainder: bool = True):
+    """Yields stacked sub-batches of a leading-batch-axis tree, in an
+    order shuffled by ``rng`` when one is given."""
+    n = leading_size(stacked)
+    order = np.arange(n)
+    if rng is not None:
+        rng.shuffle(order)
+    end = (n // batch_size) * batch_size if drop_remainder else n
+    for i in range(0, end, batch_size):
+        sel = order[i: i + batch_size]
+
+        def take(a, sel=sel):
+            if isinstance(a, torch.Tensor):
+                return a[torch.as_tensor(sel, device=a.device)]
+            return a[sel]
+
+        yield map_arrays(take, stacked)
+
+
+__all__ = ["load_or_generate_darcy", "DarcyArrays", "prepare_darcy",
+           "darcy_gkn_graphs", "batch_iterator", "map_arrays",
+           "leading_size"]

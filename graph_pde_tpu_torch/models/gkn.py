@@ -8,7 +8,10 @@ shared across the depth steps.
 ``impl='kcached'`` computes the kernel matrices K once per forward and
 reuses them at every depth step, either through the unfused plain path
 (gather, ``apply_cached_kernel``, masked mean) or, with
-``kcached_fused``, through the K2 kernel (ops/fused_iterate.py). A batch
+``kcached_fused``, through the K2 kernel (ops/fused_iterate.py). Every
+path is differentiable: the fused ops are autograd Functions with
+backward kernels, and autograd differentiates the cached K's chunked
+build. A batch
 runs as one flattened graph, but its gates read one graph's sizes (as
 the JAX package's per-graph vmap does), so a config takes the same
 branch and the same K dtype in both packages.
@@ -23,7 +26,8 @@ import torch
 from ..device import DeviceLike
 from ..graph.graph import Graph, flatten_stacked
 from ..ops.cached_contraction import apply_cached_kernel, maybe_quantize_k
-from ..ops.dense import dense_apply, dense_init, linear_init, pyg_uniform_init
+from ..ops.dense import (dense_apply, dense_init, linear_init,
+                         pyg_uniform_init)
 from ..ops.edge_conv import _cast_params, _resolve_dtype, edge_kernel_conv
 from ..ops.fused_iterate import (fused_iterate_supported,
                                  fused_iterate_total, sorted_iterate_setup)
@@ -54,9 +58,9 @@ class GKNConfig:
     use_bias: bool = True
     impl: str = "auto"
     compute_dtype: Optional[str] = None  # e.g. 'bfloat16'
-    loop_vjp: bool = False      # kcached training option: not ported yet
+    loop_vjp: bool = False      # kcached training option: not ported
     batch_mode: str = "vmap"    # gates see one graph ('vmap') or the batch
-    k_storage: Optional[str] = None  # kcached fp8 storage: not ported yet
+    k_storage: Optional[str] = None  # kcached fp8 storage: not ported
     kcached_fused: str = "off"  # 'off' | 'on' | 'auto'
 
     def resolved_kernel_layers(self) -> Tuple[int, ...]:
@@ -114,7 +118,10 @@ def _relu_after(cfg: GKNConfig, t: int) -> bool:
 
 def _cached_kernel(kp, attr, k_dtype) -> torch.Tensor:
     """K = kappa(attr) in edge chunks, each cast to the storage dtype:
-    the numbers of one large dense_apply without its float32 peak."""
+    the numbers of one large dense_apply without its float32 peak.
+    Autograd differentiates the chunks in attr and every kappa parameter,
+    as JAX differentiates dense_apply(...).astype; it keeps each chunk's
+    hidden activations for the backward."""
     e = attr.shape[0]
     kk = torch.empty((e, kp[-1]["w"].shape[1]), dtype=k_dtype,
                      device=attr.device)
@@ -127,8 +134,11 @@ def _cached_kernel(kp, attr, k_dtype) -> torch.Tensor:
 def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask, dtype,
              gate_e: int, gate_n: int):
     if cfg.loop_vjp:
-        raise NotImplementedError("loop_vjp is a training option; the "
-                                  "training slice is not ported yet")
+        raise NotImplementedError(
+            "loop_vjp (the loop-level custom VJP of the JAX package's "
+            "ops/kcached_loop.py, measured slower than plain autodiff "
+            "there) is not ported; autograd differentiates the depth loop "
+            "with loop_vjp=False")
     w = cfg.width
     big = gate_e * w * w * 4 > _KCACHED_F32_MAX_BYTES
     k_dtype = torch.bfloat16 if (dtype is not None or big) else torch.float32

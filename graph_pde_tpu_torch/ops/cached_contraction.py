@@ -29,13 +29,15 @@ def apply_cached_kernel(x_src: torch.Tensor, kk2d: torch.Tensor,
 
 
 def maybe_quantize_k(kk: torch.Tensor, k_storage) -> torch.Tensor:
-    """The cached-K storage policy: None keeps K as it is; the fp8 forms
-    of the JAX package are not ported yet."""
+    """The cached-K storage policy: None keeps K as it is. The JAX
+    package's fp8 storage (a straight-through estimator in training,
+    1-byte K streamed by its kernels) is not ported."""
     if k_storage is None:
         return kk
     if k_storage in ("float8_e4m3", "float8_e5m2"):
         raise NotImplementedError(
-            f"k_storage={k_storage!r} (fp8 cached K) is not ported yet")
+            f"k_storage={k_storage!r} (fp8 cached K behind a straight-"
+            "through estimator) is not ported; use k_storage=None")
     raise ValueError(f"unknown k_storage {k_storage!r}")
 
 

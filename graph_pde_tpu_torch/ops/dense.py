@@ -70,5 +70,17 @@ def layer_dims(kernel_params) -> Tuple[Tuple[int, int], ...]:
     return tuple((p["w"].shape[0], p["w"].shape[1]) for p in kernel_params)
 
 
+def flatten_params(kernel_params) -> list:
+    """A DenseNet's tensors as (w0, b0, w1, b1, ...), the form autograd
+    Functions take them in."""
+    return [t for p in kernel_params for t in (p["w"], p["b"])]
+
+
+def unflatten_params(weights) -> Tuple:
+    """The inverse of ``flatten_params``."""
+    return tuple({"w": w, "b": b} for w, b in zip(weights[0::2],
+                                                  weights[1::2]))
+
+
 __all__ = ["linear_init", "pyg_uniform_init", "dense_init", "dense_apply",
-           "layer_dims"]
+           "layer_dims", "flatten_params", "unflatten_params"]

@@ -1,20 +1,31 @@
-"""Fused edge messages (counterpart of graph_pde_tpu/ops/pallas_edge_conv.py,
-forward only).
+"""Fused edge messages and their gradient (counterpart of
+graph_pde_tpu/ops/pallas_edge_conv.py).
 
     msg[e, o] = sum_i x[senders[e], i] * kappa(edge_attr[e])[i * out + o]
 
-with kappa the edge-kernel DenseNet. The CUDA kernel (``csrc/
+with kappa the edge-kernel DenseNet. The forward CUDA kernel (``csrc/
 fused_edge_conv.cu``, K1) runs the whole MLP and the contraction per tile
 of edges, so the [E, in * out] kernel matrices never reach device memory.
 Its single-launch form takes the GKN shapes; a general form takes every
 other shape the JAX gate admits (see the source).
-``fused_edge_messages`` launches it for CUDA tensors and runs the plain
-PyTorch version, ``edge_messages_plain``, for CPU tensors; on CUDA it
-launches the kernel or raises, it never falls back.
 
-``compute_dtype='bfloat16'`` rounds as the JAX kernel does: GEMM operands
-are bf16 with fp32 accumulation, biases stay fp32, and each K * x
-product is rounded to bf16 before the sum over i.
+``fused_edge_messages`` is a ``torch.autograd.Function``, as the JAX
+version is a ``custom_vjp``. The backward recomputes the small kappa
+layers in float32 with torch matmuls, runs the backward kernel (``csrc/
+fused_edge_conv_bwd.cu``, B1-bwd) for the last layer and the contraction
+(dx_src, dh2, dWl, dbl; neither [E, in * out] intermediate reaches
+device memory), adds the last bias's term g @ b_mat^T, backprops the
+small layers with torch matmuls, and scatter-adds dx_src onto the
+senders. The same Function runs on both devices: CUDA tensors launch the
+kernels (or raise, never falling back), CPU tensors take the plain
+PyTorch versions ``edge_messages_plain`` and ``edge_messages_bwd_plain``.
+
+``compute_dtype='bfloat16'`` rounds as the JAX kernels do. Forward: GEMM
+operands are bf16 with fp32 accumulation, biases stay fp32, and each
+K * x product is rounded to bf16 before the sum over i. Backward (the
+merged o-major kernel): the operands of h2 @ Wl, dpre @ Wl^T and
+h2^T @ dpre are bf16, dpre = bf16(x) * g is kept in fp32 for dbl, and
+g and the dx sums stay fp32.
 
 The JAX kernel's selector GEMMs, o/i-major layouts, resident/streamed Wl
 split and VMEM fit gates work around Mosaic and have no counterpart here.
@@ -25,7 +36,7 @@ import ctypes
 
 import torch
 
-from .dense import layer_dims
+from .dense import flatten_params, layer_dims, unflatten_params
 from . import kernels
 
 C_CHUNK = 1024          # the JAX gate's column chunk
@@ -66,17 +77,18 @@ def _is_bf16(compute_dtype) -> bool:
     return compute_dtype in ("bfloat16", torch.bfloat16)
 
 
+def _rounder(compute_dtype):
+    if _is_bf16(compute_dtype):
+        return lambda t: t.to(torch.bfloat16).to(torch.float32)
+    return lambda t: t
+
+
 def edge_messages_plain(x, senders, edge_attr, kernel_params, *,
                         in_channels: int, out_channels: int,
                         compute_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: [E, out] float32 messages,
     computed in edge chunks so that K exists one chunk at a time."""
-    if _is_bf16(compute_dtype):
-        def rnd(t):
-            return t.to(torch.bfloat16).to(torch.float32)
-    else:
-        def rnd(t):
-            return t
+    rnd = _rounder(compute_dtype)
     small, last = kernel_params[:-1], kernel_params[-1]
     wl, bl = rnd(last["w"]), last["b"]
     ws = [(rnd(p["w"]), p["b"]) for p in small]
@@ -94,12 +106,34 @@ def edge_messages_plain(x, senders, edge_attr, kernel_params, *,
     return out
 
 
-def _kernel_fn(name: str, argtypes):
-    fn = getattr(kernels.load("fused_edge_conv"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+def edge_messages_bwd_plain(x, senders, h2, g, wl, *, in_channels: int,
+                            out_channels: int, compute_dtype=None):
+    """Plain PyTorch version of the backward kernel, in edge chunks:
+    (dx_src [E, in], dh2 [E, kw], dWl [kw, in * out], dbl [in * out]),
+    all float32, from the last hidden activations h2 [E, kw], the
+    messages' cotangent g [E, out] and the last weight Wl. dx_src holds
+    the h2 @ Wl term only (no bias)."""
+    rnd = _rounder(compute_dtype)
+    e, kw = h2.shape
+    c = in_channels * out_channels
+    wlr = rnd(wl)
+    dev = h2.device
+    dx_src = torch.empty((e, in_channels), dtype=torch.float32, device=dev)
+    dh2 = torch.empty((e, kw), dtype=torch.float32, device=dev)
+    dwl = torch.zeros((kw, c), dtype=torch.float32, device=dev)
+    dbl = torch.zeros((c,), dtype=torch.float32, device=dev)
+    for s0 in range(0, e, _PLAIN_CHUNK):
+        s1 = min(e, s0 + _PLAIN_CHUNK)
+        h2c, gc = rnd(h2[s0:s1]), g[s0:s1]
+        h3 = (h2c @ wlr).view(s1 - s0, in_channels, out_channels)
+        dx_src[s0:s1] = torch.einsum("eio,eo->ei", h3, gc)
+        xs = rnd(x.index_select(0, senders[s0:s1]))
+        dpre = (xs[:, :, None] * gc[:, None, :]).reshape(s1 - s0, c)
+        dpre_r = rnd(dpre)
+        dh2[s0:s1] = dpre_r @ wlr.T
+        dwl += h2c.T @ dpre_r
+        dbl += dpre.sum(dim=0)
+    return dx_src, dh2, dwl, dbl
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -113,7 +147,7 @@ def _launch_fast(x, senders, edge_attr, weights, msg, dims, in_channels,
     ptrs = [x, senders, edge_attr, *weights, msg]
     if any(t.data_ptr() % 16 for t in ptrs):
         raise ValueError("edge-message kernel needs 16-byte aligned tensors")
-    fn = _kernel_fn("gpde_edge_messages", _FAST_ARGS)
+    fn = kernels.fn("fused_edge_conv", "gpde_edge_messages", _FAST_ARGS)
     return fn(*[t.data_ptr() for t in ptrs], senders.shape[0], in_channels,
               dims[0][0], dims[0][1], dims[1][1], rb, stream)
 
@@ -123,8 +157,9 @@ def _launch_general(x, senders, edge_attr, weights, msg, in_channels,
     """Per chunk of edges: one dense_relu launch per small layer (the
     activations live in a scratch buffer), then the last layer and the
     contraction in one launch."""
-    dense = _kernel_fn("gpde_dense_relu", _DENSE_ARGS)
-    last = _kernel_fn("gpde_last_contract", _LAST_ARGS)
+    dense = kernels.fn("fused_edge_conv", "gpde_dense_relu", _DENSE_ARGS)
+    last = kernels.fn("fused_edge_conv", "gpde_last_contract",
+                      _LAST_ARGS)
     small = [(weights[2 * j], weights[2 * j + 1])
              for j in range(len(weights) // 2 - 1)]
     wl, bl = weights[-2], weights[-1]
@@ -151,11 +186,10 @@ def _launch_general(x, senders, edge_attr, weights, msg, in_channels,
     return 0
 
 
-def _launch(x, senders, edge_attr, kernel_params, in_channels,
+def _launch(x, senders, edge_attr, weights, in_channels,
             out_channels, compute_dtype) -> torch.Tensor:
-    dims = layer_dims(kernel_params)
+    dims = layer_dims(unflatten_params(weights))
     dev = x.device
-    weights = [t for p in kernel_params for t in (p["w"], p["b"])]
     for t in [x, edge_attr, *weights]:
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError("edge-message kernel takes float32 tensors on "
@@ -184,27 +218,156 @@ def _launch(x, senders, edge_attr, kernel_params, in_channels,
     return msg
 
 
+_BWD_ARGS = [_P] * 11 + [_I64, _I, _I, _I, _I, _I, _I, _P]
+
+
+def bwd_splits(e: int, kw: int, c: int, sms: int):
+    """(dWl splits, dbl splits) of the backward kernel on a card with
+    ``sms`` multiprocessors: as many dWl partial slabs as keep the split-K
+    grid at or under four waves of two blocks per SM (a whole number of
+    waves where the tiles divide it), each over at least 1024 edges; and
+    one dbl partial row per 4096 edges."""
+    tiles = -(-kw // 128) * -(-c // 128)
+    splits = max(1, min(32, 8 * sms // tiles, -(-e // 1024)))
+    return splits, max(1, -(-e // 4096))
+
+
+def _launch_bwd(x, senders, h2, g, wl, in_channels, out_channels,
+                compute_dtype):
+    dev = x.device
+    for t in (x, h2, g, wl):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError("edge-message backward kernel takes float32 "
+                             "tensors on one CUDA device")
+    if senders.device != dev or senders.dtype != torch.int64:
+        raise ValueError("senders must be int64 on the features' device")
+    e, kw = h2.shape
+    c = in_channels * out_channels
+    if (x.shape[1] != in_channels or senders.shape != (e,)
+            or g.shape != (e, out_channels) or wl.shape != (kw, c)):
+        raise ValueError("x / senders / h2 / g / Wl shapes disagree")
+    if c >= 2 ** 31:
+        raise ValueError("edge-message backward kernel takes in * out "
+                         "< 2^31")
+    x, senders, h2, g, wl = (t.contiguous() for t in (x, senders, h2, g, wl))
+    if any(t.data_ptr() % 16 for t in (x, h2, g, wl)):
+        raise ValueError("edge-message backward kernel needs 16-byte "
+                         "aligned tensors")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, dbl_splits = bwd_splits(e, kw, c, sms)
+
+    def new(*shape, zero=False):
+        fn = torch.zeros if zero else torch.empty
+        return fn(shape, dtype=torch.float32, device=dev)
+
+    dx_src, dh2 = new(e, in_channels, zero=True), new(e, kw)
+    dwl, dbl = new(kw, c), new(c)
+    part_w, part_b = new(splits, kw, c), new(dbl_splits, c)
+    fn = kernels.fn("fused_edge_conv_bwd", "gpde_edge_messages_bwd",
+                    _BWD_ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in (h2, x, senders, g, wl, dx_src, dh2,
+                                          dwl, dbl, part_w, part_b)],
+                 e, kw, in_channels, out_channels, splits, dbl_splits,
+                 int(_is_bf16(compute_dtype)), stream)
+    kernels.check(err, "edge-message backward kernel launch")
+    fused_edge_messages_bwd.launches += 1
+    return dx_src, dh2, dwl, dbl
+
+
+def fused_edge_messages_bwd(x, senders, h2, g, wl, *, in_channels: int,
+                            out_channels: int, compute_dtype=None):
+    """The backward of the last kappa layer and the contraction:
+    (dx_src, dh2, dWl, dbl) as ``edge_messages_bwd_plain`` defines them.
+
+    CUDA tensors launch the B1-bwd kernel (counted in
+    ``fused_edge_messages_bwd.launches``); CPU tensors take the plain
+    version."""
+    if x.is_cuda:
+        return _launch_bwd(x, senders, h2, g, wl, in_channels, out_channels,
+                           compute_dtype)
+    return edge_messages_bwd_plain(x, senders, h2, g, wl,
+                                   in_channels=in_channels,
+                                   out_channels=out_channels,
+                                   compute_dtype=compute_dtype)
+
+
+fused_edge_messages_bwd.launches = 0
+
+
+class _FusedEdgeMessages(torch.autograd.Function):
+    """msg = x[senders] @ kappa(edge_attr), with the JAX custom_vjp's
+    backward (pallas_edge_conv.py:826-857). ``weights`` is the kappa
+    DenseNet flattened as (w0, b0, w1, b1, ..., Wl, bl)."""
+
+    @staticmethod
+    def forward(ctx, x, senders, edge_attr, in_channels, out_channels,
+                compute_dtype, *weights):
+        ctx.save_for_backward(x, senders, edge_attr, *weights)
+        ctx.shape = (in_channels, out_channels, compute_dtype)
+        if x.is_cuda:
+            return _launch(x, senders, edge_attr, weights, in_channels,
+                           out_channels, compute_dtype)
+        return edge_messages_plain(x, senders, edge_attr,
+                                   unflatten_params(weights),
+                                   in_channels=in_channels,
+                                   out_channels=out_channels,
+                                   compute_dtype=compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, senders, attr, *weights = ctx.saved_tensors
+        in_channels, out_channels, compute_dtype = ctx.shape
+        n_small = len(weights) // 2 - 1
+        # the small layers, recomputed in float32 (as the JAX backward
+        # does, whatever the compute dtype)
+        hs = [attr]
+        for j in range(n_small):
+            hs.append(torch.relu(hs[-1] @ weights[2 * j]
+                                 + weights[2 * j + 1]))
+        g = g.contiguous().to(torch.float32)
+        wl, bl = weights[-2], weights[-1]
+        dx_src, dcur, dwl, dbl = fused_edge_messages_bwd(
+            x, senders, hs[-1], g, wl, in_channels=in_channels,
+            out_channels=out_channels, compute_dtype=compute_dtype)
+        # K = h2 @ Wl + bl: the bias's share of dx_src
+        dx_src = dx_src + g @ bl.view(in_channels, out_channels).T
+        grads = [None] * len(weights)
+        grads[-2], grads[-1] = dwl, dbl
+        for j in reversed(range(n_small)):
+            dpre = dcur * (hs[j + 1] > 0)
+            grads[2 * j] = hs[j].T @ dpre
+            grads[2 * j + 1] = dpre.sum(dim=0)
+            dcur = dpre @ weights[2 * j].T
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.zeros_like(x).index_add_(0, senders, dx_src)
+        dattr = dcur if ctx.needs_input_grad[2] else None
+        return (dx, None, dattr, None, None, None, *grads)
+
+
 def fused_edge_messages(x, senders, edge_attr, kernel_params, *,
                         in_channels: int, out_channels: int,
                         compute_dtype=None) -> torch.Tensor:
-    """[E, out] float32 messages x[senders] @ kappa(edge_attr), fused.
+    """[E, out] float32 messages x[senders] @ kappa(edge_attr), fused,
+    differentiable in x, edge_attr and every kappa parameter.
 
     CUDA tensors launch the K1 kernel (counted in
-    ``fused_edge_messages.launches``, once per call in either form); CPU
-    tensors take the plain version."""
+    ``fused_edge_messages.launches``, once per call in either form) and,
+    in the backward, the B1-bwd kernel; CPU tensors take the plain
+    versions."""
     if not fused_path_supported(kernel_params, in_channels, out_channels):
         raise ValueError("fused path unsupported for this kernel shape; "
                          "use impl='scan'")
-    if x.is_cuda:
-        return _launch(x, senders, edge_attr, kernel_params, in_channels,
-                       out_channels, compute_dtype)
-    return edge_messages_plain(x, senders, edge_attr, kernel_params,
-                               in_channels=in_channels,
-                               out_channels=out_channels,
-                               compute_dtype=compute_dtype)
+    return _FusedEdgeMessages.apply(x, senders, edge_attr, in_channels,
+                                    out_channels, compute_dtype,
+                                    *flatten_params(kernel_params))
 
 
 fused_edge_messages.launches = 0
 
 __all__ = ["fused_edge_messages", "edge_messages_plain",
-           "fused_path_supported", "kernel_shape_supported", "C_CHUNK"]
+           "fused_edge_messages_bwd", "edge_messages_bwd_plain",
+           "fused_path_supported", "kernel_shape_supported", "bwd_splits",
+           "C_CHUNK"]

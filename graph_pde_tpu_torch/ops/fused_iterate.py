@@ -1,6 +1,6 @@
 """Cached-K iteration: per-edge contraction and per-node masked sum in
-one kernel (counterpart of graph_pde_tpu/ops/fused_iterate.py, forward
-only).
+one kernel, and its gradient (counterpart of
+graph_pde_tpu/ops/fused_iterate.py).
 
     total[n] = sum_{e: recv[e] = n, mask[e]} x[senders[e]] @ K[e].reshape(in, out)
 
@@ -10,11 +10,20 @@ invariant across the steps: the CSR row pointer of the sorted receivers
 and the clamped valid-edge counts (the mean's divisor). The CUDA kernel
 (``csrc/fused_iterate.cu``, K2) walks each node's CSR row and writes the
 node's sum once; the [E, out] messages never reach device memory and no
-one-hot is built. ``fused_iterate_total`` launches it for CUDA tensors
-and runs ``fused_iterate_total_plain`` for CPU tensors.
+one-hot is built.
+
+``fused_iterate_total`` is a ``torch.autograd.Function``, as the JAX
+version is a ``custom_vjp``. Its backward runs one kernel (``csrc/
+fused_iterate_bwd.cu``, B2-bwd) for dmsg[e] = mask[e] * dtotal[recv[e]]
+and dxj = K . dmsg; dK = xj (x) dmsg is formed outside the kernel in K's
+dtype (as in JAX, so the depth steps' dK contributions accumulate in
+that dtype), and dxj is scatter-added onto the senders. CUDA tensors
+launch the kernels (or raise, never falling back); CPU tensors take the
+plain versions ``fused_iterate_total_plain`` and
+``fused_iterate_bwd_plain``.
 
 K may be float32 or bfloat16; either way it is upcast to float32 before
-the multiply and x is not rounded (the JAX kernel does the same).
+the multiply and x is not rounded (the JAX kernels do the same).
 """
 from __future__ import annotations
 
@@ -28,7 +37,8 @@ from .segment import segment_counts
 
 BLOCK_E = 512    # the JAX kernel's edge block (edge capacity multiple)
 C_CHUNK = 1024   # the JAX kernel's column chunk
-_MAX_OUT = 1024  # out_channels bound of the CUDA kernel (the gate implies it)
+_MAX_OUT = 1024  # out_channels bound of the CUDA kernels (the gate implies it)
+_COLS = 4096     # K columns per pass of the backward kernel
 _PLAIN_CHUNK = 65536
 
 
@@ -89,27 +99,45 @@ def fused_iterate_total_plain(x, senders, K, setup: IterateSetup, *,
     return total
 
 
-def _kernel_fn():
-    lib = kernels.load("fused_iterate")
-    fn = lib.gpde_iterate_total
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6
-                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+def fused_iterate_bwd_plain(K, setup: IterateSetup, dtotal, *,
+                            in_channels: int, out_channels: int):
+    """Plain PyTorch version of the backward kernel: (dxj [E, in],
+    dmsg [E, out]) float32, computed in edge chunks."""
+    e = K.shape[0]
+    dmsg = torch.where(setup.mask[:, None],
+                       dtotal.index_select(0, setup.receivers), 0.0)
+    dxj = torch.empty((e, in_channels), dtype=torch.float32,
+                      device=K.device)
+    for s0 in range(0, e, _PLAIN_CHUNK):
+        s1 = min(e, s0 + _PLAIN_CHUNK)
+        kk = K[s0:s1].to(torch.float32).view(s1 - s0, in_channels,
+                                              out_channels)
+        dxj[s0:s1] = torch.einsum("eio,eo->ei", kk, dmsg[s0:s1])
+    return dxj, dmsg
+
+
+# (pointer operands..., rows, in, out, K is bf16, stream)
+_ARGS = ([ctypes.c_void_p] * 6
+         + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p])
+
+
+def _check_k(K, in_channels: int, out_channels: int) -> None:
+    if out_channels > _MAX_OUT:
+        raise ValueError(f"CUDA iteration kernels take out_channels <= "
+                         f"{_MAX_OUT}, not {out_channels}")
+    if K.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"cached K must be float32 or bfloat16, not "
+                         f"{K.dtype}")
+    if K.shape[1] != in_channels * out_channels:
+        raise ValueError("K rows must hold in_channels * out_channels")
 
 
 def _launch(x, senders, K, setup: IterateSetup, in_channels: int,
             out_channels: int) -> torch.Tensor:
     c = in_channels * out_channels
-    if out_channels > _MAX_OUT:
-        raise ValueError(f"CUDA iteration kernel takes out_channels <= "
-                         f"{_MAX_OUT}, not {out_channels}")
+    _check_k(K, in_channels, out_channels)
     dev = x.device
-    if K.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"cached K must be float32 or bfloat16, not "
-                         f"{K.dtype}")
     if x.dtype != torch.float32 or x.shape[1] != in_channels:
         raise ValueError("x must be float32 [N, in_channels]")
     e = senders.shape[0]
@@ -128,7 +156,7 @@ def _launch(x, senders, K, setup: IterateSetup, in_channels: int,
     ptrs = tensors + [out]
     if any(t.data_ptr() % 16 for t in (ptrs[0], ptrs[2])):
         raise ValueError("iteration kernel needs 16-byte aligned x and K")
-    fn = _kernel_fn()
+    fn = kernels.fn("fused_iterate", "gpde_iterate_total", _ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[t.data_ptr() for t in ptrs], n, in_channels,
@@ -138,23 +166,116 @@ def _launch(x, senders, K, setup: IterateSetup, in_channels: int,
     return out
 
 
+def _launch_bwd(K, setup: IterateSetup, dtotal, in_channels: int,
+                out_channels: int):
+    _check_k(K, in_channels, out_channels)
+    c = in_channels * out_channels
+    if c > _COLS and _COLS % out_channels:
+        raise ValueError("iteration backward kernel needs in * out <= "
+                         f"{_COLS} or out_channels dividing {_COLS}")
+    dev = K.device
+    e = K.shape[0]
+    K = K.contiguous()
+    dtotal = dtotal.contiguous().to(torch.float32)
+    if dtotal.shape != (setup.num_segments, out_channels):
+        raise ValueError("dtotal must be [N, out_channels]")
+    for t in (setup.mask, setup.receivers, dtotal):
+        if t.device != dev:
+            raise ValueError("iteration backward operands must share one "
+                             "CUDA device")
+    if setup.receivers.dtype != torch.int64 or K.data_ptr() % 16:
+        raise ValueError("receivers must be int64 and K 16-byte aligned")
+    dxj = torch.empty((e, in_channels), dtype=torch.float32, device=dev)
+    dmsg = torch.empty((e, out_channels), dtype=torch.float32, device=dev)
+    fn = kernels.fn("fused_iterate_bwd", "gpde_iterate_bwd", _ARGS)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[t.data_ptr() for t in (K, setup.mask, setup.receivers,
+                                          dtotal, dxj, dmsg)],
+                 e, in_channels, out_channels,
+                 int(K.dtype == torch.bfloat16), stream)
+    kernels.check(err, "iteration backward kernel launch")
+    fused_iterate_bwd.launches += 1
+    return dxj, dmsg
+
+
+def fused_iterate_bwd(K, setup: IterateSetup, dtotal, *, in_channels: int,
+                      out_channels: int):
+    """(dxj [E, in], dmsg [E, out]) float32 from the cotangent dtotal
+    [N, out] of ``fused_iterate_total``.
+
+    CUDA tensors launch the B2-bwd kernel (counted in
+    ``fused_iterate_bwd.launches``); CPU tensors take the plain
+    version."""
+    if K.is_cuda:
+        return _launch_bwd(K, setup, dtotal, in_channels, out_channels)
+    return fused_iterate_bwd_plain(K, setup, dtotal.to(torch.float32),
+                                   in_channels=in_channels,
+                                   out_channels=out_channels)
+
+
+fused_iterate_bwd.launches = 0
+
+
+def _outer(x, senders, dmsg, dtype) -> torch.Tensor:
+    """dK[e, i*out + o] = x[senders[e], i] * dmsg[e, o] in ``dtype``,
+    in edge chunks (the float32 product exists one chunk at a time)."""
+    e, w_out = dmsg.shape
+    dk = torch.empty((e, x.shape[1] * w_out), dtype=dtype, device=x.device)
+    for s0 in range(0, e, _PLAIN_CHUNK):
+        s1 = min(e, s0 + _PLAIN_CHUNK)
+        xj = x.index_select(0, senders[s0:s1]).to(torch.float32)
+        dk[s0:s1] = (xj[:, :, None] * dmsg[s0:s1, None, :]).reshape(
+            s1 - s0, -1).to(dtype)
+    return dk
+
+
+class _FusedIterateTotal(torch.autograd.Function):
+    """The masked per-node sum, with the JAX custom_vjp's backward
+    (fused_iterate.py:184-200)."""
+
+    @staticmethod
+    def forward(ctx, x, K, senders, setup, in_channels, out_channels):
+        ctx.save_for_backward(x, K, senders)
+        ctx.setup = setup
+        ctx.shape = (in_channels, out_channels)
+        if x.is_cuda:
+            return _launch(x, senders, K, setup, in_channels, out_channels)
+        return fused_iterate_total_plain(x, senders, K, setup,
+                                         in_channels=in_channels,
+                                         out_channels=out_channels)
+
+    @staticmethod
+    def backward(ctx, dtotal):
+        x, K, senders = ctx.saved_tensors
+        in_channels, out_channels = ctx.shape
+        dxj, dmsg = fused_iterate_bwd(K, ctx.setup, dtotal,
+                                      in_channels=in_channels,
+                                      out_channels=out_channels)
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.zeros_like(x).index_add_(0, senders, dxj)
+        if ctx.needs_input_grad[1]:
+            dk = _outer(x, senders, dmsg, K.dtype)
+        return dx, dk, None, None, None, None
+
+
 def fused_iterate_total(x, senders, K, setup: IterateSetup, *,
                         in_channels: int, out_channels: int) -> torch.Tensor:
     """Masked per-node message SUM of one kcached depth step, [N, out]
-    float32. The caller multiplies by 1/counts for the mean.
+    float32, differentiable in x and K. The caller multiplies by
+    1/counts for the mean.
 
     CUDA tensors launch the K2 kernel (counted in
-    ``fused_iterate_total.launches``); CPU tensors take the plain
-    version."""
-    if x.is_cuda:
-        return _launch(x, senders, K, setup, in_channels, out_channels)
-    return fused_iterate_total_plain(x, senders, K, setup,
-                                     in_channels=in_channels,
-                                     out_channels=out_channels)
+    ``fused_iterate_total.launches``) and, in the backward, the B2-bwd
+    kernel; CPU tensors take the plain versions."""
+    return _FusedIterateTotal.apply(x, K, senders, setup, in_channels,
+                                    out_channels)
 
 
 fused_iterate_total.launches = 0
 
 __all__ = ["fused_iterate_total", "fused_iterate_total_plain",
+           "fused_iterate_bwd", "fused_iterate_bwd_plain",
            "sorted_iterate_setup", "fused_iterate_supported",
            "IterateSetup", "BLOCK_E"]

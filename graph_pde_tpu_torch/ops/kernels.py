@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_edge_conv", "fused_iterate")
+SOURCES = ("fused_edge_conv", "fused_edge_conv_bwd", "fused_iterate",
+           "fused_iterate_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,11 +89,21 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def fn(source: str, name: str, argtypes):
+    """The C entry point ``name`` of ``csrc/<source>.cu``, with its
+    argument types set (the return type is the CUDA error code)."""
+    f = getattr(load(source), name)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return f
+
+
 def check(err: int, what: str) -> None:
     """Raises if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-__all__ = ["build", "load", "check", "library_path", "SOURCES", "CSRC",
+__all__ = ["build", "load", "fn", "check", "library_path", "SOURCES", "CSRC",
            "BUILD_DIR"]

@@ -1,0 +1,14 @@
+from .optim import adam_steplr
+from .trainer import (TrainConfig, Task, make_loss_fn, make_train_step,
+                      make_eval_step, fit, evaluate, FitResult, param_leaves,
+                      trainable)
+from .tasks import GKNTask
+from .checkpoint import save_checkpoint, restore_checkpoint, latest_step
+from .metrics import MetricsLogger, profile_trace
+
+__all__ = [
+    "adam_steplr", "TrainConfig", "Task", "make_loss_fn",
+    "make_train_step", "make_eval_step", "fit", "evaluate", "FitResult",
+    "param_leaves", "trainable", "GKNTask", "save_checkpoint",
+    "restore_checkpoint", "latest_step", "MetricsLogger", "profile_trace",
+]

@@ -1,0 +1,49 @@
+"""Task adapters binding a model family to the trainer (counterpart of
+graph_pde_tpu/train/tasks.py; GKN only, the MGKN and GCN tasks come with
+their models)."""
+from __future__ import annotations
+
+import torch
+
+from ..models.gkn import GKNConfig, gkn_apply_batched
+from .trainer import Task
+
+
+def _node_mask_batched(graphs) -> torch.Tensor:
+    n_pad = graphs.x.shape[-2]
+    ar = torch.arange(n_pad, device=graphs.x.device)
+    return ar[None, :] < graphs.n_node[:, None]
+
+
+class _NormalizerDecodeMixin:
+    """Decode through a fitted normalizer, gathering per-node stats at
+    sample_idx for Nystrom-subsampled outputs."""
+
+    u_normalizer = None
+    use_sample_idx = True
+
+    def decode(self, values, batch):
+        if self.u_normalizer is None:
+            return values
+        idx = getattr(batch, "sample_idx", None)
+        if self.use_sample_idx and idx is not None:
+            return self.u_normalizer.decode(values, sample_idx=idx)
+        return self.u_normalizer.decode(values)
+
+
+class GKNTask(_NormalizerDecodeMixin, Task):
+    def __init__(self, cfg: GKNConfig, u_normalizer=None, loss_type="l1",
+                 use_sample_idx=True):
+        self.cfg = cfg
+        self.u_normalizer = u_normalizer
+        self.loss_type = loss_type
+        self.use_sample_idx = use_sample_idx
+
+    def forward(self, params, batch):
+        return gkn_apply_batched(params, self.cfg, batch)
+
+    def mask(self, batch):
+        return _node_mask_batched(batch)
+
+
+__all__ = ["GKNTask"]

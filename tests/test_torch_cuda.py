@@ -1,13 +1,17 @@
 """The CUDA kernels of graph_pde_tpu_torch against their plain PyTorch
-versions, on an NVIDIA GPU (sm_90a; nvcc builds them at first use).
+versions, on an NVIDIA GPU (sm_90a; nvcc builds them at first use), and
+the gradients of the model paths through them.
 
 Skips without a GPU. On the card (tests/conftest.py imports jax, which the
 GPU machine need not have): python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerance: 1e-4 of the output's max-abs in float32 (sums in another
-order); bf16 K1 at 5e-3 (one bf16 ulp can flip where the fp32 sums
-before a rounding differ in order). TF32 is off for every comparison.
+order); bf16 K1 and B1-bwd at 5e-3 (one bf16 ulp can flip where the fp32
+sums before a rounding differ in order); the bf16 model gradients as
+stated at GRAD_BF16_TOL. TF32 is off for every comparison.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,11 +20,16 @@ from graph_pde_tpu_torch.graph import build_graph
 from graph_pde_tpu_torch.models import GKNConfig, gkn_apply, gkn_init
 from graph_pde_tpu_torch.models.gkn import params_to
 from graph_pde_tpu_torch.ops.dense import dense_init
-from graph_pde_tpu_torch.ops.fused_edge_conv import (edge_messages_plain,
-                                                     fused_edge_messages)
-from graph_pde_tpu_torch.ops.fused_iterate import (fused_iterate_total,
+from graph_pde_tpu_torch.ops.fused_edge_conv import (edge_messages_bwd_plain,
+                                                     edge_messages_plain,
+                                                     fused_edge_messages,
+                                                     fused_edge_messages_bwd)
+from graph_pde_tpu_torch.ops.fused_iterate import (fused_iterate_bwd,
+                                                   fused_iterate_bwd_plain,
+                                                   fused_iterate_total,
                                                    fused_iterate_total_plain,
                                                    sorted_iterate_setup)
+from graph_pde_tpu_torch.train.trainer import param_leaves, trainable
 
 @pytest.fixture
 def dev():
@@ -130,3 +139,115 @@ def test_wrappers_raise_on_unsupported_cuda_shapes(dev):
     K = torch.randn(8, 256, device=dev).to(torch.float16)
     with pytest.raises(ValueError):
         fused_iterate_total(x, s, K, setup, in_channels=16, out_channels=16)
+
+
+# (kw, in, out): the GKN shape, the ker_width 1024 'nn' kappa, a narrow
+# kappa, no small layer (kw = attr width), out not a power of two, out > 128
+B1_SHAPES = [(256, 64, 64), (1024, 64, 64), (32, 16, 16), (6, 3, 100),
+             (40, 2, 200)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, 1e-4), ("bfloat16", 5e-3)])
+@pytest.mark.parametrize("e", [1000, 5000])
+@pytest.mark.parametrize("kw,w_in,w_out", B1_SHAPES)
+def test_b1_bwd_matches_plain(dev, dtype, tol, e, kw, w_in, w_out):
+    g = torch.Generator().manual_seed(e + kw)
+    x = torch.randn(50, w_in, generator=g).to(dev)
+    s = torch.randint(0, 50, (e,), generator=g).to(dev)
+    h2 = torch.relu(torch.randn(e, kw, generator=g)).to(dev)
+    gg = torch.randn(e, w_out, generator=g).to(dev)
+    wl = (torch.randn(kw, w_in * w_out, generator=g) / kw ** 0.5).to(dev)
+    kw_args = dict(in_channels=w_in, out_channels=w_out, compute_dtype=dtype)
+    before = fused_edge_messages_bwd.launches
+    got = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
+    torch.cuda.synchronize()
+    assert fused_edge_messages_bwd.launches == before + 1
+    want = edge_messages_bwd_plain(x, s, h2, gg, wl, **kw_args)
+    for name, a, b in zip(("dx_src", "dh2", "dWl", "dbl"), got, want):
+        assert _rel(a, b) <= tol, name
+    # fixed-order reductions: a second launch is bit-identical
+    again = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [16, 64, 128, 12, 6])
+def test_b2_bwd_matches_plain(dev, k_dtype, w):
+    g = torch.Generator().manual_seed(w)
+    n, e = 40, 2048
+    recv = torch.sort(torch.randint(0, n, (e,), generator=g)).values
+    recv[-200:] = n - 1            # padding parked on a real node
+    mask = torch.arange(e) < e - 200
+    K = torch.randn(e, w * w, generator=g).to(k_dtype).to(dev)
+    dt = torch.randn(n, w, generator=g).to(dev)
+    setup = sorted_iterate_setup(recv.to(dev), mask.to(dev), n)
+    before = fused_iterate_bwd.launches
+    dxj, dmsg = fused_iterate_bwd(K, setup, dt, in_channels=w,
+                                  out_channels=w)
+    torch.cuda.synchronize()
+    assert fused_iterate_bwd.launches == before + 1
+    want = fused_iterate_bwd_plain(K, setup, dt, in_channels=w,
+                                   out_channels=w)
+    assert _rel(dxj, want[0]) <= 1e-4
+    assert torch.equal(dmsg, want[1])
+    assert float(dxj[~mask.to(dev)].abs().max()) == 0.0
+
+
+def _grads(params, cfg, graph):
+    p = trainable(params, graph.device)
+    out = gkn_apply(p, cfg, graph)
+    (out ** 2).sum().backward()
+    return out.detach().cpu(), [t.grad.cpu() for t in param_leaves(p)]
+
+
+# bf16 tolerance of the model gradients: moving every parameter by one
+# float32 ulp moves the CPU's own bf16 gradients of the width-64 model by
+# 4.5e-3 of a leaf's max-abs (a flipped bf16 ulp, carried through three
+# depth steps; tests/test_torch_gkn.py test_gkn_bf16_grads_match_jax),
+# and the card's float32 sums differ from the CPU's by more than one ulp.
+# Rounding at other points (the reference path's) moves them further, a
+# dropped gradient by 1.
+GRAD_BF16_TOL = 1e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, 1e-4),
+                                       ("bfloat16", GRAD_BF16_TOL)])
+@pytest.mark.parametrize("impl,fused,layers", [
+    ("auto", "off", (6, 64, 128, 4096)),
+    ("kcached", "on", (6, 64, 128, 4096)),
+    ("auto", "off", (6, 32, 64, 16 * 16)),
+    ("kcached", "on", (6, 32, 64, 16 * 16))])
+def test_gkn_grads_on_card_match_cpu(dev, impl, fused, layers, dtype, tol):
+    """The repair: gradients through impl='auto' (K1 + B1-bwd) and
+    kcached_fused='on' (K2 + B2-bwd) on the card equal the gradients of
+    the same autograd Functions on the CPU (plain versions; on the CPU
+    'auto' would pick the reference path, which rounds bf16 elsewhere,
+    so the CPU run names impl='pallas'), for every parameter, with one
+    forward and one backward launch per depth step."""
+    rng = np.random.default_rng(0)
+    n, e = 200, 3000
+    w = int(round(layers[-1] ** 0.5))
+    host = build_graph(rng.normal(size=(n, 6)), rng.integers(0, n, e),
+                       rng.integers(0, n, e), rng.normal(size=(e, 6)))
+    cfg = GKNConfig(width=w, ker_width=layers[2], depth=3, ker_in=6,
+                    in_width=6, kernel_layers=layers, impl=impl,
+                    kcached_fused=fused, compute_dtype=dtype)
+    p = gkn_init(torch.Generator().manual_seed(1), cfg, device="cpu")
+    counts = [fused_edge_messages.launches, fused_edge_messages_bwd.launches,
+              fused_iterate_total.launches, fused_iterate_bwd.launches]
+    out, grads = _grads(p, cfg, host.to())
+    torch.cuda.synchronize()
+    launched = [fused_edge_messages.launches, fused_edge_messages_bwd.launches,
+                fused_iterate_total.launches, fused_iterate_bwd.launches]
+    launched = [a - b for a, b in zip(launched, counts)]
+    assert launched == ([3, 3, 0, 0] if impl == "auto" else [0, 0, 3, 3])
+    cpu_cfg = dataclasses.replace(cfg, impl="pallas") if impl == "auto" \
+        else cfg
+    want_out, want = _grads(p, cpu_cfg, host.to("cpu"))
+    assert _rel(out, want_out) <= (1e-4 if dtype is None else 5e-3)
+    errs = [_rel(a, b) for a, b in zip(grads, want)]
+    print(f"{impl} {layers} {dtype}: gradient errors "
+          + " ".join(f"{v:.2e}" for v in errs))
+    for j, err in enumerate(errs):
+        assert err <= tol, j

@@ -4,8 +4,10 @@ carried over with convert.gkn_params_from_numpy) and the same padded
 graphs.
 
 Tolerance: float32 model outputs agree to 1e-4 relative to the output's
-max-abs (a few depth steps of sums, each in a different order). The
-kcached_fused='on' JAX side runs its Pallas kernel in interpret mode."""
+max-abs (a few depth steps of sums, each in a different order), bf16
+gradients to 5e-3 (a bf16 ulp flips where float32 sums before a rounding
+differ in order). The kcached_fused='on' and impl='pallas' JAX sides run
+their Pallas kernels in interpret mode."""
 import dataclasses
 import pathlib
 import subprocess
@@ -25,6 +27,7 @@ from graph_pde_tpu_torch.convert import gkn_params_from_numpy
 from graph_pde_tpu_torch.graph import graph as tgraph
 from graph_pde_tpu_torch.models import gkn as tgkn
 from graph_pde_tpu_torch.ops.fused_iterate import fused_iterate_total
+from graph_pde_tpu_torch.train.trainer import param_leaves, trainable
 
 MODEL_TOL = 1e-4
 _REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -169,6 +172,57 @@ def test_gkn_init_without_device_needs_cuda(monkeypatch):
     _, tcfg = _cfg()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tgkn.gkn_init(torch.Generator().manual_seed(0), tcfg)
+
+
+def _nudged(params, seed):
+    """Every parameter moved by one float32 ulp, up or down at random."""
+    gen = torch.Generator().manual_seed(seed)
+    if isinstance(params, torch.Tensor):
+        up = torch.randint(0, 2, params.shape, generator=gen).bool()
+        return torch.nextafter(params, torch.where(up, torch.inf, -torch.inf))
+    if isinstance(params, dict):
+        return {k: _nudged(v, seed + j) for j, (k, v) in
+                enumerate(params.items())}
+    return tuple(_nudged(v, seed + 100 + j) for j, v in enumerate(params))
+
+
+def test_gkn_bf16_grads_match_jax(capsys):
+    """The bf16 gradients of the depth-3, width-64 model of the card test
+    (tests/test_torch_cuda.py, the same graph) through the fused path match
+    JAX's through the Pallas kernels (interpret mode), since both round
+    at the same points; and how far one float32 ulp on every parameter
+    moves them, which is what the card's other float32 summation orders
+    do, and what the card test's bf16 tolerance must cover."""
+    rng = np.random.default_rng(0)
+    n, e = 200, 3000
+    args = (rng.normal(size=(n, 6)), rng.integers(0, n, e),
+            rng.integers(0, n, e), rng.normal(size=(e, 6)))
+    base = dict(width=64, ker_width=128, depth=3, ker_in=6, in_width=6,
+                kernel_layers=(6, 64, 128, 4096), impl="pallas",
+                compute_dtype="bfloat16")
+    jcfg, tcfg = jgkn.GKNConfig(**base), tgkn.GKNConfig(**base)
+    jp = jgkn.gkn_init(jax.random.PRNGKey(1), jcfg)
+    jg = jgraph.build_graph(*args)
+    tg = tgraph.build_graph(*args).to("cpu")
+
+    def tgrads(params):
+        p = trainable(params, "cpu")
+        (tgkn.gkn_apply(p, tcfg, tg) ** 2).sum().backward()
+        return [t.grad for t in param_leaves(p)]
+
+    jgr = jax.grad(lambda p: jnp.sum(jgkn.gkn_apply(p, jcfg, jg) ** 2))(jp)
+    want = param_leaves(gkn_params_from_numpy(jax.tree.map(np.asarray, jgr),
+                                              "cpu"))
+    tp = gkn_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    got = tgrads(tp)
+    for a, b in zip(got, want):
+        _close(a, b, 5e-3)   # one bf16 ulp flip where sum orders differ
+    spread = max(float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(tgrads(_nudged(tp, 1)), got))
+    with capsys.disabled():
+        print(f"\nbf16 gradients moved by one float32 ulp on every "
+              f"parameter: {spread:.3e} of the max-abs")
+    assert 0.0 < spread <= 1e-2
 
 
 def test_port_imports_no_jax():
