@@ -10,35 +10,45 @@ Phases, each fatal on failure:
      slice where the plain version materialises [E, 64, 64]), B1-bwd
      (all four outputs, fp32 and bf16) on a 65,536-edge slice of the
      uai4 s=241 training graph and B2-bwd (fp32 and bf16 K) on a slice
-     of the uai1 s=61 training graph; then every kernel at registry
-     shapes the main paths do not reach (the general forms);
+     of the uai1 s=61 training graph; every kernel at registry shapes
+     the main paths do not reach (the general forms); B3-fwd and B3-bwd
+     (fp32 and bf16 K) at the uai1 full-graph shape and at widths 12 and
+     128; K2 and B2-bwd on the e4m3 and e5m2 fp8 K streams of the full
+     uai1 graph;
   3. serving: the full-width neurips1 GKN (random weights from a seed,
      Gaussian normalizers fitted on synthetic Darcy samples) answers
      requests through GKNPredictor.predict at s=61 (full graph) and
      s=241 (split path), under impl='auto' (kernel K1) and
-     impl='kcached', kcached_fused='on' (kernel K2). Every launch
-     counter is zeroed just before each (impl, request) and read just
-     after: the path's own kernel must launch once per depth step, the
-     others never. Outputs must be finite, and the impls must agree with
-     each other and with plain-path (impl='scan') requests at s=61 and
-     s=241;
+     impl='kcached', kcached_fused='on' (kernel K2), and one s=61
+     request each with k_storage='float8_e4m3' and 'float8_e5m2' (K2's
+     fp8 forms). Every launch counter is zeroed just before each (impl,
+     request) and read just after: the path's own kernel (and fp8 form)
+     must launch once per depth step, the others never. Outputs must be
+     finite, and the impls must agree with each other and with
+     plain-path requests (impl='scan'; for fp8, kcached_fused='off' with
+     the same k_storage); then the B3 op's own path, cached_contraction
+     forward and backward through autograd at the uai1 full-graph shape
+     (fp32 and bf16 K), one launch of B3-fwd and B3-bwd each;
   4. per-kernel times at the s=61 shapes (CUDA events), bounds, plain
      and library times, and the latency of each request;
   5. training: fit() takes TRAIN_EPOCHS epochs of N_TRAIN steps (batch
-     1) at full width on two registry configs: uai4_full_grid_241
-     (impl='auto', bf16, node_block=512, s=241, MSE: K1 + B1-bwd) and
-     uai1_full_resolution (impl='kcached', kcached_fused='auto', s=61,
-     L1: K2 + B2-bwd). The counters are zeroed around every step and
-     every test evaluation: a step must launch its path's forward and
-     backward kernel `depth` times each and the other path's never.
-     Losses and parameters must be finite; the peak device memory of
-     each fit is logged. The step-1 gradients of both configs are held
-     on a smaller graph with the same stencil against the plain path
-     (impl='scan', kcached_fused='off'; uai4 in fp32), and uai4's in
-     bf16 against its Function's plain versions run on the card;
+     1) at full width on uai4_full_grid_241 (impl='auto', bf16,
+     node_block=512, s=241, MSE: K1 + B1-bwd), uai1_full_resolution
+     (impl='kcached', kcached_fused='auto', s=61, L1: K2 + B2-bwd) and
+     uai1 with compute_dtype='bfloat16' and k_storage='float8_e4m3'
+     (the fp8 forms of K2 and B2-bwd). The counters are zeroed around
+     every step and every test evaluation: a step must launch its path's
+     forward and backward kernel `depth` times each and the other
+     path's never. Losses and parameters must be finite; the peak device
+     memory of each fit is logged. The step-1 gradients of each config
+     are held on a smaller graph with the same stencil against the plain
+     path (impl='scan', kcached_fused='off'; uai4 in fp32), and uai4's
+     in bf16 and uai1's with e4m3 and e5m2 K against their Functions'
+     plain versions run on the card;
   6. B1-bwd (bf16 and fp32) and B2-bwd times at the full training
-     shapes, bounds, plain and library times, and the step time of each
-     training path.
+     shapes, B3 (fp32 and bf16 K) at the uai1 full-graph shape, K2 and
+     B2-bwd on the fp8 streams of the full uai1 graph: bounds, plain and
+     library times, and the step time of each training path.
 
 Prints one JSON line of kernel records before the last line, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, with no result
@@ -367,10 +377,8 @@ def phase_serving(cfg, params, norms, u_norm, full, split) -> dict:
 
     from graph_pde_tpu_torch.inference import GKNPredictor
 
-    cfgs = {"auto": cfg,
-            "kcached": dataclasses.replace(cfg, impl="kcached",
-                                           kcached_fused="on")}
-    own = {"auto": "K1", "kcached": "K2"}
+    kcached = dataclasses.replace(cfg, impl="kcached", kcached_fused="on")
+    cfgs = {"auto": cfg, "kcached": kcached}
     preds = {k: GKNPredictor(params, c, norms, u_norm, radius=RADIUS,
                              split_threshold=SPLIT_THRESHOLD)
              for k, c in cfgs.items()}
@@ -379,27 +387,37 @@ def phase_serving(cfg, params, norms, u_norm, full, split) -> dict:
     requests.append((f"s={S_SPLIT} split", split))
     outs, lat, launches = {}, {}, {}
 
+    def serve(impl, pred, c, name, coeff):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = pred.predict(coeff)
+        torch.cuda.synchronize()
+        lat[(impl, name)] = time.perf_counter() - t0
+        got = read_counts()
+        outs[(impl, name)] = out
+        launches[f"{impl} {name}"] = got
+        # one batch per request: the s=61 samples of a call form one
+        # batch, the s=241 shards of one sample form one batch
+        want = expected(c, c.depth, 0)
+        log(f"phase 3: {impl:8s} {name:12s} latency "
+            f"{lat[(impl, name)] * 1e3:.1f} ms, launches {got}")
+        require(got == want, f"{impl} {name}: launches {got}, "
+                f"expected {want}")
+
     for impl, pred in preds.items():
         for name, coeff in requests:
-            zero_counts()
-            t0 = time.perf_counter()
-            out = pred.predict(coeff)
-            torch.cuda.synchronize()
-            lat[(impl, name)] = time.perf_counter() - t0
-            got = read_counts()
-            outs[(impl, name)] = out
-            launches[f"{impl} {name}"] = got
-            # one batch per request: the s=61 samples of a call form one
-            # batch, the s=241 shards of one sample form one batch
-            want = {k: cfg.depth if k == own[impl] else 0 for k in got}
-            log(f"phase 3: {impl:8s} {name:12s} latency "
-                f"{lat[(impl, name)] * 1e3:.1f} ms, launches {got}")
-            require(got == want, f"{impl} {name}: launches {got}, "
-                    f"expected {want}")
+            serve(impl, pred, cfgs[impl], name, coeff)
+    # fp8 K storage (the k8 stream through K2) on the first s=61 request
+    name, coeff = requests[0]
+    for ks in ("float8_e4m3", "float8_e5m2"):
+        c = dataclasses.replace(kcached, k_storage=ks)
+        serve(f"kcached {ks}", GKNPredictor(
+            params, c, norms, u_norm, radius=RADIUS,
+            split_threshold=SPLIT_THRESHOLD), c, name, coeff)
 
     for (impl, name), out in outs.items():
         s = S_SPLIT if "split" in name else S_FULL
-        log(f"phase 3: {impl:8s} {name:12s} out {out.shape}, "
+        log(f"phase 3: {impl:20s} {name:12s} out {out.shape}, "
             f"range [{out.min():.4g}, {out.max():.4g}]")
         require(out.shape == (1, s * s) and bool(np.isfinite(out).all()),
                 f"{impl} {name} output")
@@ -435,6 +453,24 @@ def phase_serving(cfg, params, norms, u_norm, full, split) -> dict:
         agree(outs[("auto", name)], ref, F32_TOL, f"auto vs plain, {name}")
         agree(outs[("kcached", name)], ref, F32_TOL if f32 else BF16_TOL,
               f"kcached vs plain, {name}")
+    # each fp8 request against the plain (unfused) path with the same
+    # k_storage, and how far fp8 storage moved it from the bf16-K request
+    name, coeff = requests[0]
+    for ks in ("float8_e4m3", "float8_e5m2"):
+        plain8 = GKNPredictor(params, dataclasses.replace(
+            kcached, kcached_fused="off", k_storage=ks), norms, u_norm,
+            radius=RADIUS, split_threshold=SPLIT_THRESHOLD)
+        zero_counts()
+        ref = plain8.predict(coeff)
+        torch.cuda.synchronize()
+        require(all(v == 0 for v in read_counts().values()),
+                f"plain {ks} {name} launched no kernel")
+        got = outs[(f"kcached {ks}", name)]
+        agree(got, ref, BF16_TOL, f"kcached {ks} vs plain {ks}, {name}")
+        a, b = (u_norm.encode(v).numpy() for v in (got, outs[("kcached",
+                                                              name)]))
+        log(f"phase 3: kcached {ks} vs bf16 K, {name}: relative max-abs "
+            f"diff {float(np.abs(a - b).max() / np.abs(b).max()):.3e}")
     return launches
 
 
@@ -569,26 +605,53 @@ def phase_times(g, h, params) -> dict:
     return rec
 
 
-COUNTED = ("K1", "B1-bwd", "K2", "B2-bwd")
+# Every launch counter: K2 and B2-bwd count all their launches, and their
+# fp8 forms (the k8 stream of k_storage) also count on their own.
+COUNTED = ("K1", "B1-bwd", "K2", "B2-bwd", "K2 e4m3", "K2 e5m2",
+           "B2-bwd e4m3", "B2-bwd e5m2", "B3-fwd", "B3-bwd")
 
 
 def counters() -> dict:
+    """name -> (wrapper, counter attribute)."""
+    from graph_pde_tpu_torch.ops.cached_contraction import (
+        cached_contraction, cached_contraction_bwd)
     from graph_pde_tpu_torch.ops.fused_edge_conv import (
         fused_edge_messages, fused_edge_messages_bwd)
     from graph_pde_tpu_torch.ops.fused_iterate import (fused_iterate_bwd,
                                                        fused_iterate_total)
 
-    return dict(zip(COUNTED, (fused_edge_messages, fused_edge_messages_bwd,
-                              fused_iterate_total, fused_iterate_bwd)))
+    fns = (fused_edge_messages, fused_edge_messages_bwd, fused_iterate_total,
+           fused_iterate_bwd, fused_iterate_total, fused_iterate_total,
+           fused_iterate_bwd, fused_iterate_bwd, cached_contraction,
+           cached_contraction_bwd)
+    attrs = ("launches",) * 4 + ("e4m3_launches", "e5m2_launches") * 2 + (
+        "launches",) * 2
+    return {k: (f, a) for k, f, a in zip(COUNTED, fns, attrs)}
 
 
 def zero_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+
+
+def expected(cfg, n_fwd: int, n_bwd: int) -> dict:
+    """The counts of a run of ``cfg``'s path that launches its forward
+    kernel n_fwd times and its backward kernel n_bwd times: K1 / B1-bwd
+    for impl='auto', K2 / B2-bwd (and their fp8 form, with k_storage)
+    for the fused kcached path; every other counter 0."""
+    if cfg.impl == "auto":
+        fwd, bwd = ("K1",), ("B1-bwd",)
+    else:
+        fwd, bwd = ("K2",), ("B2-bwd",)
+        if cfg.k_storage:
+            kind = cfg.k_storage.split("_")[1]
+            fwd, bwd = fwd + (f"K2 {kind}",), bwd + (f"B2-bwd {kind}",)
+    return {k: n_fwd if k in fwd else n_bwd if k in bwd else 0
+            for k in COUNTED}
 
 
 def uai4_config(dtype="bfloat16"):
@@ -673,7 +736,6 @@ def phase_training(name, cfg, arrays, graphs, loss, u_norm, gamma) -> dict:
     from graph_pde_tpu_torch.train import GKNTask, TrainConfig, fit
     from graph_pde_tpu_torch.train.trainer import param_leaves
 
-    fwd, bwd = ("K1", "B1-bwd") if cfg.impl == "auto" else ("K2", "B2-bwd")
     task = GKNTask(cfg, u_normalizer=arrays.u_normalizer, loss_type=loss,
                    use_sample_idx=u_norm == "unit")
     params = gkn_init(torch.Generator().manual_seed(SEED), cfg)
@@ -693,7 +755,7 @@ def phase_training(name, cfg, arrays, graphs, loss, u_norm, gamma) -> dict:
         clock[0] = now
         log(f"phase 5: {name} epoch {ep} step {step}: loss {lv:.6g}, "
             f"{steps[-1]['ms']:.1f} ms, launches {got}")
-        want = {k: cfg.depth if k in (fwd, bwd) else 0 for k in COUNTED}
+        want = expected(cfg, cfg.depth, cfg.depth)
         require(got == want, f"{name} step launches {got}, expected {want}")
         require(bool(np.isfinite(lv)), f"{name} loss finite")
 
@@ -704,7 +766,7 @@ def phase_training(name, cfg, arrays, graphs, loss, u_norm, gamma) -> dict:
         evals.append(got)
         log(f"phase 5: {name} epoch {ep}: train rel-L2 {train_l2:.6g}, "
             f"test rel-L2 {test_l2:.6g}, evaluation launches {got}")
-        want = {k: cfg.depth * N_TRAIN if k == fwd else 0 for k in COUNTED}
+        want = expected(cfg, cfg.depth * N_TRAIN, 0)
         require(got == want, f"{name} evaluation launches {got}")
         require(bool(np.isfinite(train_l2) and np.isfinite(test_l2)),
                 f"{name} rel-L2 finite")
@@ -769,33 +831,41 @@ def profile_step(name, task, params, graphs) -> None:
 
 @contextlib.contextmanager
 def plain_on_card():
-    """Within it, the fused edge-message Function runs its plain
-    versions on CUDA tensors: the same rounding points as K1 and B1-bwd,
-    and no launch. The reference of the bf16 gradient check, where the
-    plain path (impl='scan') rounds elsewhere."""
+    """Within it, the fused edge-message and fused iteration Functions
+    run their plain versions on CUDA tensors: the same rounding points as
+    K1 / B1-bwd and K2 / B2-bwd, and no launch. The reference of the bf16
+    and fp8 gradient checks, where the plain paths (impl='scan',
+    kcached_fused='off') round elsewhere."""
+    import torch
+
     from graph_pde_tpu_torch.ops import fused_edge_conv as fe
+    from graph_pde_tpu_torch.ops import fused_iterate as fi
     from graph_pde_tpu_torch.ops.dense import unflatten_params
 
-    saved = fe._launch, fe._launch_bwd
+    saved = fe._launch, fe._launch_bwd, fi._launch, fi._launch_bwd
     fe._launch = lambda x, s, a, w, i, o, dt: fe.edge_messages_plain(
         x, s, a, unflatten_params(w), in_channels=i, out_channels=o,
         compute_dtype=dt)
     fe._launch_bwd = lambda x, s, h2, g, wl, i, o, dt: (
         fe.edge_messages_bwd_plain(x, s, h2, g, wl, in_channels=i,
                                    out_channels=o, compute_dtype=dt))
+    fi._launch = lambda x, s, K, setup, i, o: fi.fused_iterate_total_plain(
+        x, s, K, setup, in_channels=i, out_channels=o)
+    fi._launch_bwd = lambda K, setup, dt, i, o: fi.fused_iterate_bwd_plain(
+        K, setup, dt.to(torch.float32), in_channels=i, out_channels=o)
     try:
         yield
     finally:
-        fe._launch, fe._launch_bwd = saved
+        fe._launch, fe._launch_bwd, fi._launch, fi._launch_bwd = saved
 
 
 def phase_train_grads(name, cfg, plain_cfg, loss, u_norm, s, r,
                       node_block, tol=F32_TOL,
-                      plain_ctx=contextlib.nullcontext) -> None:
+                      plain_ctx=contextlib.nullcontext) -> dict:
     """The step-1 loss gradients of ``cfg`` (kernels) against
     ``plain_cfg`` run inside ``plain_ctx`` (plain versions, no kernel
     launch) from the same parameters and one graph, every parameter
-    within ``tol`` of its max-abs."""
+    within ``tol`` of its max-abs. Returns the kernel run's launches."""
     import torch
 
     from graph_pde_tpu_torch.models import gkn_init
@@ -824,8 +894,7 @@ def phase_train_grads(name, cfg, plain_cfg, loss, u_norm, s, r,
     lk, gk, ck = grads(cfg)
     with plain_ctx():
         lp, gp, cp = grads(plain_cfg)
-    fwd, bwd = ("K1", "B1-bwd") if cfg.impl == "auto" else ("K2", "B2-bwd")
-    want = {k: cfg.depth if k in (fwd, bwd) else 0 for k in COUNTED}
+    want = expected(cfg, cfg.depth, cfg.depth)
     require(ck == want, f"{name} gradient launches {ck}, expected {want}")
     require(all(v == 0 for v in cp.values()), f"{name} plain path launches")
     worst = 0.0
@@ -837,6 +906,7 @@ def phase_train_grads(name, cfg, plain_cfg, loss, u_norm, s, r,
     log(f"phase 5: {name} step-1 gradients vs plain: loss {lk:.6g} vs "
         f"{lp:.6g}, worst parameter relative max-abs err {worst:.3e} "
         f"(tol {tol:g}) over {len(gk)} parameters")
+    return ck
 
 
 def profile_kernels(name, fn) -> None:
@@ -944,6 +1014,263 @@ def backward_times(g4, kp4, g1, kp1) -> dict:
     return rec
 
 
+FP8_KINDS = ("float8_e4m3", "float8_e5m2")
+
+
+def b3_operands(g1, kp1, k_dtype, w=64):
+    """B3's operands on the uai1 s=61 graph: at w=64 all E_pad edges, the
+    uai1 kappa's cached K and x, g from a seed; at other widths a seeded
+    (6, 32, w*w) kappa on the first GENERAL_SLICE edges."""
+    import torch
+
+    from graph_pde_tpu_torch.models.gkn import _cached_kernel
+    from graph_pde_tpu_torch.ops.dense import dense_apply, dense_init
+
+    dev = g1.x.device
+    gen = torch.Generator().manual_seed(SEED + 9 + w)
+    if w == 64:
+        K = _cached_kernel(kp1, g1.edge_attr, k_dtype)
+    else:
+        kp = dense_init(gen, (6, 32, w * w), device=dev)
+        K = dense_apply(kp, g1.edge_attr[:GENERAL_SLICE]).to(k_dtype)
+    e = K.shape[0]
+    x = torch.randn(e, w, generator=gen).to(dev)
+    g = torch.randn(e, w, generator=gen).to(dev)
+    return x, K, g
+
+
+def phase_b3_vs_plain(g1, kp1) -> dict:
+    """B3-fwd and B3-bwd against their plain versions, K in fp32 and
+    bf16: at the uai1 full-graph shape (w 64) and at w 12 (the general
+    form) and w 128 (two column chunks)."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.cached_contraction import (
+        cached_contraction, cached_contraction_bwd,
+        cached_contraction_bwd_plain, cached_contraction_plain)
+
+    errs = {}
+    with torch.inference_mode():
+        for w in (64, 12, 128):
+            for k_dtype in (torch.float32, torch.bfloat16):
+                x, K, g = b3_operands(g1, kp1, k_dtype, w)
+                kw = dict(in_channels=w, out_channels=w)
+                tag = f"w {w} E {K.shape[0]} K={str(k_dtype).split('.')[-1]}"
+                got = cached_contraction(x, K, **kw)
+                want = cached_contraction_plain(x, K, **kw)
+                torch.cuda.synchronize()
+                ab, rel = rel_err(got, want)
+                log(f"phase 2: B3-fwd {tag}: max-abs err {ab:.3e}, "
+                    f"relative {rel:.3e} (tol {F32_TOL:g})")
+                require(rel <= F32_TOL and bool(torch.isfinite(got).all()),
+                        f"B3-fwd {tag}")
+                del got, want
+                dx, dk = cached_contraction_bwd(x, K, g, **kw)
+                wdx, wdk = cached_contraction_bwd_plain(x, K, g, **kw)
+                torch.cuda.synchronize()
+                worst = 0.0
+                for out, a, b in (("dx", dx, wdx), ("dK", dk, wdk)):
+                    ab_o, rel_o = rel_err(a, b)
+                    log(f"phase 2: B3-bwd {tag} {out}: max-abs err "
+                        f"{ab_o:.3e}, relative {rel_o:.3e} (tol {F32_TOL:g})"
+                        + (f", bit-equal {bool(torch.equal(a, b))}"
+                           if out == "dK" else ""))
+                    require(rel_o <= F32_TOL
+                            and bool(torch.isfinite(a.float()).all()),
+                            f"B3-bwd {tag} {out}")
+                    worst = max(worst, ab_o)
+                if w == 64:
+                    dt = str(k_dtype).split(".")[-1]
+                    errs[f"B3-fwd {dt}"], errs[f"B3-bwd {dt}"] = ab, worst
+                del x, K, g, dx, dk, wdx, wdk
+                torch.cuda.empty_cache()
+    return errs
+
+
+def fp8_operands(g1, kp1, name):
+    """The k8 stream of the uai1 s=61 graph (its kappa's bf16 cached K
+    rounded to fp8), its iteration setup, x and dtotal from a seed."""
+    import torch
+
+    from graph_pde_tpu_torch.models.gkn import _cached_kernel
+    from graph_pde_tpu_torch.ops.cached_contraction import to_fp8
+    from graph_pde_tpu_torch.ops.fused_iterate import sorted_iterate_setup
+
+    dev = g1.x.device
+    gen = torch.Generator().manual_seed(SEED + 10)
+    n1 = g1.x.shape[0]
+    K = _cached_kernel(kp1, g1.edge_attr, torch.bfloat16)
+    k8 = to_fp8(K, name)
+    setup = sorted_iterate_setup(g1.receivers, g1.edge_mask(), n1)
+    x = torch.randn(n1, 64, generator=gen).to(dev)
+    dt = torch.randn(n1, 64, generator=gen).to(dev)
+    return K, k8, setup, x, dt
+
+
+def phase_fp8_vs_plain(g1, kp1) -> dict:
+    """K2 and B2-bwd reading the e4m3 and the e5m2 k8 stream of the full
+    uai1 s=61 graph, against their plain versions on the same k8."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.fused_iterate import (
+        fused_iterate_total, fused_iterate_total_plain)
+
+    errs = {}
+    with torch.inference_mode():
+        for name in FP8_KINDS:
+            K, k8, setup, x, dt = fp8_operands(g1, kp1, name)
+            kind = name.split("_")[1]
+            require(not bool(torch.isnan(k8.float()).any()),
+                    f"{name} K has no overflow")
+            got = fused_iterate_total(x, g1.senders, K, setup,
+                                      in_channels=64, out_channels=64, k8=k8)
+            want = fused_iterate_total_plain(x, g1.senders, k8, setup,
+                                             in_channels=64, out_channels=64)
+            torch.cuda.synchronize()
+            ab, rel = rel_err(got, want)
+            log(f"phase 2: K2 {kind} (uai1 s={S_UAI1}, E {K.shape[0]}): "
+                f"max-abs err {ab:.3e}, relative {rel:.3e} "
+                f"(tol {F32_TOL:g})")
+            require(rel <= F32_TOL and bool(torch.isfinite(got).all()),
+                    f"K2 {kind}")
+            errs[f"K2 {kind}"] = ab
+            errs[f"B2-bwd {kind}"] = check_b2_bwd(
+                f"B2-bwd {kind} (uai1 s={S_UAI1})", k8, setup, dt, 64)
+            del K, k8
+    return errs
+
+
+def phase_b3_op(g1, kp1) -> dict:
+    """The B3 op's own path: cached_contraction forward and backward
+    through autograd at the uai1 full-graph shape, once with K in fp32
+    and once in bf16, every counter zeroed just before and read just
+    after. Each must launch B3-fwd and B3-bwd once and nothing else, and
+    give finite outputs and gradients of the right shapes and dtypes."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.cached_contraction import cached_contraction
+
+    launches = {}
+    for k_dtype in (torch.float32, torch.bfloat16):
+        x, K, g = b3_operands(g1, kp1, k_dtype)
+        x.requires_grad_(True)
+        K.requires_grad_(True)
+        path = f"B3 op, K {str(k_dtype).split('.')[-1]}"
+        zero_counts()
+        t0 = time.perf_counter()
+        msg = cached_contraction(x, K, in_channels=64, out_channels=64)
+        (msg * g).sum().backward()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = read_counts()
+        launches[path] = got
+        want = {k: 1 if k in ("B3-fwd", "B3-bwd") else 0 for k in COUNTED}
+        log(f"phase 3: {path}: forward + backward {dt * 1e3:.1f} ms, "
+            f"launches {got}")
+        require(got == want, f"{path}: launches {got}, expected {want}")
+        require(msg.shape == (K.shape[0], 64) and x.grad.shape == x.shape
+                and K.grad.dtype == k_dtype
+                and bool(torch.isfinite(msg).all())
+                and bool(torch.isfinite(x.grad).all())
+                and bool(torch.isfinite(K.grad.float()).all()),
+                f"{path} outputs")
+        del x, K, g, msg
+        torch.cuda.empty_cache()
+    return launches
+
+
+def b3_fp8_times(g1, kp1) -> dict:
+    """B3-fwd and B3-bwd (fp32 and bf16 K) at the uai1 full-graph shape,
+    and K2 and B2-bwd on the e4m3 and e5m2 k8 streams of the full uai1
+    graph (beside K2 and B2-bwd on its bf16 K): kernel, plain and library
+    times, operations and bytes."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.cached_contraction import (
+        cached_contraction, cached_contraction_bwd,
+        cached_contraction_bwd_plain, cached_contraction_plain)
+    from graph_pde_tpu_torch.ops.fused_iterate import (
+        fused_iterate_bwd, fused_iterate_bwd_plain, fused_iterate_total,
+        fused_iterate_total_plain)
+
+    rec = {}
+    kw = dict(in_channels=64, out_channels=64)
+    with torch.inference_mode():
+        for k_dtype in (torch.float32, torch.bfloat16):
+            dt = str(k_dtype).split(".")[-1]
+            x, K, g = b3_operands(g1, kp1, k_dtype)
+            e, c = K.shape
+            kb = K.element_size()
+            lib, note = None, ("no single PyTorch call multiplies float32 "
+                               "x with bf16 K without rounding x")
+            if k_dtype == torch.float32:
+                kv, xv = K.view(e, 64, 64), x.view(e, 1, 64)
+                lib, note = time_ms(lambda: torch.bmm(xv, kv), 5), (
+                    "torch.bmm of x [E,1,64] with K [E,64,64]")
+            rec[f"B3-fwd {dt}"] = dict(
+                ms=time_ms(lambda: cached_contraction(x, K, **kw), 5),
+                plain_ms=time_ms(lambda: cached_contraction_plain(x, K, **kw),
+                                 1),
+                library_ms=lib, library_note=note, flops=2.0 * e * c,
+                bytes=kb * e * c + 4 * e * 64 * 2,
+                shape=f"E={e}, 64 x 64, {dt} K")
+            rec[f"B3-bwd {dt}"] = dict(
+                ms=time_ms(lambda: cached_contraction_bwd(x, K, g, **kw), 5),
+                plain_ms=time_ms(
+                    lambda: cached_contraction_bwd_plain(x, K, g, **kw), 1),
+                library_ms=None, library_note=(
+                    "no single PyTorch call gives both dx and dK"),
+                flops=3.0 * e * c, bytes=2 * kb * e * c + 4 * e * 64 * 3,
+                shape=f"E={e}, 64 x 64, {dt} K")
+            del x, K, g
+            torch.cuda.empty_cache()
+        n1 = g1.x.shape[0]
+        e1 = g1.senders.shape[0]
+        valid = int(g1.edge_mask().sum())
+        for name in FP8_KINDS:
+            K, k8, setup, x, dt = fp8_operands(g1, kp1, name)
+            kind = name.split("_")[1]
+            streams = [(f"K2 {kind}", f"B2-bwd {kind}", k8)]
+            if name == FP8_KINDS[0]:
+                streams.append(("K2 uai1 bfloat16", "B2-bwd uai1 bfloat16",
+                                K))
+            for k2_key, b2_key, stream in streams:
+                kb = stream.element_size()
+                k8a = stream if stream.dtype != K.dtype else None
+                rec[k2_key] = dict(
+                    ms=time_ms(lambda: fused_iterate_total(
+                        x, g1.senders, K, setup, k8=k8a, **kw), 5),
+                    plain_ms=time_ms(lambda: fused_iterate_total_plain(
+                        x, g1.senders, stream, setup, **kw), 1),
+                    library_ms=None, library_note=(
+                        "no PyTorch sparse or batched product reads fp8"
+                        if k8a is not None else "not timed here"),
+                    flops=2.0 * valid * 4096,
+                    bytes=(kb * valid * 4096 + 9 * e1 + 4 * n1 * 64
+                           + 8 * (n1 + 1) + 4 * n1 * 64),
+                    shape=f"E={e1} ({valid} valid), C=4096, {stream.dtype} K")
+                rec[b2_key] = dict(
+                    ms=time_ms(lambda: fused_iterate_bwd(stream, setup, dt,
+                                                         **kw), 5),
+                    plain_ms=time_ms(lambda: fused_iterate_bwd_plain(
+                        stream, setup, dt, **kw), 1),
+                    library_ms=None, library_note=(
+                        "torch.bmm takes no fp8 operand"
+                        if k8a is not None else "not timed here"),
+                    flops=2.0 * valid * 4096,
+                    bytes=(kb * valid * 4096 + 9 * e1 + 4 * n1 * 64
+                           + 4 * e1 * 64 * 2),
+                    shape=f"E={e1} ({valid} valid), C=4096, {stream.dtype} K")
+            del K, k8
+    for name, r in rec.items():
+        set_bound(r)
+        log(f"phase 6: {name} ({r['shape']}): {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), library {r['library_ms']} "
+            f"({r['library_note']})")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -983,47 +1310,99 @@ def main() -> int:
     kp1 = gkn_init(torch.Generator().manual_seed(SEED), uai1_config(),
                    device=dev)["kernel"]
 
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"{what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     errs = phase_kernels_vs_plain(g, h, params)
     errs.update(phase_backward_vs_plain(g4, kp4, g1, kp1))
     phase_general_forms(g, dev)
+    errs.update(phase_b3_vs_plain(g1, kp1))
+    errs.update(phase_fp8_vs_plain(g1, kp1))
+    lap("phase 2 wall time")
     launches = phase_serving(cfg, params, norms, u_norm, full, split)
+    b3_launches = phase_b3_op(g1, kp1)
+    lap("phase 3 wall time")
     times = phase_times(g, h, params)
     forward_times(g, cfg, params)
+    lap("phase 4 wall time")
 
+    uai1_fp8 = dataclasses.replace(uai1_config(), compute_dtype="bfloat16",
+                                   k_storage="float8_e4m3")
     trained = {
         "uai4 train": phase_training("uai4", uai4_config(), arr4, train4,
                                      "mse", "unit", 0.5),
         "uai1 train": phase_training("uai1", uai1_config(), arr1, train1,
-                                     "l1", "gaussian", 0.8)}
-    phase_train_grads("uai4 (fp32)", uai4_config(None),
-                      dataclasses.replace(uai4_config(None), impl="scan"),
-                      "mse", "unit", S_GRAD4, R_GRAD4, 512)
-    phase_train_grads("uai4 (bf16)", uai4_config(), uai4_config(), "mse",
-                      "unit", S_GRAD4, R_GRAD4, 512, tol=GRAD_BF16_TOL,
-                      plain_ctx=plain_on_card)
-    phase_train_grads("uai1", uai1_config(),
-                      dataclasses.replace(uai1_config(), kcached_fused="off"),
-                      "l1", "gaussian", S_GRAD1, R_GRAD1, 0)
+                                     "l1", "gaussian", 0.8),
+        "uai1 fp8 train": phase_training("uai1 fp8", uai1_fp8, arr1, train1,
+                                         "l1", "gaussian", 0.8)}
+    for k in ("uai1 train", "uai1 fp8 train"):
+        log(f"phase 5: {k}: warm step {trained[k]['warm_step_ms']:.1f} ms, "
+            f"peak device memory {trained[k]['peak_gib']:.2f} GiB")
+    grads = {
+        "grad uai4 (fp32)": phase_train_grads(
+            "uai4 (fp32)", uai4_config(None),
+            dataclasses.replace(uai4_config(None), impl="scan"), "mse",
+            "unit", S_GRAD4, R_GRAD4, 512),
+        "grad uai4 (bf16)": phase_train_grads(
+            "uai4 (bf16)", uai4_config(), uai4_config(), "mse", "unit",
+            S_GRAD4, R_GRAD4, 512, tol=GRAD_BF16_TOL,
+            plain_ctx=plain_on_card),
+        "grad uai1": phase_train_grads(
+            "uai1", uai1_config(),
+            dataclasses.replace(uai1_config(), kcached_fused="off"), "l1",
+            "gaussian", S_GRAD1, R_GRAD1, 0)}
+    # fp8: against the Functions' plain versions on the card (the
+    # unfused path rounds x to bf16 in its products)
+    for ks in FP8_KINDS:
+        c = dataclasses.replace(uai1_fp8, k_storage=ks)
+        grads[f"grad uai1 {ks}"] = phase_train_grads(
+            f"uai1 {ks}", c, c, "l1", "gaussian", S_GRAD1, R_GRAD1, 0,
+            tol=GRAD_BF16_TOL, plain_ctx=plain_on_card)
+    lap("phase 5 wall time")
     times.update(backward_times(g4, kp4, g1, kp1))
+    times.update(b3_fp8_times(g1, kp1))
+    lap("phase 6 wall time")
     log("phase 6: training step times " + json.dumps(
         {k: dict(warm_step_ms=v["warm_step_ms"], step_ms=v["step_ms"],
                  peak_gib=v["peak_gib"]) for k, v in trained.items()}))
 
     by_path = {f"serving {k}": v for k, v in launches.items()}
     by_path.update({k: v["launches"] for k, v in trained.items()})
+    by_path.update(grads)
+    by_path.update(b3_launches)
 
-    def record(name, key, source, replaces, err_key):
+    def count(key, counts):
+        """A form's launches in one path's counts: K2 and B2-bwd count
+        every launch, so their fp32/bf16 form is the rest after the fp8
+        forms; the B3 forms are the B3 op paths of their K dtype."""
+        if key in ("K2", "B2-bwd"):
+            return counts[key] - counts[f"{key} e4m3"] - counts[f"{key} e5m2"]
+        return counts.get(key, 0)
+
+    def record(name, key, source, replaces, err_key, counter=None,
+               paths=None):
         t = times[key]
-        return dict(name=name, route="cuda",
-                    source=f"graph_pde_tpu_torch/csrc/{source}",
-                    replaces=f"graph_pde_tpu/ops/{replaces}",
-                    launches=sum(v.get(key, 0) for v in by_path.values()),
-                    launches_by_path={k: v.get(key, 0)
-                                      for k, v in by_path.items()},
-                    max_abs_err=errs[err_key], ms=t["ms"],
-                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                    bound_by=t["bound_by"], library_ms=t["library_ms"])
+        counter = counter or key
+        chosen = {k: v for k, v in by_path.items()
+                  if paths is None or k in paths}
+        by = {k: count(counter, v) for k, v in chosen.items()}
+        rec = dict(name=name, route="cuda",
+                   source=f"graph_pde_tpu_torch/csrc/{source}",
+                   replaces=f"graph_pde_tpu/ops/{replaces}",
+                   launches=sum(by.values()), launches_by_path=by,
+                   max_abs_err=errs[err_key], ms=t["ms"],
+                   plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                   bound_by=t["bound_by"], library_ms=t["library_ms"])
+        if "library_note" in t:
+            rec["library_note"] = t["library_note"]
+        return rec
 
+    b3_paths = {dt: [f"B3 op, K {dt}"]
+                for dt in ("float32", "bfloat16")}
     records = [
         record("K1 fused_edge_messages", "K1", "fused_edge_conv.cu",
                "pallas_edge_conv.py:279", "K1 float32"),
@@ -1034,7 +1413,22 @@ def main() -> int:
                "B1-bwd float32"),
         record("B2-bwd fused_iterate_bwd", "B2-bwd", "fused_iterate_bwd.cu",
                "fused_iterate.py:85", "B2-bwd K=bfloat16"),
-    ]
+        record("K2 fused_iterate_total, fp8 e4m3 K", "K2 e4m3",
+               "fused_iterate.cu", "fused_iterate.py:61", "K2 e4m3"),
+        record("K2 fused_iterate_total, fp8 e5m2 K", "K2 e5m2",
+               "fused_iterate.cu", "fused_iterate.py:61", "K2 e5m2"),
+        record("B2-bwd fused_iterate_bwd, fp8 e4m3 K", "B2-bwd e4m3",
+               "fused_iterate_bwd.cu", "fused_iterate.py:85", "B2-bwd e4m3"),
+        record("B2-bwd fused_iterate_bwd, fp8 e5m2 K", "B2-bwd e5m2",
+               "fused_iterate_bwd.cu", "fused_iterate.py:85", "B2-bwd e5m2"),
+    ] + [
+        record(f"{k} cached_contraction{'_bwd' if k == 'B3-bwd' else ''}, "
+               f"{dt} K", f"{k} {dt}", "cached_contraction.cu",
+               "cached_contraction.py:" + ("62" if k == "B3-fwd" else "78"),
+               f"{k} {dt}", counter=k, paths=b3_paths[dt])
+        for k in ("B3-fwd", "B3-bwd") for dt in ("float32", "bfloat16")]
+    require(all(r["launches"] > 0 for r in records),
+            "every kernel form launched on its main path")
     log(json.dumps({"kernels": records}))
     log(ident)
     print(json.dumps({"ok": True, "device": {

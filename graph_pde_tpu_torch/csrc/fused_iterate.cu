@@ -30,9 +30,14 @@
 // again; every K element is still read once. Where out % 8 != 0 that
 // kernel reads the runs element by element (the vector loads need
 // 8-element runs inside one channel).
+//
+// K may also be fp8 (e4m3 or e5m2): the JAX kernels' 1-byte K stream of
+// k_storage. A run is then one 8-byte load, converted pairwise to fp32
+// (exactly), so the fp32 arithmetic is the same for every K type.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 namespace {
@@ -63,10 +68,46 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
   }
 }
 
+// fp8 K (e4m3, e5m2) is a storage format: every value is exact in fp16
+// and so in fp32. Pairs go through the packed fp8x2 -> f16x2 convert.
+template <__nv_fp8_interpretation_t KIND>
+__device__ __forceinline__ void fp8x4_to_float(uint32_t w, float* v) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(w >> (16 * h)), KIND);
+    const float2 f = __half22float2(__half2(r));
+    v[2 * h] = f.x;
+    v[2 * h + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p,
+                                      float (&v)[VEC]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  fp8x4_to_float<__NV_E4M3>(u.x, v);
+  fp8x4_to_float<__NV_E4M3>(u.y, v + 4);
+}
+
+__device__ __forceinline__ void load8(const __nv_fp8_e5m2* p,
+                                      float (&v)[VEC]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  fp8x4_to_float<__NV_E5M2>(u.x, v);
+  fp8x4_to_float<__NV_E5M2>(u.y, v + 4);
+}
+
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
 
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ float load1(const __nv_fp8_e4m3* p) {
+  return static_cast<float>(*p);
+}
+
+__device__ __forceinline__ float load1(const __nv_fp8_e5m2* p) {
+  return static_cast<float>(*p);
 }
 
 // The serving shapes: out_ch % 8 == 0 and in_ch * out_ch <= COLS, so a
@@ -269,21 +310,31 @@ int launch(const float* x, const int64_t* senders, const KT* K,
 extern "C" {
 
 // Shape contract (checked by the Python wrapper): out_ch <= 1024, K
-// contiguous [E, in_ch * out_ch] in fp32 (k_bf16 = 0) or bf16
-// (k_bf16 = 1), rowptr [n_nodes + 1] over receiver-sorted edges, x and K
-// 16-byte aligned. Returns a cudaError_t.
+// contiguous [E, in_ch * out_ch] of the element type named by k_kind
+// (0 fp32, 1 bf16, 2 fp8 e4m3, 3 fp8 e5m2), rowptr [n_nodes + 1] over
+// receiver-sorted edges, x and K 16-byte aligned. Returns a cudaError_t.
 int gpde_iterate_total(const float* x, const int64_t* senders, const void* K,
                        const uint8_t* mask, const int64_t* rowptr, float* out,
-                       int64_t n_nodes, int in_ch, int out_ch, int k_bf16,
+                       int64_t n_nodes, int in_ch, int out_ch, int k_kind,
                        void* stream) {
   if (n_nodes == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (k_bf16) {
-    return launch(x, senders, reinterpret_cast<const __nv_bfloat16*>(K),
-                  mask, rowptr, out, n_nodes, in_ch, out_ch, s);
+  switch (k_kind) {
+    case 0:
+      return launch(x, senders, reinterpret_cast<const float*>(K), mask,
+                    rowptr, out, n_nodes, in_ch, out_ch, s);
+    case 1:
+      return launch(x, senders, reinterpret_cast<const __nv_bfloat16*>(K),
+                    mask, rowptr, out, n_nodes, in_ch, out_ch, s);
+    case 2:
+      return launch(x, senders, reinterpret_cast<const __nv_fp8_e4m3*>(K),
+                    mask, rowptr, out, n_nodes, in_ch, out_ch, s);
+    case 3:
+      return launch(x, senders, reinterpret_cast<const __nv_fp8_e5m2*>(K),
+                    mask, rowptr, out, n_nodes, in_ch, out_ch, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return launch(x, senders, reinterpret_cast<const float*>(K), mask, rowptr,
-                out, n_nodes, in_ch, out_ch, s);
 }
 
 }  // extern "C"

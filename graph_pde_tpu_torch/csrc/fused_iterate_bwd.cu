@@ -9,7 +9,8 @@
 //   dmsg[e, o] = mask[e] * dtotal[recv[e], o]
 //   dxj[e, i]  = sum_o K[e, i*out + o] * dmsg[e, o]
 //
-// with K fp32 or bf16 (upcast in registers). dK = xj (x) dmsg stays
+// with K fp32, bf16 or fp8 e4m3/e5m2 (the 1-byte stream of k_storage),
+// upcast exactly in registers. dK = xj (x) dmsg stays
 // outside the kernel, as in the JAX package, so the depth steps' dK
 // contributions accumulate in K's dtype there.
 //
@@ -30,6 +31,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 namespace {
@@ -59,10 +61,46 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
   }
 }
 
+// fp8 K (e4m3, e5m2) is a storage format: every value is exact in fp16
+// and so in fp32. Pairs go through the packed fp8x2 -> f16x2 convert.
+template <__nv_fp8_interpretation_t KIND>
+__device__ __forceinline__ void fp8x4_to_float(uint32_t w, float* v) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(w >> (16 * h)), KIND);
+    const float2 f = __half22float2(__half2(r));
+    v[2 * h] = f.x;
+    v[2 * h + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p,
+                                      float (&v)[VEC]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  fp8x4_to_float<__NV_E4M3>(u.x, v);
+  fp8x4_to_float<__NV_E4M3>(u.y, v + 4);
+}
+
+__device__ __forceinline__ void load8(const __nv_fp8_e5m2* p,
+                                      float (&v)[VEC]) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  fp8x4_to_float<__NV_E5M2>(u.x, v);
+  fp8x4_to_float<__NV_E5M2>(u.y, v + 4);
+}
+
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
 
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ float load1(const __nv_fp8_e4m3* p) {
+  return static_cast<float>(*p);
+}
+
+__device__ __forceinline__ float load1(const __nv_fp8_e5m2* p) {
+  return static_cast<float>(*p);
 }
 
 // V8: out_ch % 8 == 0 (a run lies in one channel; red holds one partial
@@ -152,22 +190,32 @@ int launch(const KT* K, const uint8_t* mask, const int64_t* recv,
 extern "C" {
 
 // Shape contract (checked by the Python wrapper): out_ch <= 1024, K
-// contiguous [E, in_ch * out_ch] in fp32 (k_bf16 = 0) or bf16
-// (k_bf16 = 1), 16-byte aligned, with in_ch * out_ch <= 4096 or out_ch
-// dividing 4096; mask [E] bool, recv [E] int64, dtotal [nodes, out_ch]
-// fp32. Writes dxj [E, in_ch] and dmsg [E, out_ch]. Returns a
-// cudaError_t.
+// contiguous [E, in_ch * out_ch] of the element type named by k_kind
+// (0 fp32, 1 bf16, 2 fp8 e4m3, 3 fp8 e5m2), 16-byte aligned, with
+// in_ch * out_ch <= 4096 or out_ch dividing 4096; mask [E] bool, recv [E]
+// int64, dtotal [nodes, out_ch] fp32. Writes dxj [E, in_ch] and dmsg
+// [E, out_ch]. Returns a cudaError_t.
 int gpde_iterate_bwd(const void* K, const uint8_t* mask, const int64_t* recv,
                      const float* dtotal, float* dxj, float* dmsg, int64_t E,
-                     int in_ch, int out_ch, int k_bf16, void* stream) {
+                     int in_ch, int out_ch, int k_kind, void* stream) {
   if (E == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (k_bf16) {
-    return launch(reinterpret_cast<const __nv_bfloat16*>(K), mask, recv,
-                  dtotal, dxj, dmsg, E, in_ch, out_ch, s);
+  switch (k_kind) {
+    case 0:
+      return launch(reinterpret_cast<const float*>(K), mask, recv, dtotal,
+                    dxj, dmsg, E, in_ch, out_ch, s);
+    case 1:
+      return launch(reinterpret_cast<const __nv_bfloat16*>(K), mask, recv,
+                    dtotal, dxj, dmsg, E, in_ch, out_ch, s);
+    case 2:
+      return launch(reinterpret_cast<const __nv_fp8_e4m3*>(K), mask, recv,
+                    dtotal, dxj, dmsg, E, in_ch, out_ch, s);
+    case 3:
+      return launch(reinterpret_cast<const __nv_fp8_e5m2*>(K), mask, recv,
+                    dtotal, dxj, dmsg, E, in_ch, out_ch, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return launch(reinterpret_cast<const float*>(K), mask, recv, dtotal, dxj,
-                dmsg, E, in_ch, out_ch, s);
 }
 
 }  // extern "C"

@@ -8,13 +8,15 @@ shared across the depth steps.
 ``impl='kcached'`` computes the kernel matrices K once per forward and
 reuses them at every depth step, either through the unfused plain path
 (gather, ``apply_cached_kernel``, masked mean) or, with
-``kcached_fused``, through the K2 kernel (ops/fused_iterate.py). Every
-path is differentiable: the fused ops are autograd Functions with
-backward kernels, and autograd differentiates the cached K's chunked
-build. A batch
-runs as one flattened graph, but its gates read one graph's sizes (as
-the JAX package's per-graph vmap does), so a config takes the same
-branch and the same K dtype in both packages.
+``kcached_fused``, through the K2 kernel (ops/fused_iterate.py).
+``k_storage`` ('float8_e4m3' / 'float8_e5m2') stores K in fp8: the fused
+path hands both kernels a 1-byte copy k8 and its dK lands on the
+full-precision K; the unfused path quantizes K behind a straight-through
+estimator. Every path is differentiable: the fused ops are autograd
+Functions with backward kernels, and autograd differentiates the cached
+K's chunked build. A batch runs as one flattened graph, but its gates
+read one graph's sizes (as the JAX package's per-graph vmap does), so a
+config takes the same branch and the same K dtype in both packages.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import torch
 
 from ..device import DeviceLike
 from ..graph.graph import Graph, flatten_stacked
-from ..ops.cached_contraction import apply_cached_kernel, maybe_quantize_k
+from ..ops.cached_contraction import (apply_cached_kernel, maybe_quantize_k,
+                                      to_fp8)
 from ..ops.dense import (dense_apply, dense_init, linear_init,
                          pyg_uniform_init)
 from ..ops.edge_conv import _cast_params, _resolve_dtype, edge_kernel_conv
@@ -58,9 +61,9 @@ class GKNConfig:
     use_bias: bool = True
     impl: str = "auto"
     compute_dtype: Optional[str] = None  # e.g. 'bfloat16'
-    loop_vjp: bool = False      # kcached training option: not ported
+    loop_vjp: bool = False      # kcached loop-level VJP: not ported
     batch_mode: str = "vmap"    # gates see one graph ('vmap') or the batch
-    k_storage: Optional[str] = None  # kcached fp8 storage: not ported
+    k_storage: Optional[str] = None  # kcached K: 'float8_e4m3'|'float8_e5m2'
     kcached_fused: str = "off"  # 'off' | 'on' | 'auto'
 
     def resolved_kernel_layers(self) -> Tuple[int, ...]:
@@ -145,7 +148,8 @@ def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask, dtype,
     kp, attr = params["kernel"], graph.edge_attr
     if dtype is not None:
         kp, attr = _cast_params(kp, dtype), attr.to(dtype)
-    kk = maybe_quantize_k(_cached_kernel(kp, attr, k_dtype), cfg.k_storage)
+    # fp32 kappa -> k_dtype -> fp8, the JAX package's rounding order
+    kk = _cached_kernel(kp, attr, k_dtype)
     n = x.shape[0]
 
     use_fused = (not graph.node_block
@@ -156,11 +160,15 @@ def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask, dtype,
                       or (cfg.kcached_fused == "auto"
                           and gate_e * gate_n * 4 > _ONEHOT_MAX_BYTES)))
     if use_fused:
+        # fp8 storage: both kernels stream the 1-byte copy; dK lands on
+        # the full-precision kk (gkn.py:185-195 in JAX)
+        k8 = (None if cfg.k_storage is None
+              else to_fp8(kk.detach(), cfg.k_storage))
         setup = sorted_iterate_setup(graph.receivers, edge_mask, n)
         recip = (1.0 / setup.counts) if cfg.aggr == "mean" else None
         for t in range(cfg.depth):
             out = fused_iterate_total(x, graph.senders, kk, setup,
-                                      in_channels=w, out_channels=w)
+                                      in_channels=w, out_channels=w, k8=k8)
             if recip is not None:
                 out = out * recip
             x = _root_bias(params, x, out)
@@ -168,6 +176,7 @@ def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask, dtype,
                 x = torch.relu(x)
         return x
 
+    kk = maybe_quantize_k(kk, cfg.k_storage)
     for t in range(cfg.depth):
         msg = apply_cached_kernel(gather_rows(x, graph.senders), kk, w, w)
         if cfg.aggr == "mean":

@@ -23,7 +23,11 @@ plain versions ``fused_iterate_total_plain`` and
 ``fused_iterate_bwd_plain``.
 
 K may be float32 or bfloat16; either way it is upcast to float32 before
-the multiply and x is not rounded (the JAX kernels do the same).
+the multiply and x is not rounded (the JAX kernels do the same). With
+fp8 storage (``k8``, fused_iterate.py:160-182 in JAX) both kernels
+stream the 1-byte copy k8 of K instead (e4m3 or e5m2, upcast exactly),
+and dK lands on the full-precision K argument, in K's dtype: a
+straight-through estimator.
 """
 from __future__ import annotations
 
@@ -40,6 +44,12 @@ C_CHUNK = 1024   # the JAX kernel's column chunk
 _MAX_OUT = 1024  # out_channels bound of the CUDA kernels (the gate implies it)
 _COLS = 4096     # K columns per pass of the backward kernel
 _PLAIN_CHUNK = 65536
+# the kernels' K-kind code of each K stream dtype, and the launch counter
+# of each fp8 form
+_K_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
+           torch.float8_e5m2: 3}
+_FP8_COUNTER = {torch.float8_e4m3fn: "e4m3_launches",
+                torch.float8_e5m2: "e5m2_launches"}
 
 
 def fused_iterate_supported(e: int, in_channels: int, out_channels: int,
@@ -84,7 +94,8 @@ def fused_iterate_total_plain(x, senders, K, setup: IterateSetup, *,
                               in_channels: int,
                               out_channels: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel: [N, out] float32 sums,
-    computed in edge chunks."""
+    computed in edge chunks. K is the stream the kernel reads: float32,
+    bfloat16 or an fp8 k8."""
     e = senders.shape[0]
     total = torch.zeros((setup.num_segments, out_channels),
                         dtype=torch.float32, device=x.device)
@@ -102,7 +113,8 @@ def fused_iterate_total_plain(x, senders, K, setup: IterateSetup, *,
 def fused_iterate_bwd_plain(K, setup: IterateSetup, dtotal, *,
                             in_channels: int, out_channels: int):
     """Plain PyTorch version of the backward kernel: (dxj [E, in],
-    dmsg [E, out]) float32, computed in edge chunks."""
+    dmsg [E, out]) float32, computed in edge chunks. K is the stream the
+    kernel reads, as in ``fused_iterate_total_plain``."""
     e = K.shape[0]
     dmsg = torch.where(setup.mask[:, None],
                        dtotal.index_select(0, setup.receivers), 0.0)
@@ -116,27 +128,39 @@ def fused_iterate_bwd_plain(K, setup: IterateSetup, dtotal, *,
     return dxj, dmsg
 
 
-# (pointer operands..., rows, in, out, K is bf16, stream)
+# (pointer operands..., rows, in, out, K kind, stream)
 _ARGS = ([ctypes.c_void_p] * 6
          + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p])
 
 
-def _check_k(K, in_channels: int, out_channels: int) -> None:
+def _check_k(K, in_channels: int, out_channels: int,
+             stream: bool = False) -> None:
+    """K is float32 or bfloat16; a K stream (what a kernel reads) may
+    also be the fp8 copy k8."""
     if out_channels > _MAX_OUT:
         raise ValueError(f"CUDA iteration kernels take out_channels <= "
                          f"{_MAX_OUT}, not {out_channels}")
-    if K.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"cached K must be float32 or bfloat16, not "
+    if K.dtype not in (torch.float32, torch.bfloat16) and not (
+            stream and K.dtype in _FP8_COUNTER):
+        raise ValueError(f"cached K must be float32 or bfloat16"
+                         f"{' (or fp8 as k8)' if stream else ''}, not "
                          f"{K.dtype}")
     if K.shape[1] != in_channels * out_channels:
         raise ValueError("K rows must hold in_channels * out_channels")
 
 
+def _count(fn, K) -> None:
+    fn.launches += 1
+    if K.dtype in _FP8_COUNTER:
+        attr = _FP8_COUNTER[K.dtype]
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
 def _launch(x, senders, K, setup: IterateSetup, in_channels: int,
             out_channels: int) -> torch.Tensor:
     c = in_channels * out_channels
-    _check_k(K, in_channels, out_channels)
+    _check_k(K, in_channels, out_channels, stream=True)
     dev = x.device
     if x.dtype != torch.float32 or x.shape[1] != in_channels:
         raise ValueError("x must be float32 [N, in_channels]")
@@ -160,15 +184,15 @@ def _launch(x, senders, K, setup: IterateSetup, in_channels: int,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[t.data_ptr() for t in ptrs], n, in_channels,
-                 out_channels, int(K.dtype == torch.bfloat16), stream)
+                 out_channels, _K_KIND[K.dtype], stream)
     kernels.check(err, "iteration kernel launch")
-    fused_iterate_total.launches += 1
+    _count(fused_iterate_total, K)
     return out
 
 
 def _launch_bwd(K, setup: IterateSetup, dtotal, in_channels: int,
                 out_channels: int):
-    _check_k(K, in_channels, out_channels)
+    _check_k(K, in_channels, out_channels, stream=True)
     c = in_channels * out_channels
     if c > _COLS and _COLS % out_channels:
         raise ValueError("iteration backward kernel needs in * out <= "
@@ -192,20 +216,21 @@ def _launch_bwd(K, setup: IterateSetup, dtotal, in_channels: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[t.data_ptr() for t in (K, setup.mask, setup.receivers,
                                           dtotal, dxj, dmsg)],
-                 e, in_channels, out_channels,
-                 int(K.dtype == torch.bfloat16), stream)
+                 e, in_channels, out_channels, _K_KIND[K.dtype], stream)
     kernels.check(err, "iteration backward kernel launch")
-    fused_iterate_bwd.launches += 1
+    _count(fused_iterate_bwd, K)
     return dxj, dmsg
 
 
 def fused_iterate_bwd(K, setup: IterateSetup, dtotal, *, in_channels: int,
                       out_channels: int):
     """(dxj [E, in], dmsg [E, out]) float32 from the cotangent dtotal
-    [N, out] of ``fused_iterate_total``.
+    [N, out] of ``fused_iterate_total``; K is the stream the forward read
+    (K, or the fp8 k8).
 
     CUDA tensors launch the B2-bwd kernel (counted in
-    ``fused_iterate_bwd.launches``); CPU tensors take the plain
+    ``fused_iterate_bwd.launches``, and an fp8 K also in
+    ``e4m3_launches`` / ``e5m2_launches``); CPU tensors take the plain
     version."""
     if K.is_cuda:
         return _launch_bwd(K, setup, dtotal, in_channels, out_channels)
@@ -215,6 +240,8 @@ def fused_iterate_bwd(K, setup: IterateSetup, dtotal, *, in_channels: int,
 
 
 fused_iterate_bwd.launches = 0
+fused_iterate_bwd.e4m3_launches = 0
+fused_iterate_bwd.e5m2_launches = 0
 
 
 def _outer(x, senders, dmsg, dtype) -> torch.Tensor:
@@ -231,49 +258,63 @@ def _outer(x, senders, dmsg, dtype) -> torch.Tensor:
 
 
 class _FusedIterateTotal(torch.autograd.Function):
-    """The masked per-node sum, with the JAX custom_vjp's backward
-    (fused_iterate.py:184-200)."""
+    """The masked per-node sum, with the JAX custom_vjps' backward
+    (fused_iterate.py:160-200): both kernels read the stream (K, or k8
+    where given), and dK lands on K in K's dtype; k8 gets no gradient."""
 
     @staticmethod
-    def forward(ctx, x, K, senders, setup, in_channels, out_channels):
-        ctx.save_for_backward(x, K, senders)
+    def forward(ctx, x, K, senders, setup, in_channels, out_channels, k8):
+        stream = K if k8 is None else k8
+        ctx.save_for_backward(x, stream, senders)
         ctx.setup = setup
         ctx.shape = (in_channels, out_channels)
+        ctx.k_dtype = K.dtype
         if x.is_cuda:
-            return _launch(x, senders, K, setup, in_channels, out_channels)
-        return fused_iterate_total_plain(x, senders, K, setup,
+            return _launch(x, senders, stream, setup, in_channels,
+                           out_channels)
+        return fused_iterate_total_plain(x, senders, stream, setup,
                                          in_channels=in_channels,
                                          out_channels=out_channels)
 
     @staticmethod
     def backward(ctx, dtotal):
-        x, K, senders = ctx.saved_tensors
+        x, stream, senders = ctx.saved_tensors
         in_channels, out_channels = ctx.shape
-        dxj, dmsg = fused_iterate_bwd(K, ctx.setup, dtotal,
+        dxj, dmsg = fused_iterate_bwd(stream, ctx.setup, dtotal,
                                       in_channels=in_channels,
                                       out_channels=out_channels)
         dx = dk = None
         if ctx.needs_input_grad[0]:
             dx = torch.zeros_like(x).index_add_(0, senders, dxj)
         if ctx.needs_input_grad[1]:
-            dk = _outer(x, senders, dmsg, K.dtype)
-        return dx, dk, None, None, None, None
+            dk = _outer(x, senders, dmsg, ctx.k_dtype)
+        return dx, dk, None, None, None, None, None
 
 
 def fused_iterate_total(x, senders, K, setup: IterateSetup, *,
-                        in_channels: int, out_channels: int) -> torch.Tensor:
+                        in_channels: int, out_channels: int,
+                        k8=None) -> torch.Tensor:
     """Masked per-node message SUM of one kcached depth step, [N, out]
     float32, differentiable in x and K. The caller multiplies by
-    1/counts for the mean.
+    1/counts for the mean. K is float32 or bfloat16; ``k8``, an fp8
+    (e4m3 or e5m2) copy of K, is what both kernels then read.
 
     CUDA tensors launch the K2 kernel (counted in
-    ``fused_iterate_total.launches``) and, in the backward, the B2-bwd
-    kernel; CPU tensors take the plain versions."""
+    ``fused_iterate_total.launches``, and with k8 also in
+    ``e4m3_launches`` / ``e5m2_launches``) and, in the backward, the
+    B2-bwd kernel; CPU tensors take the plain versions."""
+    _check_k(K, in_channels, out_channels)
+    if k8 is not None and (k8.dtype not in _FP8_COUNTER
+                           or k8.shape != K.shape):
+        raise ValueError(f"k8 must be an fp8 copy of K, not {k8.dtype} "
+                         f"{tuple(k8.shape)}")
     return _FusedIterateTotal.apply(x, K, senders, setup, in_channels,
-                                    out_channels)
+                                    out_channels, k8)
 
 
 fused_iterate_total.launches = 0
+fused_iterate_total.e4m3_launches = 0
+fused_iterate_total.e5m2_launches = 0
 
 __all__ = ["fused_iterate_total", "fused_iterate_total_plain",
            "fused_iterate_bwd", "fused_iterate_bwd_plain",

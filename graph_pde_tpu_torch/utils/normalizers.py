@@ -49,6 +49,10 @@ class UnitGaussianNormalizer:
         if sample_idx is None:
             return x * (std + self.eps) + mean
         idx = _idx(sample_idx).to(x.device)
+        # as jnp gathers: a negative index wraps once, then every index
+        # is clamped into range
+        n = mean.shape[-1]
+        idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
         if mean.ndim == idx[0].ndim:
             # mean: [n]; sample_idx: [batch, m] -> stats [batch, m]
             return x * (std[idx] + self.eps) + mean[idx]

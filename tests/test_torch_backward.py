@@ -22,6 +22,7 @@ from graph_pde_tpu.ops.fused_iterate import (fused_iterate_total as
 from graph_pde_tpu.ops.pallas_edge_conv import fused_edge_messages as j_fused
 
 from graph_pde_tpu_torch.models.gkn import _cached_kernel
+from graph_pde_tpu_torch.ops.cached_contraction import to_fp8
 from graph_pde_tpu_torch.ops.dense import dense_apply
 from graph_pde_tpu_torch.ops.fused_edge_conv import (edge_messages_bwd_plain,
                                                      fused_edge_messages,
@@ -166,6 +167,54 @@ def test_fused_iterate_grads_match_jax(k_dtype):
            F32_TOL if k_dtype == "float32" else BF16_TOL, "dK")
     # masked padding edges get no gradient
     assert float(tk.grad[~torch.as_tensor(mask)].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("k_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["float8_e4m3", "float8_e5m2"])
+def test_fused_iterate_k8_grads_match_jax(name, k_dtype):
+    """fp8 storage: the forward and B2-bwd read the 1-byte copy k8, dK
+    lands on K in K's dtype, k8 gets no gradient; against JAX's use_k8
+    custom_vjp (fused_iterate.py:160-182, interpret mode). K is scaled so
+    that e4m3's overflow to NaN stays out of the way."""
+    w, n, span = 8, 30, 64
+    recv, mask, s, x, kk, cot = _iterate_case(6, w, n)
+    kk = kk * 40.0
+    oh, ids, _ = j_iterate_setup(jnp.asarray(recv), jnp.asarray(mask), n,
+                                 span)
+    jk = jnp.asarray(kk).astype(k_dtype)
+    fp8 = {"float8_e4m3": jnp.float8_e4m3fn,
+           "float8_e5m2": jnp.float8_e5m2}[name]
+
+    def jloss(x, K):
+        total = j_iterate_total(x[jnp.asarray(s)], K, oh, ids, n, span,
+                                in_channels=w, out_channels=w,
+                                k8=K.astype(fp8), interpret=True)
+        return jnp.sum(total * cot), total
+
+    (_, jtot), (jx, jK) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(x), jk)
+
+    tx = _leaf(x)
+    tk = torch.tensor(kk).to(getattr(torch, k_dtype)).requires_grad_(True)
+    k8 = to_fp8(tk.detach(), name)
+    setup = sorted_iterate_setup(torch.as_tensor(recv).long(),
+                                 torch.as_tensor(mask), n)
+    total = fused_iterate_total(tx, torch.as_tensor(s).long(), tk, setup,
+                                in_channels=w, out_channels=w, k8=k8)
+    (total * torch.as_tensor(cot)).sum().backward()
+    _close(total.detach(), jtot, F32_TOL, "total")
+    _close(tx.grad, jx, F32_TOL, "dx")
+    assert tk.grad.dtype == tk.dtype
+    _close(tk.grad.float(), np.asarray(jK, np.float32),
+           F32_TOL if k_dtype == "float32" else BF16_TOL, "dK")
+    # the forward read k8's values, not K's
+    plain = fused_iterate_total(tx.detach(), torch.as_tensor(s).long(),
+                                tk.detach(), setup, in_channels=w,
+                                out_channels=w)
+    assert not torch.allclose(plain, total.detach(), rtol=1e-3)
+    with pytest.raises(ValueError, match="k8 must be an fp8 copy"):
+        fused_iterate_total(tx, torch.as_tensor(s).long(), tk, setup,
+                            in_channels=w, out_channels=w, k8=tk)
 
 
 @pytest.mark.parametrize("bf16", [False, True])

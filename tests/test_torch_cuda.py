@@ -11,6 +11,7 @@ sums before a rounding differ in order); the bf16 model gradients as
 stated at GRAD_BF16_TOL. TF32 is off for every comparison.
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -19,7 +20,10 @@ import torch
 from graph_pde_tpu_torch.graph import build_graph
 from graph_pde_tpu_torch.models import GKNConfig, gkn_apply, gkn_init
 from graph_pde_tpu_torch.models.gkn import params_to
-from graph_pde_tpu_torch.ops.dense import dense_init
+from graph_pde_tpu_torch.ops.cached_contraction import (
+    cached_contraction, cached_contraction_bwd, cached_contraction_bwd_plain,
+    cached_contraction_plain, to_fp8)
+from graph_pde_tpu_torch.ops.dense import dense_apply, dense_init
 from graph_pde_tpu_torch.ops.fused_edge_conv import (edge_messages_bwd_plain,
                                                      edge_messages_plain,
                                                      fused_edge_messages,
@@ -251,3 +255,126 @@ def test_gkn_grads_on_card_match_cpu(dev, impl, fused, layers, dtype, tol):
           + " ".join(f"{v:.2e}" for v in errs))
     for j, err in enumerate(errs):
         assert err <= tol, j
+
+
+# (in, out): the fast form at every out it takes (8 .. 256, two column
+# chunks at 128), and the general form (out not a multiple of 8, out 512)
+B3_SHAPES = [(64, 64), (16, 16), (128, 128), (32, 8), (4, 256), (12, 12),
+             (3, 5), (2, 512)]
+
+
+@pytest.mark.parametrize("k_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_in,w_out", B3_SHAPES)
+def test_b3_matches_plain(dev, k_dtype, w_in, w_out):
+    """B3-fwd and B3-bwd against their plain versions; dK (the same
+    float32 products, rounded once) bit for bit; through autograd, one
+    launch of each."""
+    g = torch.Generator().manual_seed(w_in * w_out)
+    e = 1001
+    x = torch.randn(e, w_in, generator=g).to(dev).requires_grad_(True)
+    K = torch.randn(e, w_in * w_out, generator=g).to(k_dtype).to(dev)
+    K.requires_grad_(True)
+    gg = torch.randn(e, w_out, generator=g).to(dev)
+    kw = dict(in_channels=w_in, out_channels=w_out)
+    before = (cached_contraction.launches, cached_contraction_bwd.launches)
+    msg = cached_contraction(x, K, **kw)
+    (msg * gg).sum().backward()
+    torch.cuda.synchronize()
+    assert (cached_contraction.launches - before[0],
+            cached_contraction_bwd.launches - before[1]) == (1, 1)
+    want = cached_contraction_plain(x.detach(), K.detach(), **kw)
+    assert _rel(msg.detach(), want) <= 1e-4
+    dx, dk = cached_contraction_bwd_plain(x.detach(), K.detach(), gg, **kw)
+    assert _rel(x.grad, dx) <= 1e-4
+    assert K.grad.dtype == k_dtype and torch.equal(K.grad, dk)
+
+
+@pytest.mark.parametrize("name", ["float8_e4m3", "float8_e5m2"])
+@pytest.mark.parametrize("w", [16, 64, 128, 12])
+def test_k2_b2_bwd_fp8_match_plain(dev, name, w):
+    """K2 and B2-bwd reading an fp8 K stream, against their plain
+    versions on the same k8, each counted as its fp8 form."""
+    g = torch.Generator().manual_seed(w + 7)
+    n, e = 40, 2048
+    recv = torch.sort(torch.randint(0, n, (e,), generator=g)).values
+    recv[-200:] = n - 1
+    mask = torch.arange(e) < e - 200
+    s = torch.randint(0, n, (e,), generator=g).to(dev)
+    x = torch.randn(n, w, generator=g).to(dev)
+    K = (torch.randn(e, w * w, generator=g) * 30).to(torch.bfloat16).to(dev)
+    k8 = to_fp8(K, name)
+    dt = torch.randn(n, w, generator=g).to(dev)
+    setup = sorted_iterate_setup(recv.to(dev), mask.to(dev), n)
+    attr = "e4m3_launches" if name == "float8_e4m3" else "e5m2_launches"
+    before = (fused_iterate_total.launches, getattr(fused_iterate_total, attr),
+              fused_iterate_bwd.launches, getattr(fused_iterate_bwd, attr))
+    got = fused_iterate_total(x, s, K, setup, in_channels=w, out_channels=w,
+                              k8=k8)
+    dxj, dmsg = fused_iterate_bwd(k8, setup, dt, in_channels=w,
+                                  out_channels=w)
+    torch.cuda.synchronize()
+    after = (fused_iterate_total.launches, getattr(fused_iterate_total, attr),
+             fused_iterate_bwd.launches, getattr(fused_iterate_bwd, attr))
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    want = fused_iterate_total_plain(x, s, k8, setup, in_channels=w,
+                                     out_channels=w)
+    assert _rel(got, want) <= 1e-4
+    wdx, wdm = fused_iterate_bwd_plain(k8, setup, dt, in_channels=w,
+                                       out_channels=w)
+    assert _rel(dxj, wdx) <= 1e-4 and torch.equal(dmsg, wdm)
+
+
+def test_to_fp8_on_card_matches_cpu(dev):
+    """The card's fp8 rounding is the CPU's, the e4m3 overflow to NaN
+    included."""
+    v = torch.cat([torch.randn(100_000) * 100,
+                   torch.tensor([448.0, 464.0, 464.01, 1e6, float("inf"),
+                                 -float("inf"), -500.0])])
+    for name in ("float8_e4m3", "float8_e5m2"):
+        for dt in (torch.float32, torch.bfloat16):
+            a = to_fp8(v.to(dt).to(dev), name).view(torch.uint8).cpu()
+            b = to_fp8(v.to(dt), name).view(torch.uint8)
+            assert torch.equal(a, b), (name, dt)
+
+
+@pytest.mark.parametrize("k_storage", ["float8_e4m3", "float8_e5m2"])
+@pytest.mark.parametrize("dtype,tol", [(None, 1e-4),
+                                       ("bfloat16", GRAD_BF16_TOL)])
+def test_gkn_fp8_grads_on_card_match_cpu(dev, k_storage, dtype, tol,
+                                        monkeypatch):
+    """kcached_fused='on' with fp8 K storage: the card's forward and
+    gradients (K2 and B2-bwd on k8, one launch of each fp8 form per
+    depth step) against the same Functions' plain versions on the CPU.
+
+    fp8 rounding turns the last-bit differences of a K built by cuBLAS and
+    by the CPU into whole fp8 steps (1/8 of a value in e4m3) wherever a
+    value lies near a rounding edge; so both sides build K in float64
+    here (rounded to K's dtype from nearly the same value), and the
+    comparison holds the fp8 kernels, not the K build."""
+    def k_build_f64(kp, attr, k_dtype):
+        kp64 = tuple({k: v.double() for k, v in layer.items()}
+                     for layer in kp)
+        return dense_apply(kp64, attr.double()).to(k_dtype)
+
+    monkeypatch.setattr(importlib.import_module(
+        "graph_pde_tpu_torch.models.gkn"), "_cached_kernel", k_build_f64)
+    rng = np.random.default_rng(0)
+    n, e = 200, 3000
+    host = build_graph(rng.normal(size=(n, 6)), rng.integers(0, n, e),
+                       rng.integers(0, n, e), rng.normal(size=(e, 6)))
+    cfg = GKNConfig(width=64, ker_width=128, depth=3, ker_in=6, in_width=6,
+                    kernel_layers=(6, 64, 128, 4096), impl="kcached",
+                    kcached_fused="on", compute_dtype=dtype,
+                    k_storage=k_storage)
+    p = gkn_init(torch.Generator().manual_seed(1), cfg, device="cpu")
+    attr = "e4m3_launches" if k_storage == "float8_e4m3" else "e5m2_launches"
+    before = (getattr(fused_iterate_total, attr),
+              getattr(fused_iterate_bwd, attr))
+    out, grads = _grads(p, cfg, host.to())
+    torch.cuda.synchronize()
+    assert (getattr(fused_iterate_total, attr) - before[0],
+            getattr(fused_iterate_bwd, attr) - before[1]) == (3, 3)
+    want_out, want = _grads(p, cfg, host.to("cpu"))
+    assert _rel(out, want_out) <= (1e-4 if dtype is None else 5e-3)
+    for j, (a, b) in enumerate(zip(grads, want)):
+        assert _rel(a, b) <= tol, j

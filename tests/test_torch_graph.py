@@ -192,6 +192,25 @@ def test_normalizers_match():
                                **tol)
 
 
+@pytest.mark.parametrize("stats_shape", [(25,), (3, 25)])
+def test_unit_normalizer_out_of_range_idx_matches_jax(stats_shape):
+    """Out-of-range sample_idx decodes as jnp gathers: a negative index
+    wraps once, then indices clamp into [0, n - 1]."""
+    rng = np.random.default_rng(7)
+    data = rng.normal(size=(10,) + stats_shape).astype(np.float32)
+    ju, tu = (jnorm.UnitGaussianNormalizer(data),
+              tnorm.UnitGaussianNormalizer(data))
+    idx = np.array([[0, 24, 25, 26, 1000, -1, -25, -26, -1000]])
+    vals = rng.normal(size=stats_shape[:-1] + idx.shape).astype(np.float32)
+    want = np.asarray(ju.decode(vals, sample_idx=idx))
+    got = tu.decode(vals, sample_idx=idx).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    # the clamped and wrapped indices read the stats of these locations
+    np.testing.assert_allclose(
+        got, tu.decode(vals, sample_idx=[[0, 24, 24, 24, 24, 24, 0, 0, 0]])
+        .numpy(), rtol=0, atol=0)
+
+
 def test_graph_dataclass_fields_match_jax_graph():
     jfields = {f.name for f in dataclasses.fields(jgraph.Graph)}
     tfields = {f.name for f in dataclasses.fields(tgraph.Graph)}

@@ -241,5 +241,12 @@ def test_apply_cached_kernel_matches(bf16):
     got = apply_cached_kernel(_t(x), tk, w, w)
     _close(got.numpy(), want, F32_TOL if not bf16 else BF16_TOL)
     assert maybe_quantize_k(tk, None) is tk
-    with pytest.raises(NotImplementedError):
-        maybe_quantize_k(tk, "float8_e4m3")
+    with pytest.raises(ValueError, match="unknown k_storage"):
+        maybe_quantize_k(tk, "float8")
+    # fp8 storage behind the straight-through estimator, as in JAX
+    from graph_pde_tpu.ops.cached_contraction import (maybe_quantize_k
+                                                      as j_quantize)
+    want = j_apply(jnp.asarray(x), j_quantize(jk, "float8_e4m3"), w, w)
+    got = apply_cached_kernel(_t(x), maybe_quantize_k(tk, "float8_e4m3"),
+                              w, w)
+    _close(got.numpy(), want, F32_TOL if not bf16 else BF16_TOL)
