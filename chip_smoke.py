@@ -8,13 +8,17 @@ Phases, each fatal on failure:
   2. each kernel against its plain PyTorch version on the card: K1 and
      K2 at the serving shapes (a real s=61, r=0.2 Darcy graph; an edge
      slice where the plain version materialises [E, 64, 64]), B1-bwd
-     (all four outputs, fp32 and bf16) on a 65,536-edge slice of the
-     uai4 s=241 training graph and B2-bwd (fp32 and bf16 K) on a slice
-     of the uai1 s=61 training graph; every kernel at registry shapes
-     the main paths do not reach (the general forms); B3-fwd and B3-bwd
-     (fp32 and bf16 K) at the uai1 full-graph shape and at widths 12 and
-     128; K2 and B2-bwd on the e4m3 and e5m2 fp8 K streams of the full
-     uai1 graph;
+     (all four outputs; bf16 on the tensor cores, fp32 on the SIMT
+     units; a second launch bit-identical) on a 65,536-edge slice of
+     the uai4 s=241 training graph and at the (6,1024,1024,4096) and
+     (6,16,32,256) kappas, B2-bwd (dmsg bit for bit) on a slice of the
+     uai1 s=61 training graph (fp32 and bf16 K) and in every K stream
+     type at widths 16 and 128 (warp form) and 12 and 512 (block form);
+     every kernel at registry shapes the main paths do not reach (the
+     general forms); B3-fwd and B3-bwd (fp32 and bf16 K) at the uai1
+     full-graph shape and at widths 12 and 128; K2 and B2-bwd on the
+     e4m3 and e5m2 fp8 K streams of the full uai1 graph. Each B1-bwd
+     and B2-bwd check requires the form its shape takes;
   3. serving: the full-width neurips1 GKN (random weights from a seed,
      Gaussian normalizers fitted on synthetic Darcy samples) answers
      requests through GKNPredictor.predict at s=61 (full graph) and
@@ -38,8 +42,9 @@ Phases, each fatal on failure:
      uai1 with compute_dtype='bfloat16' and k_storage='float8_e4m3'
      (the fp8 forms of K2 and B2-bwd). The counters are zeroed around
      every step and every test evaluation: a step must launch its path's
-     forward and backward kernel `depth` times each and the other
-     path's never. Losses and parameters must be finite; the peak device
+     forward and backward kernel `depth` times each, the backward in
+     its redesigned form (B1-bwd on the tensor cores in bf16, B2-bwd a
+     warp per edge), and the other path's never. Losses and parameters must be finite; the peak device
      memory of each fit is logged. The step-1 gradients of each config
      are held on a smaller graph with the same stencil against the plain
      path (impl='scan', kcached_fused='off'; uai4 in fp32), and uai4's
@@ -48,7 +53,10 @@ Phases, each fatal on failure:
   6. B1-bwd (bf16 and fp32) and B2-bwd times at the full training
      shapes, B3 (fp32 and bf16 K) at the uai1 full-graph shape, K2 and
      B2-bwd on the fp8 streams of the full uai1 graph: bounds, plain and
-     library times, and the step time of each training path.
+     library times, and the step time of each training path; beside the
+     redesigned forms, the forms they replaced on the main path (B1-bwd
+     bf16 on the SIMT units, B2-bwd a block per edge) on the same
+     inputs.
 
 Prints one JSON line of kernel records before the last line, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, with no result
@@ -74,6 +82,7 @@ N_FULL_REQUESTS = 2  # s=61 requests per impl
 SLICE = 65536        # edges of the kernel-vs-plain comparison
 GENERAL_SLICE = 16384  # edges of the general-form comparison
 GENERAL_TIME_SLICE = 131072  # edges of the general-form timing
+B2_WIDE_SLICE = 1024  # edges of the width-512 B2-bwd comparison
 F32_TOL = 1e-4       # max-abs error / max-abs output, fp32
 BF16_TOL = 5e-3      # the same, where bf16 rounding enters
 
@@ -250,6 +259,7 @@ def phase_general_forms(g, dev) -> dict:
 
     from graph_pde_tpu_torch.ops.dense import (dense_apply, dense_init,
                                                layer_dims)
+    from graph_pde_tpu_torch.ops.cached_contraction import to_fp8
     from graph_pde_tpu_torch.ops.fused_edge_conv import (
         edge_messages_plain, fused_edge_messages, kernel_shape_supported)
     from graph_pde_tpu_torch.ops.fused_iterate import (
@@ -308,20 +318,31 @@ def phase_general_forms(g, dev) -> dict:
             for dt, tol in ((None, F32_TOL), ("bfloat16", BF16_TOL)):
                 name = f"B1-bwd {layers} {dt or 'float32'}"
                 check_b1_bwd(name, x, s, h2, gg, kp[-1]["w"], w, dt, tol)
-        # B2-bwd at width 128 (two column passes) and 12 (element-wise)
-        for w in (128, 12):
+        # B2-bwd: the warp form at widths 16 and 128 (64 is the uai1
+        # graph's, below), the block form at 12 (element-wise) and 512
+        # (K rows of 262,144 columns: the first B2_WIDE_SLICE edges), in
+        # every K stream type
+        for w in (16, 128, 12, 512):
+            ne = B2_WIDE_SLICE if w == 512 else GENERAL_SLICE
+            su = setup if w != 512 else sorted_iterate_setup(
+                g.receivers[:ne], g.edge_mask()[:ne], n)
             kp = dense_init(gen, (6, 32, w * w), device=dev)
-            kk = dense_apply(kp, a)
+            kk = dense_apply(kp, a[:ne])
             dt = torch.randn(n, w, generator=gen).to(dev)
-            for k_dtype in (torch.float32, torch.bfloat16):
-                name = f"B2-bwd width {w} K={str(k_dtype).split('.')[-1]}"
-                check_b2_bwd(name, kk.to(k_dtype), setup, dt, w)
+            for k_name in ("float32", "bfloat16") + FP8_KINDS:
+                K = (to_fp8(kk.to(torch.bfloat16), k_name)
+                     if k_name in FP8_KINDS
+                     else kk.to(getattr(torch, k_name)))
+                check_b2_bwd(f"B2-bwd width {w} K={k_name}", K, su, dt, w)
+                del K
             del kk
     return errs
 
 
 def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol) -> float:
-    """B1-bwd against its plain version, all four outputs; returns the
+    """B1-bwd against its plain version, all four outputs, in the form
+    its shape takes (tensor cores in bf16, SIMT in float32, for every
+    kappa checked here), and a second launch bit-identical; returns the
     largest max-abs error."""
     import torch
 
@@ -329,14 +350,22 @@ def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol) -> float:
         edge_messages_bwd_plain, fused_edge_messages_bwd)
 
     kw = dict(in_channels=w, out_channels=w, compute_dtype=dt)
+    form = "tc" if dt else "simt"
+    zero_counts()
     got = fused_edge_messages_bwd(x, s, h2, g, wl, **kw)
+    again = fused_edge_messages_bwd(x, s, h2, g, wl, **kw)
+    counts = read_counts()
     want = edge_messages_bwd_plain(x, s, h2, g, wl, **kw)
     torch.cuda.synchronize()
+    require(counts[f"B1-bwd {form}"] == 2 == counts["B1-bwd"],
+            f"{name}: took the {form} form ({counts})")
+    require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+            f"{name}: a second launch is bit-identical")
     worst = 0.0
     for out, a, b in zip(("dx_src", "dh2", "dWl", "dbl"), got, want):
         ab, rel = rel_err(a, b)
-        log(f"phase 2: {name} {out}: max-abs err {ab:.3e}, relative "
-            f"{rel:.3e} (tol {tol:g})")
+        log(f"phase 2: {name} [{form}] {out}: max-abs err {ab:.3e}, "
+            f"relative {rel:.3e} (tol {tol:g}); second launch bit-identical")
         require(rel <= tol and bool(torch.isfinite(a).all()),
                 f"{name} {out}")
         worst = max(worst, ab)
@@ -344,26 +373,31 @@ def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol) -> float:
 
 
 def check_b2_bwd(name, K, setup, dtotal, w) -> float:
-    """B2-bwd against its plain version (dxj and dmsg); returns the
-    largest max-abs error."""
+    """B2-bwd against its plain version: dxj within F32_TOL, dmsg bit for
+    bit, in the form its width takes (a warp per edge at the GKN widths
+    16, 64 and 128, a block per edge at 12 and 512); returns dxj's
+    max-abs error."""
     import torch
 
     from graph_pde_tpu_torch.ops.fused_iterate import (
         fused_iterate_bwd, fused_iterate_bwd_plain)
 
     kw = dict(in_channels=w, out_channels=w)
-    got = fused_iterate_bwd(K, setup, dtotal, **kw)
-    want = fused_iterate_bwd_plain(K, setup, dtotal, **kw)
+    form = "warp" if w in (16, 64, 128) else "general"
+    zero_counts()
+    dxj, dmsg = fused_iterate_bwd(K, setup, dtotal, **kw)
+    counts = read_counts()
+    wdx, wdm = fused_iterate_bwd_plain(K, setup, dtotal, **kw)
     torch.cuda.synchronize()
-    worst = 0.0
-    for out, a, b in zip(("dxj", "dmsg"), got, want):
-        ab, rel = rel_err(a, b)
-        log(f"phase 2: {name} {out}: max-abs err {ab:.3e}, relative "
-            f"{rel:.3e} (tol {F32_TOL:g})")
-        require(rel <= F32_TOL and bool(torch.isfinite(a).all()),
-                f"{name} {out}")
-        worst = max(worst, ab)
-    return worst
+    require(counts[f"B2-bwd {form}"] == 1 == counts["B2-bwd"],
+            f"{name}: took the {form} form ({counts})")
+    ab, rel = rel_err(dxj, wdx)
+    same = bool(torch.equal(dmsg, wdm))
+    log(f"phase 2: {name} [{form}] dxj: max-abs err {ab:.3e}, relative "
+        f"{rel:.3e} (tol {F32_TOL:g}); dmsg bit-equal {same}")
+    require(rel <= F32_TOL and bool(torch.isfinite(dxj).all()), f"{name} dxj")
+    require(same, f"{name} dmsg bit-equal")
+    return ab
 
 
 def phase_serving(cfg, params, norms, u_norm, full, split) -> dict:
@@ -606,9 +640,12 @@ def phase_times(g, h, params) -> dict:
 
 
 # Every launch counter: K2 and B2-bwd count all their launches, and their
-# fp8 forms (the k8 stream of k_storage) also count on their own.
+# fp8 forms (the k8 stream of k_storage) also count on their own; B1-bwd
+# and B2-bwd count each launch once more under the kernel form that took
+# it (tensor cores or SIMT; warp per edge or block per edge).
 COUNTED = ("K1", "B1-bwd", "K2", "B2-bwd", "K2 e4m3", "K2 e5m2",
-           "B2-bwd e4m3", "B2-bwd e5m2", "B3-fwd", "B3-bwd")
+           "B2-bwd e4m3", "B2-bwd e5m2", "B3-fwd", "B3-bwd", "B1-bwd tc",
+           "B1-bwd simt", "B2-bwd warp", "B2-bwd general")
 
 
 def counters() -> dict:
@@ -623,9 +660,11 @@ def counters() -> dict:
     fns = (fused_edge_messages, fused_edge_messages_bwd, fused_iterate_total,
            fused_iterate_bwd, fused_iterate_total, fused_iterate_total,
            fused_iterate_bwd, fused_iterate_bwd, cached_contraction,
-           cached_contraction_bwd)
+           cached_contraction_bwd) + (fused_edge_messages_bwd,) * 2 + (
+               fused_iterate_bwd,) * 2
     attrs = ("launches",) * 4 + ("e4m3_launches", "e5m2_launches") * 2 + (
-        "launches",) * 2
+        "launches",) * 2 + ("tc_launches", "simt_launches", "warp_launches",
+                            "general_launches")
     return {k: (f, a) for k, f, a in zip(COUNTED, fns, attrs)}
 
 
@@ -642,11 +681,16 @@ def expected(cfg, n_fwd: int, n_bwd: int) -> dict:
     """The counts of a run of ``cfg``'s path that launches its forward
     kernel n_fwd times and its backward kernel n_bwd times: K1 / B1-bwd
     for impl='auto', K2 / B2-bwd (and their fp8 form, with k_storage)
-    for the fused kcached path; every other counter 0."""
+    for the fused kcached path; every other counter 0. The backward must
+    take the redesigned form: B1-bwd on the tensor cores in bf16 (its
+    SIMT form in float32), B2-bwd a warp per edge (the configs' width is
+    64)."""
     if cfg.impl == "auto":
-        fwd, bwd = ("K1",), ("B1-bwd",)
+        fwd = ("K1",)
+        bwd = ("B1-bwd", "B1-bwd tc" if cfg.compute_dtype == "bfloat16"
+               else "B1-bwd simt")
     else:
-        fwd, bwd = ("K2",), ("B2-bwd",)
+        fwd, bwd = ("K2",), ("B2-bwd", "B2-bwd warp")
         if cfg.k_storage:
             kind = cfg.k_storage.split("_")[1]
             fwd, bwd = fwd + (f"K2 {kind}",), bwd + (f"B2-bwd {kind}",)
@@ -938,6 +982,53 @@ def kernel_rows(prof) -> list:
     return sorted(rows, reverse=True)
 
 
+def b1_bwd_simt(x, s, h2, g, wl, w, dt):
+    """B1-bwd's SIMT form on any shape and compute dtype, launched past
+    the wrapper's choice of form: the design the bf16 tensor-core form
+    replaced on the uai4 path, timed beside it."""
+    import torch
+
+    from graph_pde_tpu_torch.ops import fused_edge_conv as fe
+    from graph_pde_tpu_torch.ops import kernels
+
+    e, kw = h2.shape
+    c = w * w
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits, dbl_splits = fe.bwd_splits(e, kw, c, sms)
+    new = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=x.device)
+    outs = (new(e, w), new(e, kw), new(kw, c), new(c), new(splits, kw, c),
+            new(dbl_splits, c))
+    fn = kernels.fn("fused_edge_conv_bwd", "gpde_edge_messages_bwd",
+                    fe._BWD_ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    kernels.check(fn(*[t.data_ptr() for t in (h2, x, s, g, wl, *outs)], e,
+                     kw, w, w, splits, dbl_splits, int(dt == "bfloat16"),
+                     stream), "B1-bwd SIMT form")
+    return outs[:4]
+
+
+def b2_bwd_general(K, setup, dtotal, w):
+    """B2-bwd's block-per-edge form, launched past the wrapper's choice
+    of form: the design the warp form replaced, timed beside it."""
+    import torch
+
+    from graph_pde_tpu_torch.ops import fused_iterate as fi
+    from graph_pde_tpu_torch.ops import kernels
+
+    e = K.shape[0]
+    dxj = torch.empty((e, w), dtype=torch.float32, device=K.device)
+    dmsg = torch.empty((e, w), dtype=torch.float32, device=K.device)
+    fn = kernels.fn("fused_iterate_bwd", "gpde_iterate_bwd_general",
+                    fi._ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    kernels.check(fn(*[t.data_ptr() for t in (K, setup.mask,
+                                              setup.receivers, dtotal, dxj,
+                                              dmsg)],
+                     e, w, w, fi._K_KIND[K.dtype], stream),
+                  "B2-bwd block form")
+    return dxj, dmsg
+
+
 def backward_times(g4, kp4, g1, kp1) -> dict:
     """B1-bwd (bf16, the uai4 training dtype, and float32) at the full
     uai4 s=241 graph and B2-bwd (bf16 K) at the full uai1 s=61 graph:
@@ -978,11 +1069,18 @@ def backward_times(g4, kp4, g1, kp1) -> dict:
             ops = (dict(bf16_flops=prods, flops=elems) if dt
                    else dict(flops=prods + elems))
             key = "B1-bwd" if dt else "B1-bwd float32"
-            rec[key] = dict(ms=time_ms(b1, 2), plain_ms=time_ms(b1p, 1),
+            rec[key] = dict(ms=time_ms(b1, 3), plain_ms=time_ms(b1p, 1),
                             library_ms=None, bytes=nbytes,
                             shape=f"E={e}, kw={kw}, C={c}, {dt or 'float32'}",
                             **ops)
             if dt:
+                # the replaced design on the same inputs, in turns with
+                # the new one (new, old, old, new)
+                old = lambda: b1_bwd_simt(x, g4.senders, h2, gg, wl, 64, dt)
+                t_old = [time_ms(old, 1), time_ms(old, 1)]
+                turns = [rec[key]["ms"], *t_old, time_ms(b1, 3)]
+                rec[key].update(ms=(turns[0] + turns[3]) / 2, ms_turns=turns,
+                                previous_form_ms=sum(t_old) / 2)
                 profile_kernels("B1-bwd", b1)
         del h2
         e1, n1 = g1.senders.shape[0], g1.x.shape[0]
@@ -999,9 +1097,14 @@ def backward_times(g4, kp4, g1, kp1) -> dict:
         dm = b2p()[1].to(torch.bfloat16)[:, :, None]
         lib = lambda: torch.bmm(kv, dm)
         # K read for the valid edges only (a masked edge reads none)
+        old = lambda: b2_bwd_general(K, setup, dt, 64)
+        turns = [time_ms(b2, 5), time_ms(lib, 5), time_ms(old, 5),
+                 time_ms(old, 5), time_ms(lib, 5), time_ms(b2, 5)]
         rec["B2-bwd"] = dict(
-            ms=time_ms(b2, 5), plain_ms=time_ms(b2p, 2),
-            library_ms=time_ms(lib, 5), flops=2.0 * valid * 64 * 64,
+            ms=(turns[0] + turns[5]) / 2, plain_ms=time_ms(b2p, 2),
+            library_ms=(turns[1] + turns[4]) / 2,
+            previous_form_ms=(turns[2] + turns[3]) / 2,
+            ms_turns=turns, flops=2.0 * valid * 64 * 64,
             bytes=2 * valid * 64 * 64 + 9 * e1 + 4 * n1 * 64
             + 4 * e1 * 64 * 2,
             shape=f"E={e1} ({valid} valid), C=4096, bf16 K")
@@ -1010,7 +1113,8 @@ def backward_times(g4, kp4, g1, kp1) -> dict:
         set_bound(r)
         log(f"phase 6: {name} ({r['shape']}): {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}), library {r['library_ms']}")
+            f"({r['bound_by']}), library {r['library_ms']}, previous form "
+            f"{r.get('previous_form_ms')} ms, turns {r.get('ms_turns')}")
     return rec
 
 
@@ -1250,6 +1354,8 @@ def b3_fp8_times(g1, kp1) -> dict:
                            + 8 * (n1 + 1) + 4 * n1 * 64),
                     shape=f"E={e1} ({valid} valid), C=4096, {stream.dtype} K")
                 rec[b2_key] = dict(
+                    previous_form_ms=time_ms(lambda: b2_bwd_general(
+                        stream, setup, dt, 64), 5),
                     ms=time_ms(lambda: fused_iterate_bwd(stream, setup, dt,
                                                          **kw), 5),
                     plain_ms=time_ms(lambda: fused_iterate_bwd_plain(
@@ -1267,7 +1373,8 @@ def b3_fp8_times(g1, kp1) -> dict:
         log(f"phase 6: {name} ({r['shape']}): {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}), library {r['library_ms']} "
-            f"({r['library_note']})")
+            f"({r['library_note']}), previous form "
+            f"{r.get('previous_form_ms')} ms")
     return rec
 
 
@@ -1291,9 +1398,13 @@ def main() -> int:
     logs = kernels.build()
     log(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        entry = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"phase 1: {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # the kernel's (mangled) name, as ptxas names it
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                log(f"phase 1: {name}: {entry[:90]}: {line.strip()}")
 
     from graph_pde_tpu_torch.models import gkn_init
     from graph_pde_tpu_torch.models.gkn import _member
@@ -1384,7 +1495,7 @@ def main() -> int:
         return counts.get(key, 0)
 
     def record(name, key, source, replaces, err_key, counter=None,
-               paths=None):
+               paths=None, form=None):
         t = times[key]
         counter = counter or key
         chosen = {k: v for k, v in by_path.items()
@@ -1399,6 +1510,9 @@ def main() -> int:
                    bound_by=t["bound_by"], library_ms=t["library_ms"])
         if "library_note" in t:
             rec["library_note"] = t["library_note"]
+        if form:   # redesigned: its form, and the replaced design's time
+            # on the same inputs in this run
+            rec.update(form=form, previous_form_ms=t["previous_form_ms"])
         return rec
 
     b3_paths = {dt: [f"B3 op, K {dt}"]
@@ -1410,17 +1524,19 @@ def main() -> int:
                "fused_iterate.py:61", "K2 K=bfloat16"),
         record("B1-bwd fused_edge_messages_bwd", "B1-bwd",
                "fused_edge_conv_bwd.cu", "pallas_edge_conv.py:347",
-               "B1-bwd float32"),
+               "B1-bwd bfloat16", counter="B1-bwd tc", form="tc"),
         record("B2-bwd fused_iterate_bwd", "B2-bwd", "fused_iterate_bwd.cu",
-               "fused_iterate.py:85", "B2-bwd K=bfloat16"),
+               "fused_iterate.py:85", "B2-bwd K=bfloat16", form="warp"),
         record("K2 fused_iterate_total, fp8 e4m3 K", "K2 e4m3",
                "fused_iterate.cu", "fused_iterate.py:61", "K2 e4m3"),
         record("K2 fused_iterate_total, fp8 e5m2 K", "K2 e5m2",
                "fused_iterate.cu", "fused_iterate.py:61", "K2 e5m2"),
         record("B2-bwd fused_iterate_bwd, fp8 e4m3 K", "B2-bwd e4m3",
-               "fused_iterate_bwd.cu", "fused_iterate.py:85", "B2-bwd e4m3"),
+               "fused_iterate_bwd.cu", "fused_iterate.py:85", "B2-bwd e4m3",
+               form="warp"),
         record("B2-bwd fused_iterate_bwd, fp8 e5m2 K", "B2-bwd e5m2",
-               "fused_iterate_bwd.cu", "fused_iterate.py:85", "B2-bwd e5m2"),
+               "fused_iterate_bwd.cu", "fused_iterate.py:85", "B2-bwd e5m2",
+               form="warp"),
     ] + [
         record(f"{k} cached_contraction{'_bwd' if k == 'B3-bwd' else ''}, "
                f"{dt} K", f"{k} {dt}", "cached_contraction.cu",

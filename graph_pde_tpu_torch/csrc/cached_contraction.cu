@@ -38,31 +38,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "k_runs.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int VEC = 8;       // K elements per run
 constexpr int UNROLL = 4;    // runs in flight per lane
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[VEC]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&v)[VEC]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    // bf16 -> fp32 is a 16-bit left shift of the bit pattern
-    v[2 * q] = __uint_as_float(w[q] << 16);
-    v[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
-  }
-}
 
 __device__ __forceinline__ void store8(float* p, const float (&v)[VEC]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -79,12 +62,6 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p,
     w[q] = *reinterpret_cast<const uint32_t*>(&h);
   }
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
 }
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }

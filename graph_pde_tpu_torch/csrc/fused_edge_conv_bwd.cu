@@ -22,10 +22,52 @@
 // What bounds it on an H100: operations. Three products of E * kw * C
 // multiply-adds each (3x the forward's last layer): at the uai4 shape
 // (E 1,225,728 padded, kw 256, C 4096) about 7.7 TFLOP per call against
-// ~2.5 GB of inputs and outputs. This first version runs on the fp32 SIMT units
-// (67 TFLOP/s), not the tensor cores.
+// ~2.5 GB of inputs and outputs, so in bf16 the tensor cores' rate is the
+// bound (7.8 ms at 989 TFLOP/s), and the fp32 SIMT units (67 TFLOP/s)
+// are 15x short of it.
 //
-// What the design does about it: three kernels per call.
+// ROUND_BF16 / the tensor-core form mirror compute_dtype='bfloat16' of
+// _bwd_merged_kernel_omj: the operands of the three products (h2, Wl,
+// dpre) are rounded to bf16 with fp32 accumulation; x is rounded to bf16
+// before dpre = x * g, dpre itself is kept in fp32 for dbl; g and the dx
+// sum stay fp32. That is exactly what a bf16 tensor-core product with
+// fp32 accumulators computes.
+//
+// Two forms, picked by the caller by shape and compute dtype:
+//
+// The bf16 tensor-core form (compute_dtype='bfloat16'; kw % 8 == 0, out %
+// 8 == 0, out dividing 128; the GKN kappas) runs every product on the
+// bf16 tensor cores with fp32 accumulators, 128 x 128 block tiles fed by
+// a three-slab cp.async ring of 32-deep bf16 slabs in shared memory. The
+// caller casts h2 and Wl to bf16 once (and transposes Wl) so that their
+// slabs come by cp.async.
+//   tc::dx_dh_kernel, one block per 128 edges, keeps the tile's g and
+//     bf16(x[senders]) in shared memory; its two warpgroups issue wgmma
+//     m64n128k16 straight from the slabs, which are K-major in the
+//     64-byte swizzle the wgmma descriptors describe. (1) h3 = h2 @ Wl
+//     one 128-column tile at a time; a tile holds whole channels, so its
+//     epilogue multiplies the accumulators by g, meets the four lanes of
+//     a row by shuffles and sums each channel's n8 partials in a fixed
+//     order into dx_src. (2) dh2 = dpre @ Wl^T over the depth C, 128
+//     columns of dh2 at a time; each dpre slab is formed by the threads,
+//     rounded to bf16, into shared memory while the previous slab's
+//     products run.
+//   tc::dw_kernel: dWl = h2^T @ dpre split-K over edge ranges into
+//     partial slabs, on mma.sync m16n8k16 (eight warps of 64 x 32; both
+//     operands are edge-major in shared memory and ldmatrix.trans reads
+//     them); the blocks of the first kw tile also sum the fp32 dpre they
+//     form into a partial dbl, so dbl costs no pass of its own.
+//     reduce_kernel sums the partials in order s = 0, 1, ...:
+//     bit-repeatable, no atomics.
+// What holds it back (PERF.md): each slab's wgmma is waited on before
+// the next is issued, and the cp.async issue, the dpre formation and the
+// block barrier per 32-deep slab take the issue slots; dWl stays on
+// mma.sync. A warp-specialized TMA producer and MN-major wgmma for dWl
+// are the next steps.
+// Neither h3 nor dpre ([E, C]) reaches device memory.
+//
+// The SIMT form (compute_dtype=None, and bf16 shapes outside the tiles):
+// fp32 FMAs on the SIMT units, three kernels per call.
 //   dx_dh_kernel, one block per tile of 128 edges: for each 128-column
 //     tile, h3 = h2 @ Wl[:, tile] in an 8x8 register tile per thread,
 //     multiplied by g and summed per input channel through shared
@@ -35,19 +77,14 @@
 //     owns a 128 x 128 tile of dWl and the s-th contiguous range of
 //     edges, and writes its partial slab; dbl_kernel does the same for
 //     dbl over shorter ranges. reduce_kernel sums the partial slabs in
-//     order s = 0, 1, ..., so the result is bit-repeatable (no atomics
-//     anywhere).
+//     order, as above.
 // All operands are streamed through double-buffered 16-deep slabs in
 // shared memory, eight per thread per slab: as two float4 loads where kw
 // and out are multiples of 8 (the GKN shapes), else element by element
 // with bounds checks, so every shape the JAX gate admits (kw <= 2048, any
 // in/out) runs through the same code. Both product kernels are held to
-// 128 registers so that two blocks share an SM.
-//
-// ROUND_BF16 mirrors compute_dtype='bfloat16' of _bwd_merged_kernel_omj:
-// the operands of the three products (h2, Wl, dpre) are rounded to bf16
-// with fp32 accumulation; x is rounded to bf16 before dpre = x * g, dpre
-// itself is kept in fp32 for dbl; g and the dx sum stay fp32.
+// 128 registers so that two blocks share an SM. ROUND_BF16 rounds as
+// above.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -444,6 +481,491 @@ reduce_kernel(const float* __restrict__ part, int S, int64_t n,
   out[j] = s;
 }
 
+// ------------------------------------------------ bf16 tensor-core form
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int BM = 128;      // block tile rows
+constexpr int BN = 128;      // block tile columns
+constexpr int BK = 32;       // depth of one slab (two k16 steps)
+constexpr int STAGES = 3;    // slabs in flight (cp.async ring)
+constexpr int SLAB = BM * BK * 2;    // bytes of a [128][32] or [32][128] slab
+constexpr int RED_LD = BN / 8 + 1;   // padded row of the dx partials
+// dx_dh_kernel's slab ring: phase 1's A and B slabs, or phase 2's B
+// slabs and two dpre slabs
+constexpr int RING = 2 * STAGES * SLAB;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// A [rows][32] bf16 slab: rows of four 16-byte chunks, the chunk XOR-ed
+// with (row / 2) % 4. That is the 64-byte swizzle of a K-major wgmma
+// operand (8-row atoms of 512 bytes), and it spreads the eight rows of a
+// cp.async or ldmatrix phase over eight bank groups.
+__device__ __forceinline__ uint32_t off_k32(int row, int ch) {
+  return row * 64 + ((ch ^ ((row >> 1) & 3)) << 4);
+}
+// A [32][128] bf16 slab: rows of sixteen chunks, XOR-ed with row % 8.
+__device__ __forceinline__ uint32_t off_n128(int row, int ch) {
+  return row * 256 + ((ch ^ (row & 7)) << 4);
+}
+
+// 16 bytes global -> shared, zero-filled where !ok (src is then not read)
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a . b on the bf16 tensor cores, fp32 accumulators (16 x 8 x 16)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// A warp's accumulators: [m16 tile][n8 tile][fragment], fragment q at row
+// lane/4 + 8 * (q / 2), column 2 * (lane % 4) + q % 2 of its n8 tile.
+__device__ __forceinline__ void zero_acc(float (&acc)[4][4][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+}
+
+// acc += A . B over one slab of depth 32 for this warp's 64 x 32 part of
+// a 128 x 128 tile (rows 64 * (warp % 2), columns 32 * (warp / 2)); A
+// [32 k][128 m] and B [32 k][128 n] slabs (m, n contiguous), read
+// transposed by ldmatrix.
+__device__ __forceinline__ void mma_slab_t(uint32_t sa, uint32_t sb,
+                                           float (&acc)[4][4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int j = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    uint32_t a[4][4], b[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      const int m = wm * 64 + mi * 16 + (j & 1) * 8;
+      ldsm4t(sa + off_n128(ks * 16 + (j >> 1) * 8 + r, m >> 3), a[mi]);
+    }
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      const int n = wn * 32 + nj * 16 + (j >> 1) * 8;
+      ldsm4t(sb + off_n128(ks * 16 + (j & 1) * 8 + r, n >> 3), b[nj]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        mma16816(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2],
+                 b[ni >> 1][(ni & 1) * 2 + 1]);
+  }
+}
+
+constexpr size_t dx_dh_smem(int in_ch, int out_ch) {
+  return 512 + RING + sizeof(float) * BM * out_ch + sizeof(bf16) * BM * in_ch +
+         sizeof(float) * BM * RED_LD;
+}
+
+// in_ch bound of this form: with out_ch <= BN, the dx/dh2 kernel's shared
+// memory then fits one block's 227 KiB on the H100
+constexpr int MAX_IN = 256;
+static_assert(dx_dh_smem(MAX_IN, BN) <= 232448,
+              "the tensor-core form's in_ch bound must fit shared memory");
+
+constexpr size_t kDwSmem = (STAGES + 2) * SLAB + sizeof(float) * 16 * BN;
+
+// Warpgroup MMA (wgmma, sm_90a)
+
+// Shared-memory matrix descriptor of a [rows][32] bf16 slab laid out as
+// off_k32 lays it out, which is the 64-byte swizzle of a K-major operand:
+// 8-row core groups 512 bytes apart (SBO), start address in 16 B units.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// d (+)= A[64 x 16] . B[16 x 128]^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_64x128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// dx_src and dh2 for one tile of BM = 128 edges (see the file's note).
+// h2b [M, kw], wlt = Wl^T [C, kw] and wlb = Wl [kw, C] in bf16. Each of
+// the two warpgroups owns 64 of the tile's edges and issues m64n128k16
+// wgmma on the slabs in shared memory (A and B both K-major, 64-byte
+// swizzle), accumulators in registers in the m16n8 fragment order (n8
+// tile j at d[4j .. 4j+3]). Dynamic shared memory (dx_dh_smem): 512
+// bytes of alignment slack, the slab ring, g [BM][out] fp32,
+// bf16(x[senders]) [BM][in] and the dx partials [BM][RED_LD].
+__global__ void __launch_bounds__(256, 2)
+dx_dh_kernel(const bf16* __restrict__ h2b, const bf16* __restrict__ wlt,
+                const bf16* __restrict__ wlb, const float* __restrict__ x,
+                const int64_t* __restrict__ senders,
+                const float* __restrict__ g, float* __restrict__ dx_src,
+                float* __restrict__ dh2, int64_t M, int kw, int in_ch,
+                int out_ch) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t pad = ((raw_s + 511) & ~511u) - raw_s;   // swizzle atoms
+  unsigned char* smem = smem_raw + pad;
+  const uint32_t ring = raw_s + pad;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid >> 7;                     // warpgroup: rows 64 * wg
+  const int wrow = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int C = in_ch * out_ch;
+  const int64_t m0 = (int64_t)blockIdx.x * BM;
+  float* gs = reinterpret_cast<float*>(smem + RING);
+  bf16* xs = reinterpret_cast<bf16*>(gs + BM * out_ch);
+  float* red = reinterpret_cast<float*>(xs + BM * in_ch);
+
+  for (int q = tid; q < BM * out_ch; q += 256) {
+    const int r = q / out_ch;
+    const int64_t e = m0 + r;
+    gs[q] = e < M ? __ldg(g + e * out_ch + (q - r * out_ch)) : 0.f;
+  }
+  for (int q = tid; q < BM * in_ch; q += 256) {
+    const int r = q / in_ch;
+    const int64_t e = m0 + r;
+    xs[q] = __float2bfloat16_rn(
+        e < M ? __ldg(x + senders[e] * in_ch + (q - r * in_ch)) : 0.f);
+  }
+
+  float d[64];
+#pragma unroll
+  for (int q = 0; q < 64; ++q) d[q] = 0.f;
+
+  // d (+)= A . B over one 32-deep slab pair: two k16 steps, the
+  // descriptors advanced by 32 bytes inside the swizzle atom
+  auto mma = [&](uint32_t sa, uint32_t sb, bool first) {
+    const uint64_t da = wg_desc(sa + wg * 64 * 64), db = wg_desc(sb);
+    wg_fence();
+    wgmma_64x128(d, da, db, first ? 0 : 1);
+    wgmma_64x128(d, da + 2, db + 2, 1);
+    wg_commit_wait();
+  };
+
+  // 1. h3 = h2 @ Wl per 128-column tile, dx_src in its epilogue
+  const int nka = (kw + BK - 1) / BK;
+  const int total_a = (C / BN) * nka;
+  auto load_a = [&](int it) {
+    if (it < total_a) {
+      const int ct = it / nka, kt = it - ct * nka;
+      const uint32_t sa = ring + (it % STAGES) * 2 * SLAB, sb = sa + SLAB;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int idx = tid + q * 256, r = idx >> 2, ch = idx & 3;
+        const int k = kt * BK + ch * 8;
+        const int64_t e = m0 + r;
+        const bool oka = e < M && k < kw;
+        cp16(sa + off_k32(r, ch), oka ? h2b + e * kw + k : h2b, oka);
+        const bool okb = k < kw;
+        cp16(sb + off_k32(r, ch),
+             okb ? wlt + (int64_t)(ct * BN + r) * kw + k : wlt, okb);
+      }
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_a(s);
+  for (int it = 0; it < total_a; ++it) {
+    cp_wait<STAGES - 2>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    load_a(it + STAGES - 1);
+    const int kt = it % nka;
+    const uint32_t sa = ring + (it % STAGES) * 2 * SLAB;
+    mma(sa, sa + SLAB, kt == 0);
+    if (kt != nka - 1) continue;
+    const int c0 = (it / nka) * BN;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = wrow + hi * 8;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = j * 8 + (lane & 3) * 2;
+        const int o = (c0 + col) % out_ch;
+        const float2 gv =
+            *reinterpret_cast<const float2*>(gs + row * out_ch + o);
+        float p = d[4 * j + 2 * hi] * gv.x + d[4 * j + 2 * hi + 1] * gv.y;
+        p += __shfl_xor_sync(0xffffffffu, p, 1);
+        p += __shfl_xor_sync(0xffffffffu, p, 2);
+        if ((lane & 3) == 0) red[row * RED_LD + j] = p;
+      }
+    }
+    __syncthreads();
+    const int per = out_ch / 8, nch = BN / out_ch;
+    for (int q = tid; q < BM * nch; q += 256) {
+      const int row = q % BM, ch = q / BM;
+      const int64_t e = m0 + row;
+      if (e < M) {
+        float s = 0.f;
+        for (int j = 0; j < per; ++j) s += red[row * RED_LD + ch * per + j];
+        dx_src[e * in_ch + c0 / out_ch + ch] = s;
+      }
+    }
+  }
+  __syncthreads();   // every warp is done with the ring
+
+  // 2. dh2 = dpre @ Wl^T per 128-column tile of dh2, depth C
+  const int nkb = C / BK;
+  const int total_b = ((kw + BN - 1) / BN) * nkb;
+  const uint32_t gen = ring + STAGES * SLAB;   // two dpre slabs
+  auto load_b = [&](int it) {
+    if (it < total_b) {
+      const int nt = it / nkb, kt = it - nt * nkb;
+      const uint32_t sb = ring + (it % STAGES) * SLAB;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int idx = tid + q * 256, r = idx >> 2, ch = idx & 3;
+        const int kout = nt * BN + r;
+        const bool ok = kout < kw;
+        cp16(sb + off_k32(r, ch),
+             ok ? wlb + (int64_t)kout * C + kt * BK + ch * 8 : wlb, ok);
+      }
+    }
+    cp_commit();
+  };
+  auto form = [&](int it) {
+    if (it >= total_b) return;
+    const int kt = it % nkb;
+    unsigned char* sa = smem + STAGES * SLAB + (it & 1) * SLAB;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int idx = tid + q * 256, r = idx >> 2, ch = idx & 3;
+      const int c = kt * BK + ch * 8;
+      const int i = c / out_ch, o = c - i * out_ch;
+      const float xv = __bfloat162float(xs[r * in_ch + i]);
+      const float4 g0 = *reinterpret_cast<const float4*>(gs + r * out_ch + o);
+      const float4 g1 =
+          *reinterpret_cast<const float4*>(gs + r * out_ch + o + 4);
+      uint4 v;
+      v.x = pack_bf16(xv * g0.x, xv * g0.y);
+      v.y = pack_bf16(xv * g0.z, xv * g0.w);
+      v.z = pack_bf16(xv * g1.x, xv * g1.y);
+      v.w = pack_bf16(xv * g1.z, xv * g1.w);
+      *reinterpret_cast<uint4*>(sa + off_k32(r, ch)) = v;
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_b(s);
+  form(0);
+  for (int it = 0; it < total_b; ++it) {
+    cp_wait<STAGES - 2>();
+    // the generated slab (generic stores) and the copied one, before the
+    // tensor cores read them through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    load_b(it + STAGES - 1);
+    form(it + 1);
+    const int kt = it % nkb;
+    mma(gen + (it & 1) * SLAB, ring + (it % STAGES) * SLAB, kt == 0);
+    if (kt != nkb - 1) continue;
+    const int n0 = (it / nkb) * BN;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int64_t e = m0 + wrow + hi * 8;
+      if (e >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + j * 8 + (lane & 3) * 2;
+        if (col < kw) {
+          *reinterpret_cast<float2*>(dh2 + e * kw + col) =
+              make_float2(d[4 * j + 2 * hi], d[4 * j + 2 * hi + 1]);
+        }
+      }
+    }
+  }
+}
+
+// Partial dWl (and, in the blocks of the first kw tile, partial dbl) of
+// edge range s: part_w[s][k][c] = sum_e bf16(h2[e, k]) * bf16(dpre[e, c])
+// and part_b[s][c] = sum_e dpre[e, c] with dpre in fp32. Block (kt, ct, s)
+// owns a BM x BN tile of dWl; its eight warps hold 64 x 32 parts of it
+// and run mma.sync m16n8k16 on operands read by ldmatrix.trans (both are
+// edge-major in shared memory). Dynamic shared memory (kDwSmem): STAGES
+// h2 slabs [32 e][128 k], two dpre slabs [32 e][128 c] and the dbl
+// partials [16][BN].
+__global__ void __launch_bounds__(256, 2)
+dw_kernel(const bf16* __restrict__ h2b, const float* __restrict__ x,
+          const int64_t* __restrict__ senders, const float* __restrict__ g,
+          float* __restrict__ part_w, float* __restrict__ part_b, int64_t M,
+          int kw, int in_ch, int out_ch, int64_t per_split) {
+  constexpr int CR = BN / 8;           // chunks of a dpre row (16)
+  constexpr int RG = 256 / CR;         // row groups of the threads (16)
+  constexpr int RPT = BK / RG;         // dpre rows a thread forms (2)
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int C = in_ch * out_ch;
+  const int k0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
+  const int64_t e0 = (int64_t)blockIdx.z * per_split;
+  const int64_t e1 = e0 + per_split < M ? e0 + per_split : M;
+  const int nk = e1 > e0 ? (int)((e1 - e0 + BK - 1) / BK) : 0;
+  const bool with_dbl = blockIdx.x == 0;
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t gen = ring + STAGES * SLAB;
+  float* dbl_red = reinterpret_cast<float*>(smem + (STAGES + 2) * SLAB);
+
+  auto load_a = [&](int kt) {
+    if (kt < nk) {
+      const uint32_t sa = ring + (kt % STAGES) * SLAB;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int idx = tid + q * 256, r = idx >> 4, ch = idx & 15;
+        const int64_t e = e0 + (int64_t)kt * BK + r;
+        const int k = k0 + ch * 8;
+        const bool ok = e < e1 && k < kw;
+        cp16(sa + off_n128(r, ch), ok ? h2b + e * kw + k : h2b, ok);
+      }
+    }
+    cp_commit();
+  };
+
+  // The thread forms dpre on columns c0 + 8 * cq .. + 8 (one channel) of
+  // slab rows RPT * (tid / CR) + rr. Its operands for slab kt + 1 are
+  // fetched before the products of slab kt and stored after them; the
+  // senders one slab earlier still.
+  const int cq = tid % CR;
+  const int ci = (c0 + cq * 8) / out_ch, co = c0 + cq * 8 - ci * out_ch;
+  const int r0 = (tid / CR) * RPT;
+  float fx[RPT];
+  float4 fg[RPT][2];
+  int64_t sn[RPT];
+  float dsum[8];
+#pragma unroll
+  for (int v = 0; v < 8; ++v) dsum[v] = 0.f;
+  auto senders_of = [&](int kt) {
+#pragma unroll
+    for (int rr = 0; rr < RPT; ++rr) {
+      const int64_t e = e0 + (int64_t)kt * BK + r0 + rr;
+      sn[rr] = kt < nk && e < e1 ? senders[e] : 0;
+    }
+  };
+  auto fetch = [&](int kt) {
+#pragma unroll
+    for (int rr = 0; rr < RPT; ++rr) {
+      const int64_t e = e0 + (int64_t)kt * BK + r0 + rr;
+      if (kt < nk && e < e1) {
+        fx[rr] = __ldg(x + sn[rr] * in_ch + ci);
+        const float4* gp = reinterpret_cast<const float4*>(g + e * out_ch + co);
+        fg[rr][0] = __ldg(gp);
+        fg[rr][1] = __ldg(gp + 1);
+      } else {
+        fx[rr] = 0.f;
+        fg[rr][0] = fg[rr][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    senders_of(kt + 1);
+  };
+  auto put = [&](int kt) {
+    if (kt >= nk) return;
+    const uint32_t sb = gen + (kt & 1) * SLAB;
+#pragma unroll
+    for (int rr = 0; rr < RPT; ++rr) {
+      const float xv = __bfloat162float(__float2bfloat16_rn(fx[rr]));
+      const float gv[8] = {fg[rr][0].x, fg[rr][0].y, fg[rr][0].z, fg[rr][0].w,
+                           fg[rr][1].x, fg[rr][1].y, fg[rr][1].z, fg[rr][1].w};
+      float p[8];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        p[v] = xv * gv[v];
+        dsum[v] += p[v];
+      }
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       sb + off_n128(r0 + rr, cq)),
+                   "r"(pack_bf16(p[0], p[1])), "r"(pack_bf16(p[2], p[3])),
+                   "r"(pack_bf16(p[4], p[5])), "r"(pack_bf16(p[6], p[7]))
+                   : "memory");
+    }
+  };
+
+  float acc[4][4][4];
+  zero_acc(acc);
+  senders_of(0);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load_a(s);
+  fetch(0);
+  put(0);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();
+    load_a(kt + STAGES - 1);
+    fetch(kt + 1);
+    mma_slab_t(ring + (kt % STAGES) * SLAB, gen + (kt & 1) * SLAB, acc);
+    put(kt + 1);
+  }
+
+  float* out = part_w + (int64_t)blockIdx.z * kw * C;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int k = k0 + wm * 64 + mi * 16 + (lane >> 2) + hi * 8;
+      if (k >= kw) continue;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int col = c0 + wn * 32 + ni * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(out + (int64_t)k * C + col) =
+            make_float2(acc[mi][ni][hi * 2], acc[mi][ni][hi * 2 + 1]);
+      }
+    }
+  }
+  if (with_dbl) {   // the RG row groups of each column, summed in order
+#pragma unroll
+    for (int v = 0; v < 8; ++v) dbl_red[(tid / CR) * BN + cq * 8 + v] = dsum[v];
+    __syncthreads();
+    if (tid < BN) {
+      float t = 0.f;
+      for (int q = 0; q < RG; ++q) t += dbl_red[q * BN + tid];
+      part_b[(int64_t)blockIdx.z * C + c0 + tid] = t;
+    }
+  }
+}
+
+}  // namespace tc
+
 constexpr size_t kRedSmem = sizeof(float) * TE * RED_LD;
 
 template <bool RB, bool VEC>
@@ -488,6 +1010,45 @@ int launch(const float* h2, const float* x, const int64_t* senders,
   return (int)cudaGetLastError();
 }
 
+int launch_tc(const __nv_bfloat16* h2b, const __nv_bfloat16* wlt,
+              const __nv_bfloat16* wlb, const float* x, const int64_t* senders,
+              const float* g, float* dx_src, float* dh2, float* dwl,
+              float* dbl, float* part_w, float* part_b, int64_t M, int kw,
+              int in_ch, int out_ch, int splits, cudaStream_t stream) {
+  const int C = in_ch * out_ch;
+  const size_t smem1 = tc::dx_dh_smem(in_ch, out_ch);
+  cudaError_t err = cudaFuncSetAttribute(
+      tc::dx_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem1);
+  if (err != cudaSuccess) return (int)err;
+  tc::dx_dh_kernel<<<(unsigned)((M + tc::BM - 1) / tc::BM), 256, smem1,
+                     stream>>>(h2b, wlt, wlb, x, senders, g, dx_src, dh2, M,
+                               kw, in_ch, out_ch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  err = cudaFuncSetAttribute(tc::dw_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)tc::kDwSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t per_split = (M + splits - 1) / splits;
+  const dim3 wgrid((unsigned)((kw + tc::BM - 1) / tc::BM),
+                   (unsigned)(C / tc::BN), (unsigned)splits);
+  tc::dw_kernel<<<wgrid, 256, tc::kDwSmem, stream>>>(
+      h2b, x, senders, g, part_w, part_b, M, kw, in_ch, out_ch, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int64_t nw = (int64_t)kw * C;
+  reduce_kernel<<<(unsigned)((nw + THREADS - 1) / THREADS), THREADS, 0,
+                  stream>>>(part_w, splits, nw, dwl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_kernel<<<(unsigned)((C + THREADS - 1) / THREADS), THREADS, 0,
+                  stream>>>(part_b, splits, C, dbl);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -525,6 +1086,37 @@ int gpde_edge_messages_bwd(const float* h2, const float* x,
   using F = std::false_type;
   if (round_bf16) return vec ? go(T{}, T{}) : go(T{}, F{});
   return vec ? go(F{}, T{}) : go(F{}, F{});
+}
+
+// The bf16 tensor-core form (compute_dtype='bfloat16'): h2b [M, kw], wlb
+// = Wl [kw, C] and wlt = Wl^T [C, kw] in bf16 (rounded to nearest even
+// by the caller); x, senders, g as above. kw % 8 == 0, out_ch % 8 == 0,
+// out_ch dividing 128, C % 128 == 0, in_ch <= tc::MAX_IN (256), every
+// tensor 16-byte aligned. dx_src [M, in_ch], dh2, dWl and dbl are written (nothing needs
+// zeroing); part_w [splits, kw, C] and part_b [splits, C] are scratch.
+// Returns a cudaError_t.
+int gpde_edge_messages_bwd_tc(const void* h2b, const void* wlt,
+                              const void* wlb, const float* x,
+                              const int64_t* senders, const float* g,
+                              float* dx_src, float* dh2, float* dwl,
+                              float* dbl, float* part_w, float* part_b,
+                              int64_t M, int kw, int in_ch, int out_ch,
+                              int splits, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int C = in_ch * out_ch;
+  if (kw % 8 != 0 || out_ch % 8 != 0 || tc::BN % out_ch != 0 ||
+      C % tc::BN != 0 || in_ch > tc::MAX_IN || splits < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (M == 0) {
+    cudaError_t err = cudaMemsetAsync(dwl, 0, sizeof(float) * (size_t)kw * C, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaMemsetAsync(dbl, 0, sizeof(float) * (size_t)C, s);
+  }
+  using B = const __nv_bfloat16*;
+  return launch_tc(reinterpret_cast<B>(h2b), reinterpret_cast<B>(wlt),
+                   reinterpret_cast<B>(wlb), x, senders, g, dx_src, dh2, dwl,
+                   dbl, part_w, part_b, M, kw, in_ch, out_ch, splits, s);
 }
 
 }  // extern "C"

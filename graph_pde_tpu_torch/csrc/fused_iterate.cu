@@ -36,9 +36,9 @@
 // (exactly), so the fp32 arithmetic is the same for every K type.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp8.h>
 #include <stdint.h>
+
+#include "k_runs.cuh"
 
 namespace {
 
@@ -48,67 +48,6 @@ constexpr int COLS = 4096;                   // K columns per pass
 constexpr int PER = COLS / (VEC * THREADS);  // runs per thread (2)
 constexpr int UNROLL = 4;                    // edges in flight per thread
 constexpr int MAX_OUT = 1024;                // out_ch bound (the JAX gate's)
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[VEC]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&v)[VEC]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    // bf16 -> fp32 is a 16-bit left shift of the bit pattern
-    v[2 * q] = __uint_as_float(w[q] << 16);
-    v[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
-  }
-}
-
-// fp8 K (e4m3, e5m2) is a storage format: every value is exact in fp16
-// and so in fp32. Pairs go through the packed fp8x2 -> f16x2 convert.
-template <__nv_fp8_interpretation_t KIND>
-__device__ __forceinline__ void fp8x4_to_float(uint32_t w, float* v) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
-        (__nv_fp8x2_storage_t)(w >> (16 * h)), KIND);
-    const float2 f = __half22float2(__half2(r));
-    v[2 * h] = f.x;
-    v[2 * h + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p,
-                                      float (&v)[VEC]) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  fp8x4_to_float<__NV_E4M3>(u.x, v);
-  fp8x4_to_float<__NV_E4M3>(u.y, v + 4);
-}
-
-__device__ __forceinline__ void load8(const __nv_fp8_e5m2* p,
-                                      float (&v)[VEC]) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  fp8x4_to_float<__NV_E5M2>(u.x, v);
-  fp8x4_to_float<__NV_E5M2>(u.y, v + 4);
-}
-
-__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ float load1(const __nv_fp8_e4m3* p) {
-  return static_cast<float>(*p);
-}
-
-__device__ __forceinline__ float load1(const __nv_fp8_e5m2* p) {
-  return static_cast<float>(*p);
-}
 
 // The serving shapes: out_ch % 8 == 0 and in_ch * out_ch <= COLS, so a
 // run is one channel's 8 aligned columns and one pass covers the row.

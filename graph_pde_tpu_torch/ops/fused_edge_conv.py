@@ -14,7 +14,9 @@ version is a ``custom_vjp``. The backward recomputes the small kappa
 layers in float32 with torch matmuls, runs the backward kernel (``csrc/
 fused_edge_conv_bwd.cu``, B1-bwd) for the last layer and the contraction
 (dx_src, dh2, dWl, dbl; neither [E, in * out] intermediate reaches
-device memory), adds the last bias's term g @ b_mat^T, backprops the
+device memory) in the form ``b1_bwd_form`` picks by shape and compute
+dtype (bf16 tensor cores for the GKN kappas in bf16, else fp32 SIMT
+units), adds the last bias's term g @ b_mat^T, backprops the
 small layers with torch matmuls, and scatter-adds dx_src onto the
 senders. The same Function runs on both devices: CUDA tensors launch the
 kernels (or raise, never falling back), CPU tensors take the plain
@@ -219,6 +221,7 @@ def _launch(x, senders, edge_attr, weights, in_channels,
 
 
 _BWD_ARGS = [_P] * 11 + [_I64, _I, _I, _I, _I, _I, _I, _P]
+_BWD_TC_ARGS = [_P] * 12 + [_I64, _I, _I, _I, _I, _P]
 
 
 def bwd_splits(e: int, kw: int, c: int, sms: int):
@@ -230,6 +233,28 @@ def bwd_splits(e: int, kw: int, c: int, sms: int):
     tiles = -(-kw // 128) * -(-c // 128)
     splits = max(1, min(32, 8 * sms // tiles, -(-e // 1024)))
     return splits, max(1, -(-e // 4096))
+
+
+# the tensor-core form's tile columns and in_channels bound (tc::BN and
+# tc::MAX_IN in csrc/fused_edge_conv_bwd.cu, which asserts that the bound
+# fits shared memory and refuses wider shapes)
+_TC_COLS = 128
+_TC_MAX_IN = 256
+
+
+def b1_bwd_form(kw: int, in_channels: int, out_channels: int,
+                compute_dtype) -> str:
+    """The B1-bwd kernel form a shape takes: 'tc' (bf16 tensor cores)
+    for compute_dtype='bfloat16' where kw % 8 == 0, out % 8 == 0, out
+    divides 128 (a 128-column tile holds whole channels), in * out % 128
+    == 0 and in <= 256 (the tile's g and x fit shared memory); else
+    'simt' (fp32 FMAs, bit for bit the float32 form's arithmetic)."""
+    c = in_channels * out_channels
+    if (_is_bf16(compute_dtype) and kw % 8 == 0 and out_channels % 8 == 0
+            and _TC_COLS % out_channels == 0 and c % _TC_COLS == 0
+            and in_channels <= _TC_MAX_IN):
+        return "tc"
+    return "simt"
 
 
 def _launch_bwd(x, senders, h2, g, wl, in_channels, out_channels,
@@ -255,24 +280,40 @@ def _launch_bwd(x, senders, h2, g, wl, in_channels, out_channels,
                          "aligned tensors")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     splits, dbl_splits = bwd_splits(e, kw, c, sms)
+    form = b1_bwd_form(kw, in_channels, out_channels, compute_dtype)
 
     def new(*shape, zero=False):
         fn = torch.zeros if zero else torch.empty
         return fn(shape, dtype=torch.float32, device=dev)
 
-    dx_src, dh2 = new(e, in_channels, zero=True), new(e, kw)
-    dwl, dbl = new(kw, c), new(c)
-    part_w, part_b = new(splits, kw, c), new(dbl_splits, c)
-    fn = kernels.fn("fused_edge_conv_bwd", "gpde_edge_messages_bwd",
-                    _BWD_ARGS)
+    dh2, dwl, dbl = new(e, kw), new(kw, c), new(c)
+    part_w = new(splits, kw, c)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in (h2, x, senders, g, wl, dx_src, dh2,
-                                          dwl, dbl, part_w, part_b)],
-                 e, kw, in_channels, out_channels, splits, dbl_splits,
-                 int(_is_bf16(compute_dtype)), stream)
+        if form == "tc":
+            # bf16 operands, rounded to nearest even once per call
+            h2b, wlb = h2.to(torch.bfloat16), wl.to(torch.bfloat16)
+            wlt = wlb.t().contiguous()
+            dx_src, part_b = new(e, in_channels), new(splits, c)
+            fn = kernels.fn("fused_edge_conv_bwd", "gpde_edge_messages_bwd_tc",
+                            _BWD_TC_ARGS)
+            err = fn(*[t.data_ptr() for t in (h2b, wlt, wlb, x, senders, g,
+                                              dx_src, dh2, dwl, dbl, part_w,
+                                              part_b)],
+                     e, kw, in_channels, out_channels, splits, stream)
+        else:
+            dx_src, part_b = new(e, in_channels, zero=True), new(dbl_splits, c)
+            fn = kernels.fn("fused_edge_conv_bwd", "gpde_edge_messages_bwd",
+                            _BWD_ARGS)
+            err = fn(*[t.data_ptr() for t in (h2, x, senders, g, wl, dx_src,
+                                              dh2, dwl, dbl, part_w, part_b)],
+                     e, kw, in_channels, out_channels, splits, dbl_splits,
+                     int(_is_bf16(compute_dtype)), stream)
     kernels.check(err, "edge-message backward kernel launch")
     fused_edge_messages_bwd.launches += 1
+    attr = f"{form}_launches"
+    setattr(fused_edge_messages_bwd, attr,
+            getattr(fused_edge_messages_bwd, attr) + 1)
     return dx_src, dh2, dwl, dbl
 
 
@@ -281,8 +322,9 @@ def fused_edge_messages_bwd(x, senders, h2, g, wl, *, in_channels: int,
     """The backward of the last kappa layer and the contraction:
     (dx_src, dh2, dWl, dbl) as ``edge_messages_bwd_plain`` defines them.
 
-    CUDA tensors launch the B1-bwd kernel (counted in
-    ``fused_edge_messages_bwd.launches``); CPU tensors take the plain
+    CUDA tensors launch the B1-bwd kernel in the form ``b1_bwd_form``
+    picks (counted in ``fused_edge_messages_bwd.launches`` and in
+    ``tc_launches`` or ``simt_launches``); CPU tensors take the plain
     version."""
     if x.is_cuda:
         return _launch_bwd(x, senders, h2, g, wl, in_channels, out_channels,
@@ -294,6 +336,8 @@ def fused_edge_messages_bwd(x, senders, h2, g, wl, *, in_channels: int,
 
 
 fused_edge_messages_bwd.launches = 0
+fused_edge_messages_bwd.tc_launches = 0
+fused_edge_messages_bwd.simt_launches = 0
 
 
 class _FusedEdgeMessages(torch.autograd.Function):
@@ -370,4 +414,4 @@ fused_edge_messages.launches = 0
 __all__ = ["fused_edge_messages", "edge_messages_plain",
            "fused_edge_messages_bwd", "edge_messages_bwd_plain",
            "fused_path_supported", "kernel_shape_supported", "bwd_splits",
-           "C_CHUNK"]
+           "b1_bwd_form", "C_CHUNK"]

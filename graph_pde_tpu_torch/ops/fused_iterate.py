@@ -15,7 +15,10 @@ one-hot is built.
 ``fused_iterate_total`` is a ``torch.autograd.Function``, as the JAX
 version is a ``custom_vjp``. Its backward runs one kernel (``csrc/
 fused_iterate_bwd.cu``, B2-bwd) for dmsg[e] = mask[e] * dtotal[recv[e]]
-and dxj = K . dmsg; dK = xj (x) dmsg is formed outside the kernel in K's
+and dxj = K . dmsg, in one of two forms picked by shape alone
+(``b2_bwd_form``): a warp per edge where out % 8 == 0 and out divides
+256 (the GKN widths), else a block per edge; dK = xj (x) dmsg is formed
+outside the kernel in K's
 dtype (as in JAX, so the depth steps' dK contributions accumulate in
 that dtype), and dxj is scatter-added onto the senders. CUDA tensors
 launch the kernels (or raise, never falling back); CPU tensors take the
@@ -190,11 +193,21 @@ def _launch(x, senders, K, setup: IterateSetup, in_channels: int,
     return out
 
 
+def b2_bwd_form(out_channels: int) -> str:
+    """The B2-bwd kernel form a shape takes: 'warp' (one warp per edge,
+    dmsg in registers) where out % 8 == 0 and out divides 256, else
+    'general' (one block per edge)."""
+    if out_channels % 8 == 0 and 256 % out_channels == 0:
+        return "warp"
+    return "general"
+
+
 def _launch_bwd(K, setup: IterateSetup, dtotal, in_channels: int,
                 out_channels: int):
     _check_k(K, in_channels, out_channels, stream=True)
     c = in_channels * out_channels
-    if c > _COLS and _COLS % out_channels:
+    form = b2_bwd_form(out_channels)
+    if form == "general" and c > _COLS and _COLS % out_channels:
         raise ValueError("iteration backward kernel needs in * out <= "
                          f"{_COLS} or out_channels dividing {_COLS}")
     dev = K.device
@@ -207,11 +220,13 @@ def _launch_bwd(K, setup: IterateSetup, dtotal, in_channels: int,
         if t.device != dev:
             raise ValueError("iteration backward operands must share one "
                              "CUDA device")
-    if setup.receivers.dtype != torch.int64 or K.data_ptr() % 16:
-        raise ValueError("receivers must be int64 and K 16-byte aligned")
+    if (setup.receivers.dtype != torch.int64 or K.data_ptr() % 16
+            or dtotal.data_ptr() % 16):
+        raise ValueError("receivers must be int64, K and dtotal 16-byte "
+                         "aligned")
     dxj = torch.empty((e, in_channels), dtype=torch.float32, device=dev)
     dmsg = torch.empty((e, out_channels), dtype=torch.float32, device=dev)
-    fn = kernels.fn("fused_iterate_bwd", "gpde_iterate_bwd", _ARGS)
+    fn = kernels.fn("fused_iterate_bwd", f"gpde_iterate_bwd_{form}", _ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*[t.data_ptr() for t in (K, setup.mask, setup.receivers,
@@ -219,6 +234,8 @@ def _launch_bwd(K, setup: IterateSetup, dtotal, in_channels: int,
                  e, in_channels, out_channels, _K_KIND[K.dtype], stream)
     kernels.check(err, "iteration backward kernel launch")
     _count(fused_iterate_bwd, K)
+    attr = f"{form}_launches"
+    setattr(fused_iterate_bwd, attr, getattr(fused_iterate_bwd, attr) + 1)
     return dxj, dmsg
 
 
@@ -228,8 +245,9 @@ def fused_iterate_bwd(K, setup: IterateSetup, dtotal, *, in_channels: int,
     [N, out] of ``fused_iterate_total``; K is the stream the forward read
     (K, or the fp8 k8).
 
-    CUDA tensors launch the B2-bwd kernel (counted in
-    ``fused_iterate_bwd.launches``, and an fp8 K also in
+    CUDA tensors launch the B2-bwd kernel in the form ``b2_bwd_form``
+    picks (counted in ``fused_iterate_bwd.launches``, in
+    ``warp_launches`` or ``general_launches``, and an fp8 K also in
     ``e4m3_launches`` / ``e5m2_launches``); CPU tensors take the plain
     version."""
     if K.is_cuda:
@@ -242,6 +260,8 @@ def fused_iterate_bwd(K, setup: IterateSetup, dtotal, *, in_channels: int,
 fused_iterate_bwd.launches = 0
 fused_iterate_bwd.e4m3_launches = 0
 fused_iterate_bwd.e5m2_launches = 0
+fused_iterate_bwd.warp_launches = 0
+fused_iterate_bwd.general_launches = 0
 
 
 def _outer(x, senders, dmsg, dtype) -> torch.Tensor:
@@ -319,4 +339,4 @@ fused_iterate_total.e5m2_launches = 0
 __all__ = ["fused_iterate_total", "fused_iterate_total_plain",
            "fused_iterate_bwd", "fused_iterate_bwd_plain",
            "sorted_iterate_setup", "fused_iterate_supported",
-           "IterateSetup", "BLOCK_E"]
+           "b2_bwd_form", "IterateSetup", "BLOCK_E"]

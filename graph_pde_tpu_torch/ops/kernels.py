@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
 ``ctypes``. Libraries are built at first use into ``_build/`` inside the
 package (listed in .gitignore), under a name that carries a hash of the
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded. ``build()`` compiles several sources at once, one ``nvcc``
-process each.
+source, of every ``csrc/`` header it includes (``#include "x.cuh"``,
+followed through the headers) and of the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. ``build()``
+compiles several sources at once, one ``nvcc`` process each.
 
 Nothing here runs at import time: the package imports on machines
 without ``nvcc`` or a GPU, where only the plain PyTorch versions run.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,10 +44,27 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """The source ``csrc/<name>.cu`` and every local header it includes,
+    directly or through other headers, each once, in a fixed order."""
+    seen, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        todo.extend(m.decode() for m in _INCLUDE.findall((CSRC / f).read_bytes()))
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in _sources(name):
+        h.update(f.encode() + b"\0" + (CSRC / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:

@@ -24,11 +24,13 @@ from graph_pde_tpu_torch.ops.cached_contraction import (
     cached_contraction, cached_contraction_bwd, cached_contraction_bwd_plain,
     cached_contraction_plain, to_fp8)
 from graph_pde_tpu_torch.ops.dense import dense_apply, dense_init
-from graph_pde_tpu_torch.ops.fused_edge_conv import (edge_messages_bwd_plain,
+from graph_pde_tpu_torch.ops.fused_edge_conv import (b1_bwd_form,
+                                                     edge_messages_bwd_plain,
                                                      edge_messages_plain,
                                                      fused_edge_messages,
                                                      fused_edge_messages_bwd)
-from graph_pde_tpu_torch.ops.fused_iterate import (fused_iterate_bwd,
+from graph_pde_tpu_torch.ops.fused_iterate import (b2_bwd_form,
+                                                   fused_iterate_bwd,
                                                    fused_iterate_bwd_plain,
                                                    fused_iterate_total,
                                                    fused_iterate_total_plain,
@@ -162,10 +164,16 @@ def test_b1_bwd_matches_plain(dev, dtype, tol, e, kw, w_in, w_out):
     gg = torch.randn(e, w_out, generator=g).to(dev)
     wl = (torch.randn(kw, w_in * w_out, generator=g) / kw ** 0.5).to(dev)
     kw_args = dict(in_channels=w_in, out_channels=w_out, compute_dtype=dtype)
-    before = fused_edge_messages_bwd.launches
+    attr = f"{b1_bwd_form(kw, w_in, w_out, dtype)}_launches"
+    assert attr == ("tc_launches" if dtype and (kw, w_out) != (6, 100)
+                    and (kw, w_out) != (40, 200) else "simt_launches")
+    before = (fused_edge_messages_bwd.launches,
+              getattr(fused_edge_messages_bwd, attr))
     got = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
     torch.cuda.synchronize()
-    assert fused_edge_messages_bwd.launches == before + 1
+    assert (fused_edge_messages_bwd.launches,
+            getattr(fused_edge_messages_bwd, attr)) == (before[0] + 1,
+                                                        before[1] + 1)
     want = edge_messages_bwd_plain(x, s, h2, gg, wl, **kw_args)
     for name, a, b in zip(("dx_src", "dh2", "dWl", "dbl"), got, want):
         assert _rel(a, b) <= tol, name
@@ -173,6 +181,90 @@ def test_b1_bwd_matches_plain(dev, dtype, tol, e, kw, w_in, w_out):
     again = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+# (kw, in, out) of the tensor-core form: the GKN kappa, kw not a multiple
+# of the 32-deep slab nor of the 128-wide tile, a narrow kappa, out 128
+# (one channel per tile), out 8 (sixteen channels per tile)
+B1_TC_SHAPES = [(256, 64, 64), (1000, 64, 64), (32, 16, 16), (96, 4, 128),
+                (128, 16, 8)]
+
+
+@pytest.mark.parametrize("e", [1, 50, 300])
+@pytest.mark.parametrize("kw,w_in,w_out", B1_TC_SHAPES)
+def test_b1_bwd_tc_ragged(dev, e, kw, w_in, w_out):
+    """The bf16 tensor-core form on fewer edges than one 128-edge tile and
+    on a ragged last tile: within 5e-3 of the plain version, counted as
+    its form, and a second launch bit-identical (no atomics)."""
+    g = torch.Generator().manual_seed(e * kw + w_out)
+    x = torch.randn(50, w_in, generator=g).to(dev)
+    s = torch.randint(0, 50, (e,), generator=g).to(dev)
+    h2 = torch.relu(torch.randn(e, kw, generator=g)).to(dev)
+    gg = torch.randn(e, w_out, generator=g).to(dev)
+    wl = (torch.randn(kw, w_in * w_out, generator=g) / kw ** 0.5).to(dev)
+    kw_args = dict(in_channels=w_in, out_channels=w_out,
+                   compute_dtype="bfloat16")
+    assert b1_bwd_form(kw, w_in, w_out, "bfloat16") == "tc"
+    before = fused_edge_messages_bwd.tc_launches
+    got = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
+    torch.cuda.synchronize()
+    assert fused_edge_messages_bwd.tc_launches == before + 1
+    want = edge_messages_bwd_plain(x, s, h2, gg, wl, **kw_args)
+    for name, a, b in zip(("dx_src", "dh2", "dWl", "dbl"), got, want):
+        assert _rel(a, b) <= 5e-3, name
+    again = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def _b2_operands(g, e, w_in, w_out, k_name, dev):
+    """Sorted receivers with a masked tail and an all-masked run of 520
+    edges (more than one block of warps), K of the named stream type."""
+    n = 40
+    recv = torch.sort(torch.randint(0, n, (e,), generator=g)).values
+    mask = torch.ones(e, dtype=torch.bool)
+    mask[-(e // 7 + 1):] = False
+    mask[e // 3:e // 3 + 520] = False
+    K = torch.randn(e, w_in * w_out, generator=g) * 3
+    if k_name in ("float8_e4m3", "float8_e5m2"):
+        K = to_fp8(K.to(torch.bfloat16), k_name)
+    else:
+        K = K.to(getattr(torch, k_name))
+    dt = torch.randn(n, w_out, generator=g).to(dev)
+    setup = sorted_iterate_setup(recv.to(dev), mask.to(dev), n)
+    return K.to(dev), setup, dt, mask.to(dev)
+
+
+# (in, out): the warp form at every out it takes, in below one warp's 32
+# runs, then the general form (out not a multiple of 8, out 512)
+B2_FORM_SHAPES = [(5, 8), (16, 16), (3, 32), (64, 64), (128, 128),
+                  (4, 256), (12, 12), (2, 512)]
+
+
+@pytest.mark.parametrize("k_name", ["float32", "bfloat16", "float8_e4m3",
+                                    "float8_e5m2"])
+@pytest.mark.parametrize("e", [5, 1003, 4096])
+@pytest.mark.parametrize("w_in,w_out", B2_FORM_SHAPES)
+def test_b2_bwd_forms(dev, k_name, e, w_in, w_out):
+    """Each B2-bwd form, every K stream type, against the plain version:
+    dxj within 1e-4, dmsg bit-equal, zeros on masked edges (tails and
+    whole masked blocks), counted as its form."""
+    g = torch.Generator().manual_seed(e + w_out)
+    K, setup, dt, mask = _b2_operands(g, e, w_in, w_out, k_name, dev)
+    form = b2_bwd_form(w_out)
+    assert form == ("warp" if w_out % 8 == 0 and w_out <= 256 else "general")
+    attr = f"{form}_launches"
+    before = getattr(fused_iterate_bwd, attr)
+    dxj, dmsg = fused_iterate_bwd(K, setup, dt, in_channels=w_in,
+                                  out_channels=w_out)
+    torch.cuda.synchronize()
+    assert getattr(fused_iterate_bwd, attr) == before + 1
+    wdx, wdm = fused_iterate_bwd_plain(K, setup, dt, in_channels=w_in,
+                                       out_channels=w_out)
+    assert _rel(dxj, wdx) <= 1e-4
+    assert torch.equal(dmsg, wdm)
+    if not bool(mask.all()):
+        assert float(dxj[~mask].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("k_dtype", [torch.float32, torch.bfloat16])
@@ -322,6 +414,46 @@ def test_k2_b2_bwd_fp8_match_plain(dev, name, w):
     wdx, wdm = fused_iterate_bwd_plain(k8, setup, dt, in_channels=w,
                                        out_channels=w)
     assert _rel(dxj, wdx) <= 1e-4 and torch.equal(dmsg, wdm)
+
+
+def _same_specials(got, want):
+    """NaN and inf where the plain version has them, the finite rest
+    within 1e-4 of its max-abs."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(got[torch.isinf(got)], want[torch.isinf(want)])
+    ok = torch.isfinite(want)
+    assert _rel(got[ok], want[ok]) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["float8_e4m3", "float8_e5m2"])
+@pytest.mark.parametrize("w", [64, 12])
+def test_fp8_special_values_match_plain(dev, name, w):
+    """A k8 stream holding e4m3 NaN or e5m2 inf (K above the fp8 range)
+    gives K2 and both B2-bwd forms the plain versions' NaN and inf, and
+    the same finite values elsewhere."""
+    g = torch.Generator().manual_seed(w + 11)
+    n, e = 40, 2048
+    recv = torch.sort(torch.randint(0, n, (e,), generator=g)).values
+    mask = torch.arange(e) < e - 100
+    s = torch.randint(0, n, (e,), generator=g).to(dev)
+    K = torch.randn(e, w * w, generator=g) * 30
+    # on live edges only (the plain backward multiplies a masked
+    # edge's K by zero, which keeps its NaN)
+    K.view(-1)[torch.randint(0, (e - 100) * w * w, (40,), generator=g)] = 1e6
+    k8 = to_fp8(K.to(torch.bfloat16).to(dev), name)
+    special = torch.isnan(k8.float()) | torch.isinf(k8.float())
+    assert int(special.sum()) > 0
+    x = torch.randn(n, w, generator=g).to(dev)
+    dt = torch.randn(n, w, generator=g).to(dev)
+    setup = sorted_iterate_setup(recv.to(dev), mask.to(dev), n)
+    kw = dict(in_channels=w, out_channels=w)
+    _same_specials(fused_iterate_total(x, s, k8.float(), setup, k8=k8, **kw),
+                   fused_iterate_total_plain(x, s, k8, setup, **kw))
+    dxj, dmsg = fused_iterate_bwd(k8, setup, dt, **kw)
+    wdx, wdm = fused_iterate_bwd_plain(k8, setup, dt, **kw)
+    _same_specials(dxj, wdx)
+    assert torch.equal(dmsg, wdm)
 
 
 def test_to_fp8_on_card_matches_cpu(dev):

@@ -28,10 +28,12 @@ from graph_pde_tpu_torch.ops import edge_conv as tconv
 from graph_pde_tpu_torch.ops import segment as tseg
 from graph_pde_tpu_torch.ops.cached_contraction import (apply_cached_kernel,
                                                         maybe_quantize_k)
-from graph_pde_tpu_torch.ops.fused_edge_conv import (edge_messages_plain,
+from graph_pde_tpu_torch.ops.fused_edge_conv import (b1_bwd_form,
+                                                     edge_messages_plain,
                                                      fused_edge_messages,
                                                      fused_path_supported)
-from graph_pde_tpu_torch.ops.fused_iterate import (fused_iterate_supported,
+from graph_pde_tpu_torch.ops.fused_iterate import (b2_bwd_form,
+                                                   fused_iterate_supported,
                                                    fused_iterate_total,
                                                    sorted_iterate_setup)
 
@@ -187,6 +189,84 @@ def test_fused_path_gate():
                  (1024, 128, 128, 64), (1024, 6, 6, 64), (512, 16, 16, 8)]:
         assert fused_iterate_supported(*args) == j_iter_ok(*args), args
     assert fused_iterate_supported(1024, 128, 128, 64)
+
+
+# (kw, in, out) of the B1-bwd card tests (tests/test_torch_cuda.py), and
+# the B2-bwd widths they take
+B1_SHAPES = [(256, 64, 64), (1024, 64, 64), (32, 16, 16), (6, 3, 100),
+             (40, 2, 200)]
+B2_WIDTHS = [6, 8, 12, 16, 32, 64, 128, 256, 512, 1024]
+
+
+def test_backward_kernel_forms():
+    """Every (kw, in, out) of the registry's kappas (and their smoke
+    sizes) and of the card tests that the JAX fused-path gate admits maps
+    to one B1-bwd form per compute dtype, the SIMT form in float32; every
+    width the JAX iteration gate admits maps to one B2-bwd form, and none
+    that the general form would refuse. The GKN main paths take the
+    redesigned forms: uai4_full_grid_241 (bf16, kw 256) and the
+    ker_width-1024 kappa the tensor-core form, width 64 the warp form."""
+    from graph_pde_tpu.experiments import registry
+    from graph_pde_tpu.experiments.runners import _kernel_layers
+    from graph_pde_tpu.ops.fused_iterate import (fused_iterate_supported
+                                                 as j_iter_ok)
+    from graph_pde_tpu.ops.pallas_edge_conv import (fused_path_supported
+                                                    as j_fused_ok)
+
+    shapes = set(B1_SHAPES)
+    for name in registry.names():
+        for cfg in (registry.get(name), registry.get(name).smoke()):
+            shapes.add((_kernel_layers(cfg, 6)[-2], cfg.width, cfg.width))
+    admitted = 0
+    for kw, i, o in sorted(shapes):
+        layers = [{"w": jax.ShapeDtypeStruct((6, kw), jnp.float32)},
+                  {"w": jax.ShapeDtypeStruct((kw, i * o), jnp.float32)}]
+        if not j_fused_ok(layers, i, o):
+            continue
+        admitted += 1
+        assert b1_bwd_form(kw, i, o, None) == "simt"
+        assert b1_bwd_form(kw, i, o, "bfloat16") in ("tc", "simt")
+    assert admitted >= len(B1_SHAPES)
+    for kw in (256, 1024, 1000):
+        assert b1_bwd_form(kw, 64, 64, "bfloat16") == "tc", kw
+    assert b1_bwd_form(6, 3, 100, "bfloat16") == "simt"
+    assert b1_bwd_form(40, 2, 200, "bfloat16") == "simt"
+    # the tensor-core form's in_channels bound (its shared memory)
+    assert b1_bwd_form(256, 256, 64, "bfloat16") == "tc"
+    assert b1_bwd_form(256, 264, 64, "bfloat16") == "simt"
+
+    widths = set(B2_WIDTHS) | {o for _, _, o in shapes}
+    for w in sorted(widths):
+        for i in (1, 3, w):
+            if not j_iter_ok(512, i, w, 64):
+                continue
+            form = b2_bwd_form(w)
+            assert form in ("warp", "general")
+            if form == "general":   # the block form's own shape rule
+                assert i * w <= 4096 or 4096 % w == 0, (i, w)
+    assert [w for w in sorted(widths) if b2_bwd_form(w) == "warp"] == [
+        8, 16, 32, 64, 128, 256]
+
+
+def test_library_name_covers_included_headers(tmp_path, monkeypatch):
+    """A kernel library's name hashes the source, every csrc header it
+    includes (through other headers too) and the flags, so an edited
+    header is rebuilt rather than loaded stale."""
+    from graph_pde_tpu_torch.ops import kernels
+
+    (tmp_path / "a.cu").write_text('#include <cuda_runtime.h>\n'
+                                   '#include "h1.cuh"\nint a;\n')
+    (tmp_path / "h1.cuh").write_text('#pragma once\n#include "h2.cuh"\n')
+    (tmp_path / "h2.cuh").write_text("int two;\n")
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    assert kernels._sources("a") == ["a.cu", "h1.cuh", "h2.cuh"]
+    first = kernels.library_path("a")
+    assert kernels.library_path("a") == first
+    (tmp_path / "h2.cuh").write_text("int three;\n")
+    second = kernels.library_path("a")
+    assert second != first
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-I.",))
+    assert kernels.library_path("a") not in (first, second)
 
 
 @pytest.mark.parametrize("k_dtype", [np.float32, "bfloat16"])
