@@ -2,6 +2,10 @@
 """Drives the PyTorch/CUDA port (graph_pde_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root
+    python3 chip_smoke.py --grad-spread [N]   # only phase 5's fp8
+                                 # gradient check, once deterministic
+                                 # and N times (default 8) in the
+                                 # default mode, with its distances
 
 Phases, each fatal on failure:
   1. card identity (nvidia-smi) and the build of every CUDA kernel;
@@ -17,8 +21,11 @@ Phases, each fatal on failure:
      every kernel at registry shapes the main paths do not reach (the
      general forms); B3-fwd and B3-bwd (fp32 and bf16 K) at the uai1
      full-graph shape and at widths 12 and 128; K2 and B2-bwd on the
-     e4m3 and e5m2 fp8 K streams of the full uai1 graph. Each B1-bwd
-     and B2-bwd check requires the form its shape takes;
+     e4m3 and e5m2 fp8 K streams of the full uai1 graph; K1's bf16
+     tensor-core form on the full uai4 s=241 graph, on a ragged prefix
+     of it and at the (6,32,128,256) kappa (a second launch
+     bit-identical), and its bf16 SIMT form on the full graph. Each K1,
+     B1-bwd and B2-bwd check requires the form its shape takes;
   3. serving: the full-width neurips1 GKN (random weights from a seed,
      Gaussian normalizers fitted on synthetic Darcy samples) answers
      requests through GKNPredictor.predict at s=61 (full graph) and
@@ -42,20 +49,21 @@ Phases, each fatal on failure:
      uai1 with compute_dtype='bfloat16' and k_storage='float8_e4m3'
      (the fp8 forms of K2 and B2-bwd). The counters are zeroed around
      every step and every test evaluation: a step must launch its path's
-     forward and backward kernel `depth` times each, the backward in
-     its redesigned form (B1-bwd on the tensor cores in bf16, B2-bwd a
-     warp per edge), and the other path's never. Losses and parameters must be finite; the peak device
-     memory of each fit is logged. The step-1 gradients of each config
+     forward and backward kernel `depth` times each, in their redesigned
+     forms (K1 and B1-bwd on the tensor cores in bf16, B2-bwd a warp per
+     edge), and the other path's never. Losses and parameters must be
+     finite; the peak device memory of each fit is logged. The step-1 gradients of each config
      are held on a smaller graph with the same stencil against the plain
      path (impl='scan', kcached_fused='off'; uai4 in fp32), and uai4's
      in bf16 and uai1's with e4m3 and e5m2 K against their Functions'
      plain versions run on the card;
-  6. B1-bwd (bf16 and fp32) and B2-bwd times at the full training
+  6. K1 (bf16, tensor cores beside the SIMT form on the same inputs),
+     B1-bwd (bf16 and fp32) and B2-bwd times at the full training
      shapes, B3 (fp32 and bf16 K) at the uai1 full-graph shape, K2 and
      B2-bwd on the fp8 streams of the full uai1 graph: bounds, plain and
      library times, and the step time of each training path; beside the
-     redesigned forms, the forms they replaced on the main path (B1-bwd
-     bf16 on the SIMT units, B2-bwd a block per edge) on the same
+     redesigned forms, the forms they replaced on the main path (K1 and
+     B1-bwd bf16 on the SIMT units, B2-bwd a block per edge) on the same
      inputs.
 
 Prints one JSON line of kernel records before the last line, and as the
@@ -67,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +92,7 @@ SLICE = 65536        # edges of the kernel-vs-plain comparison
 GENERAL_SLICE = 16384  # edges of the general-form comparison
 GENERAL_TIME_SLICE = 131072  # edges of the general-form timing
 B2_WIDE_SLICE = 1024  # edges of the width-512 B2-bwd comparison
+K1_RAGGED = 70001    # edges of the ragged K1 comparison (not a tile multiple)
 F32_TOL = 1e-4       # max-abs error / max-abs output, fp32
 BF16_TOL = 5e-3      # the same, where bf16 rounding enters
 
@@ -207,8 +217,6 @@ def phase_kernels_vs_plain(g, h, params) -> dict:
     import torch
 
     from graph_pde_tpu_torch.ops.dense import dense_apply
-    from graph_pde_tpu_torch.ops.fused_edge_conv import (
-        edge_messages_plain, fused_edge_messages)
     from graph_pde_tpu_torch.ops.fused_iterate import (
         fused_iterate_total, fused_iterate_total_plain, sorted_iterate_setup)
 
@@ -217,17 +225,9 @@ def phase_kernels_vs_plain(g, h, params) -> dict:
     errs = {}
     with torch.inference_mode():
         for dt, tol in ((None, F32_TOL), ("bfloat16", BF16_TOL)):
-            got = fused_edge_messages(h, s, a, kp, in_channels=64,
-                                      out_channels=64, compute_dtype=dt)
-            want = edge_messages_plain(h, s, a, kp, in_channels=64,
-                                       out_channels=64, compute_dtype=dt)
-            torch.cuda.synchronize()
-            ab, rel = rel_err(got, want)
             name = f"K1 {dt or 'float32'}"
-            log(f"phase 2: {name}: max-abs err {ab:.3e}, "
-                f"relative {rel:.3e} (tol {tol:g})")
-            require(rel <= tol and bool(torch.isfinite(got).all()), name)
-            errs[name] = ab
+            errs[name] = check_k1(name, h, s, a, kp, 64, dt, tol,
+                                  "tc" if dt else "simt")
         setup = sorted_iterate_setup(g.receivers[:SLICE],
                                      g.edge_mask()[:SLICE], g.x.shape[0])
         kk = dense_apply(kp, a)
@@ -278,8 +278,10 @@ def phase_general_forms(g, dev) -> dict:
                     f"{layers} takes the general form")
             x = torch.randn(n, w, generator=gen).to(dev)
             for dt, tol in ((None, F32_TOL), ("bfloat16", BF16_TOL)):
+                zero_counts()
                 got = fused_edge_messages(x, s, a, kp, in_channels=w,
                                           out_channels=w, compute_dtype=dt)
+                counts = read_counts()
                 want = edge_messages_plain(x, s, a, kp, in_channels=w,
                                            out_channels=w, compute_dtype=dt)
                 torch.cuda.synchronize()
@@ -287,6 +289,8 @@ def phase_general_forms(g, dev) -> dict:
                 name = f"K1 general {layers} {dt or 'float32'}"
                 log(f"phase 2: {name}: max-abs err {ab:.3e}, relative "
                     f"{rel:.3e} (tol {tol:g})")
+                require(counts["K1 general"] == 1 == counts["K1"],
+                        f"{name}: took the general form ({counts})")
                 require(rel <= tol and bool(torch.isfinite(got).all()), name)
                 errs[name] = ab
         for w in (128, 12):
@@ -337,6 +341,100 @@ def phase_general_forms(g, dev) -> dict:
                 del K
             del kk
     return errs
+
+
+def check_k1(name, x, s, a, kp, w_in, dt, tol, form, want=None) -> float:
+    """K1 against its plain version (out 64; ``want`` if given) in the
+    form its shape takes, and a second launch bit-identical; returns the
+    max-abs error."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.dense import layer_dims
+    from graph_pde_tpu_torch.ops.fused_edge_conv import (
+        edge_messages_plain, fused_edge_messages, k1_form)
+
+    kw = dict(in_channels=w_in, out_channels=64, compute_dtype=dt)
+    require(k1_form(layer_dims(kp), w_in, 64, dt) == form,
+            f"{name}: k1_form picks {form}")
+    zero_counts()
+    got = fused_edge_messages(x, s, a, kp, **kw)
+    again = fused_edge_messages(x, s, a, kp, **kw)
+    counts = read_counts()
+    if want is None:
+        want = edge_messages_plain(x, s, a, kp, **kw)
+    torch.cuda.synchronize()
+    require(counts[f"K1 {form}"] == 2 == counts["K1"],
+            f"{name}: took the {form} form ({counts})")
+    same = bool(torch.equal(got, again))
+    ab, rel = rel_err(got, want)
+    log(f"phase 2: {name} [{form}] E {s.shape[0]}: max-abs err {ab:.3e}, "
+        f"relative {rel:.3e} (tol {tol:g}); second launch bit-identical "
+        f"{same}")
+    require(rel <= tol and bool(torch.isfinite(got).all()), name)
+    require(same, f"{name}: a second launch is bit-identical")
+    return ab
+
+
+def phase_k1_tc_vs_plain(g4, kp4) -> dict:
+    """K1's tensor-core form (bf16) against its plain version: on the
+    full uai4 s=241 training graph, on a ragged prefix of it (not a
+    multiple of the 128-edge tile) and with the (6, 32, 128, 4 * 64)
+    kappa; the SIMT form in bf16 on the full graph as well. Features
+    from a seed."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.dense import dense_init
+    from graph_pde_tpu_torch.ops.fused_edge_conv import edge_messages_plain
+
+    dev = g4.x.device
+    gen = torch.Generator().manual_seed(SEED + 11)
+    errs = {}
+    with torch.inference_mode():
+        x = torch.randn(g4.x.shape[0], 64, generator=gen).to(dev)
+        s, a = g4.senders, g4.edge_attr
+        want = edge_messages_plain(x, s, a, kp4, in_channels=64,
+                                   out_channels=64, compute_dtype="bfloat16")
+        errs["K1 tc"] = check_k1(f"K1 bf16 (uai4 s={S_UAI4})", x, s, a,
+                                 kp4, 64, "bfloat16", BF16_TOL, "tc", want)
+        r = K1_RAGGED
+        check_k1(f"K1 bf16 (uai4 s={S_UAI4}, ragged)", x, s[:r], a[:r], kp4,
+                 64, "bfloat16", BF16_TOL, "tc")
+        small = dense_init(gen, (6, 32, 128, 4 * 64), device=dev)
+        check_k1("K1 bf16 kappa (6, 32, 128, 256), in 4",
+                 x[:, :4].contiguous(), s[:r], a[:r], small, 4, "bfloat16",
+                 BF16_TOL, "tc")
+        # the SIMT form on the same full-graph inputs (timed beside the
+        # tensor-core form in phase 6)
+        got = k1_simt(x, s, a, kp4, 64, "bfloat16")
+        torch.cuda.synchronize()
+        ab, rel = rel_err(got, want)
+        log(f"phase 2: K1 bf16 SIMT form (uai4 s={S_UAI4}): max-abs err "
+            f"{ab:.3e}, relative {rel:.3e} (tol {BF16_TOL:g})")
+        require(rel <= BF16_TOL and bool(torch.isfinite(got).all()),
+                "K1 bf16 SIMT form")
+    return errs
+
+
+def k1_simt(x, s, a, kp, w_in, dt):
+    """K1's SIMT form on a single-launch shape in any compute dtype,
+    launched past the wrapper's choice of form: the design the bf16
+    tensor-core form replaced on the uai4 path, checked and timed beside
+    it."""
+    import torch
+
+    from graph_pde_tpu_torch.ops import fused_edge_conv as fe
+    from graph_pde_tpu_torch.ops import kernels
+    from graph_pde_tpu_torch.ops.dense import flatten_params, layer_dims
+
+    dims = layer_dims(kp)
+    msg = torch.empty((s.shape[0], 64), dtype=torch.float32, device=x.device)
+    fn = kernels.fn("fused_edge_conv", "gpde_edge_messages", fe._FAST_ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    kernels.check(fn(*[t.data_ptr() for t in (x, s, a, *flatten_params(kp),
+                                              msg)],
+                     s.shape[0], w_in, dims[0][0], dims[0][1], dims[1][1],
+                     int(dt == "bfloat16"), stream), "K1 SIMT form")
+    return msg
 
 
 def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol) -> float:
@@ -546,6 +644,26 @@ def set_bound(r: dict) -> None:
     r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
 
 
+def k1_cost(kp, e, n, tc=False) -> dict:
+    """K1's operations and bytes on e edges of an n-node graph (in = out
+    = 64): the MLP's products and the contraction, every input read once
+    (x, senders, attr, weights), the messages written once. With ``tc``
+    (the bf16 tensor-core form) the products after the first layer run
+    on bf16 operands, so they count as ``bf16_flops``; attr @ W0 and the
+    contraction stay fp32 ``flops``."""
+    from graph_pde_tpu_torch.ops.dense import layer_dims
+
+    dims = layer_dims(kp)
+    mlp = [2.0 * e * a * b for a, b in dims]
+    fold = 2.0 * e * dims[-1][1]
+    wbytes = 4 * sum(p["w"].numel() + p["b"].numel() for p in kp)
+    nbytes = 4 * n * 64 + 8 * e + 4 * e * dims[0][0] + wbytes + 4 * e * 64
+    if tc:
+        return dict(flops=mlp[0] + fold, bf16_flops=sum(mlp[1:]),
+                    bytes=nbytes)
+    return dict(flops=sum(mlp) + fold, bytes=nbytes)
+
+
 def forward_times(g, cfg, params) -> dict:
     """Device time of one whole s=61 forward per impl (the rest of a
     request's latency is host work: graph build, encode, decode)."""
@@ -583,23 +701,13 @@ def phase_times(g, h, params) -> dict:
     e_valid = int(mask.sum())
     c = layer_dims(kp)[-1][1]
 
-    def k1_cost(kp, e):
-        # the MLP's products and the contraction, per edge; every input
-        # read once (x, senders, attr, weights), the messages written once
-        dims = layer_dims(kp)
-        flops = 2.0 * e * (sum(a * b for a, b in dims) + dims[-1][1])
-        wbytes = 4 * sum(p["w"].numel() + p["b"].numel() for p in kp)
-        nbytes = 4 * n * 64 + 8 * e + 4 * e * dims[0][0] + wbytes + 4 * e * 64
-        return flops, nbytes
-
     def k1_record(kp, s, a, reps):
         k1 = lambda: fused_edge_messages(h, s, a, kp, in_channels=64,
                                          out_channels=64)
         k1p = lambda: edge_messages_plain(h, s, a, kp, in_channels=64,
                                           out_channels=64)
-        flops, nbytes = k1_cost(kp, s.shape[0])
         return dict(ms=time_ms(k1, reps), plain_ms=time_ms(k1p, 2),
-                    flops=flops, bytes=nbytes, library_ms=None)
+                    library_ms=None, **k1_cost(kp, s.shape[0], n))
 
     rec = {}
     with torch.inference_mode():
@@ -640,12 +748,14 @@ def phase_times(g, h, params) -> dict:
 
 
 # Every launch counter: K2 and B2-bwd count all their launches, and their
-# fp8 forms (the k8 stream of k_storage) also count on their own; B1-bwd
-# and B2-bwd count each launch once more under the kernel form that took
-# it (tensor cores or SIMT; warp per edge or block per edge).
+# fp8 forms (the k8 stream of k_storage) also count on their own; K1,
+# B1-bwd and B2-bwd count each launch once more under the kernel form
+# that took it (tensor cores, SIMT or general; warp per edge or block per
+# edge).
 COUNTED = ("K1", "B1-bwd", "K2", "B2-bwd", "K2 e4m3", "K2 e5m2",
            "B2-bwd e4m3", "B2-bwd e5m2", "B3-fwd", "B3-bwd", "B1-bwd tc",
-           "B1-bwd simt", "B2-bwd warp", "B2-bwd general")
+           "B1-bwd simt", "B2-bwd warp", "B2-bwd general", "K1 tc",
+           "K1 simt", "K1 general")
 
 
 def counters() -> dict:
@@ -661,10 +771,11 @@ def counters() -> dict:
            fused_iterate_bwd, fused_iterate_total, fused_iterate_total,
            fused_iterate_bwd, fused_iterate_bwd, cached_contraction,
            cached_contraction_bwd) + (fused_edge_messages_bwd,) * 2 + (
-               fused_iterate_bwd,) * 2
+               fused_iterate_bwd,) * 2 + (fused_edge_messages,) * 3
     attrs = ("launches",) * 4 + ("e4m3_launches", "e5m2_launches") * 2 + (
         "launches",) * 2 + ("tc_launches", "simt_launches", "warp_launches",
-                            "general_launches")
+                            "general_launches", "tc_launches",
+                            "simt_launches", "general_launches")
     return {k: (f, a) for k, f, a in zip(COUNTED, fns, attrs)}
 
 
@@ -681,14 +792,13 @@ def expected(cfg, n_fwd: int, n_bwd: int) -> dict:
     """The counts of a run of ``cfg``'s path that launches its forward
     kernel n_fwd times and its backward kernel n_bwd times: K1 / B1-bwd
     for impl='auto', K2 / B2-bwd (and their fp8 form, with k_storage)
-    for the fused kcached path; every other counter 0. The backward must
-    take the redesigned form: B1-bwd on the tensor cores in bf16 (its
-    SIMT form in float32), B2-bwd a warp per edge (the configs' width is
-    64)."""
+    for the fused kcached path; every other counter 0. Both kernels of a
+    path must take the redesigned form: K1 and B1-bwd on the tensor cores
+    in bf16 (their SIMT forms in float32), B2-bwd a warp per edge (the
+    configs' width is 64)."""
     if cfg.impl == "auto":
-        fwd = ("K1",)
-        bwd = ("B1-bwd", "B1-bwd tc" if cfg.compute_dtype == "bfloat16"
-               else "B1-bwd simt")
+        form = "tc" if cfg.compute_dtype == "bfloat16" else "simt"
+        fwd, bwd = ("K1", f"K1 {form}"), ("B1-bwd", f"B1-bwd {form}")
     else:
         fwd, bwd = ("K2",), ("B2-bwd", "B2-bwd warp")
         if cfg.k_storage:
@@ -903,13 +1013,12 @@ def plain_on_card():
         fe._launch, fe._launch_bwd, fi._launch, fi._launch_bwd = saved
 
 
-def phase_train_grads(name, cfg, plain_cfg, loss, u_norm, s, r,
-                      node_block, tol=F32_TOL,
-                      plain_ctx=contextlib.nullcontext) -> dict:
-    """The step-1 loss gradients of ``cfg`` (kernels) against
-    ``plain_cfg`` run inside ``plain_ctx`` (plain versions, no kernel
-    launch) from the same parameters and one graph, every parameter
-    within ``tol`` of its max-abs. Returns the kernel run's launches."""
+def step1_grads(cfg, plain_cfg, loss, u_norm, s, r, node_block,
+                plain_ctx=contextlib.nullcontext):
+    """A function that takes the step-1 loss gradients of ``cfg``
+    (kernels) and of ``plain_cfg`` run inside ``plain_ctx`` (plain
+    versions, no kernel launch) from the same parameters and one graph,
+    and returns (loss, gradients, launches) of each."""
     import torch
 
     from graph_pde_tpu_torch.models import gkn_init
@@ -935,9 +1044,25 @@ def phase_train_grads(name, cfg, plain_cfg, loss, u_norm, s, r,
         return (float(lv.detach()), [t.grad for t in param_leaves(p)],
                 read_counts())
 
-    lk, gk, ck = grads(cfg)
-    with plain_ctx():
-        lp, gp, cp = grads(plain_cfg)
+    def run():
+        kernel = grads(cfg)
+        with plain_ctx():
+            return kernel, grads(plain_cfg)
+
+    return run
+
+
+def phase_train_grads(name, cfg, plain_cfg, loss, u_norm, s, r,
+                      node_block, tol=F32_TOL,
+                      plain_ctx=contextlib.nullcontext) -> dict:
+    """The step-1 loss gradients of ``cfg`` (kernels) against
+    ``plain_cfg`` run inside ``plain_ctx`` (plain versions, no kernel
+    launch) from the same parameters and one graph, every parameter
+    within ``tol`` of its max-abs. Returns the kernel run's launches."""
+    import torch
+
+    (lk, gk, ck), (lp, gp, cp) = step1_grads(
+        cfg, plain_cfg, loss, u_norm, s, r, node_block, plain_ctx)()
     want = expected(cfg, cfg.depth, cfg.depth)
     require(ck == want, f"{name} gradient launches {ck}, expected {want}")
     require(all(v == 0 for v in cp.values()), f"{name} plain path launches")
@@ -951,6 +1076,39 @@ def phase_train_grads(name, cfg, plain_cfg, loss, u_norm, s, r,
         f"{lp:.6g}, worst parameter relative max-abs err {worst:.3e} "
         f"(tol {tol:g}) over {len(gk)} parameters")
     return ck
+
+
+def grad_spread(repeats: int) -> None:
+    """The spread of phase 5's fp8 step-1 gradient check: for each fp8
+    K kind, each parameter's relative max-abs distance of the kernel path
+    from the plain versions under torch's deterministic algorithms, then
+    the worst parameter's distance in ``repeats`` runs in the default
+    mode, where both paths scatter with index_add_ atomics in an order
+    that changes from run to run."""
+    import warnings
+
+    import torch
+
+    warnings.simplefilter("ignore")   # deterministic-mode notices
+    uai1_fp8 = dataclasses.replace(uai1_config(), compute_dtype="bfloat16")
+    for ks in FP8_KINDS:
+        c = dataclasses.replace(uai1_fp8, k_storage=ks)
+        run = step1_grads(c, c, "l1", "gaussian", S_GRAD1, R_GRAD1, 0,
+                          plain_on_card)
+
+        def dists():
+            (_, gk, _), (_, gp, _) = run()
+            return [rel_err(a, b)[1] for a, b in zip(gk, gp)]
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        det = dists()
+        torch.use_deterministic_algorithms(False)
+        runs = [max(dists()) for _ in range(repeats)]
+        over = sum(v > GRAD_BF16_TOL for v in runs)
+        log(f"grad spread uai1 {ks}: deterministic worst {max(det):.4e} "
+            f"(per parameter {[f'{v:.3e}' for v in det]}); default mode "
+            f"{[f'{v:.3e}' for v in runs]}, {over} of {repeats} above "
+            f"{GRAD_BF16_TOL:g}")
 
 
 def profile_kernels(name, fn) -> None:
@@ -1030,15 +1188,17 @@ def b2_bwd_general(K, setup, dtotal, w):
 
 
 def backward_times(g4, kp4, g1, kp1) -> dict:
-    """B1-bwd (bf16, the uai4 training dtype, and float32) at the full
-    uai4 s=241 graph and B2-bwd (bf16 K) at the full uai1 s=61 graph:
-    kernel, plain and library times, operations, bytes."""
+    """K1 in bf16 (its tensor-core form, beside its SIMT form on the same
+    inputs) and B1-bwd (bf16, the uai4 training dtype, and float32) at
+    the full uai4 s=241 graph, and B2-bwd (bf16 K) at the full uai1 s=61
+    graph: kernel, plain and library times, operations, bytes."""
     import torch
 
     from graph_pde_tpu_torch.models.gkn import _cached_kernel
     from graph_pde_tpu_torch.ops.dense import dense_apply
     from graph_pde_tpu_torch.ops.fused_edge_conv import (
-        edge_messages_bwd_plain, fused_edge_messages_bwd)
+        edge_messages_bwd_plain, edge_messages_plain, fused_edge_messages,
+        fused_edge_messages_bwd)
     from graph_pde_tpu_torch.ops.fused_iterate import (
         fused_iterate_bwd, fused_iterate_bwd_plain, sorted_iterate_setup)
 
@@ -1050,6 +1210,21 @@ def backward_times(g4, kp4, g1, kp1) -> dict:
         wl = kp4[-1]["w"]
         kw, c = wl.shape
         x = torch.randn(n, 64, generator=gen).to(dev)
+        s, a = g4.senders, g4.edge_attr
+        kw_args = dict(in_channels=64, out_channels=64,
+                       compute_dtype="bfloat16")
+        k1 = lambda: fused_edge_messages(x, s, a, kp4, **kw_args)
+        old = lambda: k1_simt(x, s, a, kp4, 64, "bfloat16")
+        # in turns (new, old, old, new)
+        turns = [time_ms(k1, 3), time_ms(old, 1), time_ms(old, 1),
+                 time_ms(k1, 3)]
+        rec["K1 bf16"] = dict(
+            ms=(turns[0] + turns[3]) / 2, ms_turns=turns,
+            previous_form_ms=(turns[1] + turns[2]) / 2,
+            plain_ms=time_ms(lambda: edge_messages_plain(x, s, a, kp4,
+                                                         **kw_args), 1),
+            library_ms=None, shape=f"E={e}, kappa (6, 128, 256, 4096), bf16",
+            **k1_cost(kp4, e, n, tc=True))
         h2 = dense_apply(kp4[:-1], g4.edge_attr, out_nonlinearity=torch.relu)
         gg = torch.randn(e, 64, generator=gen).to(dev)
         # three products of E*kw*C multiply-adds, plus dpre, the dx fold
@@ -1378,7 +1553,7 @@ def b3_fp8_times(g1, kp1) -> dict:
     return rec
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1391,6 +1566,10 @@ def main() -> int:
     dev = torch.device("cuda")
     ident = gpu_identity()
     log(ident)
+    if argv[:1] == ["--grad-spread"]:
+        grad_spread(int(argv[1]) if len(argv) > 1 else 8)
+        log(ident)
+        return 0
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -1401,10 +1580,19 @@ def main() -> int:
         entry = "?"
         for line in text.splitlines():
             if "Compiling entry function" in line:
-                # the kernel's (mangled) name, as ptxas names it
+                # the kernel's (mangled) name, as ptxas names it, without
+                # its file's anonymous namespace
                 entry = line.split("'")[1] if "'" in line else line
-            elif "registers" in line or "spill" in line:
-                log(f"phase 1: {name}: {entry[:90]}: {line.strip()}")
+                entry = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                               entry)
+            elif "registers" in line or "spill" in line or "C75" in line:
+                # registers, spills, wgmma serialization notes
+                log(f"phase 1: {name}: {entry[:90]}: {line.strip()[:200]}")
+    from graph_pde_tpu_torch.ops.fused_edge_conv import k1_tc_occupancy
+
+    smem, blocks = k1_tc_occupancy(256, 64)
+    log(f"phase 1: K1 tc form at kw2 256, in 64: {smem} bytes of dynamic "
+        f"shared memory a block, {blocks} blocks an SM")
 
     from graph_pde_tpu_torch.models import gkn_init
     from graph_pde_tpu_torch.models.gkn import _member
@@ -1430,6 +1618,7 @@ def main() -> int:
 
     errs = phase_kernels_vs_plain(g, h, params)
     errs.update(phase_backward_vs_plain(g4, kp4, g1, kp1))
+    errs.update(phase_k1_tc_vs_plain(g4, kp4))
     phase_general_forms(g, dev)
     errs.update(phase_b3_vs_plain(g1, kp1))
     errs.update(phase_fp8_vs_plain(g1, kp1))
@@ -1495,7 +1684,7 @@ def main() -> int:
         return counts.get(key, 0)
 
     def record(name, key, source, replaces, err_key, counter=None,
-               paths=None, form=None):
+               paths=None, form=None, **extra):
         t = times[key]
         counter = counter or key
         chosen = {k: v for k, v in by_path.items()
@@ -1510,16 +1699,25 @@ def main() -> int:
                    bound_by=t["bound_by"], library_ms=t["library_ms"])
         if "library_note" in t:
             rec["library_note"] = t["library_note"]
-        if form:   # redesigned: its form, and the replaced design's time
-            # on the same inputs in this run
-            rec.update(form=form, previous_form_ms=t["previous_form_ms"])
+        if form:   # the kernel form, and where it was redesigned, the
+            # replaced design's time on the same inputs in this run
+            rec["form"] = form
+            if "previous_form_ms" in t:
+                rec["previous_form_ms"] = t["previous_form_ms"]
+        rec.update(extra)
         return rec
 
     b3_paths = {dt: [f"B3 op, K {dt}"]
                 for dt in ("float32", "bfloat16")}
+    # K2's fp8 forms beside its bf16 form on the same graph in this run
+    k2_bf16 = dict(bf16_k_same_graph_ms=times["K2 uai1 bfloat16"]["ms"])
     records = [
         record("K1 fused_edge_messages", "K1", "fused_edge_conv.cu",
-               "pallas_edge_conv.py:279", "K1 float32"),
+               "pallas_edge_conv.py:279", "K1 float32", counter="K1 simt",
+               form="simt"),
+        record("K1 fused_edge_messages, bf16", "K1 bf16",
+               "fused_edge_conv.cu", "pallas_edge_conv.py:279", "K1 tc",
+               counter="K1 tc", form="tc"),
         record("K2 fused_iterate_total", "K2", "fused_iterate.cu",
                "fused_iterate.py:61", "K2 K=bfloat16"),
         record("B1-bwd fused_edge_messages_bwd", "B1-bwd",
@@ -1528,9 +1726,11 @@ def main() -> int:
         record("B2-bwd fused_iterate_bwd", "B2-bwd", "fused_iterate_bwd.cu",
                "fused_iterate.py:85", "B2-bwd K=bfloat16", form="warp"),
         record("K2 fused_iterate_total, fp8 e4m3 K", "K2 e4m3",
-               "fused_iterate.cu", "fused_iterate.py:61", "K2 e4m3"),
+               "fused_iterate.cu", "fused_iterate.py:61", "K2 e4m3",
+               form="fp8", **k2_bf16),
         record("K2 fused_iterate_total, fp8 e5m2 K", "K2 e5m2",
-               "fused_iterate.cu", "fused_iterate.py:61", "K2 e5m2"),
+               "fused_iterate.cu", "fused_iterate.py:61", "K2 e5m2",
+               form="fp8", **k2_bf16),
         record("B2-bwd fused_iterate_bwd, fp8 e4m3 K", "B2-bwd e4m3",
                "fused_iterate_bwd.cu", "fused_iterate.py:85", "B2-bwd e4m3",
                form="warp"),
@@ -1554,4 +1754,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -14,25 +14,34 @@
 // What bounds it on an H100: operations. At the GKN shapes (kw1=128,
 // kw2=256, in=64) an edge costs 2*(6*128 + 128*256 + 256*4096 + 4096)
 // ~= 2.17 MFLOP against ~0.4 KB of input and output, far above the
-// card's ops:byte balance. This first version runs on the fp32 SIMT
-// units (67 TFLOP/s), not the tensor cores.
+// card's ops:byte balance. In bf16 mode the products' operands are
+// bf16, so their bound is the bf16 tensor cores' (989 TFLOP/s); in
+// float32 it is the SIMT units' (67 TFLOP/s: TF32 would break the 1e-4
+// tolerance).
 //
-// What the design does about it: one block of 256 threads owns a tile
-// of 128 edges. Its h2 tile stays in shared memory (k-major, 128 KB) for
-// the whole block, so every K column tile is a [128 x 256] x [256 x 128]
+// Three forms, picked by the caller by shape and compute dtype
+// (ops/fused_edge_conv.py k1_form):
+//
+// The tensor-core form ('tc': bf16 on the single-launch shapes with kw1
+// <= 128) runs the two large products on wgmma; see its note below.
+//
+// The SIMT form ('simt': float32, and bf16 single-launch shapes the tc
+// form does not take): one block of 256 threads owns a tile of 128
+// edges. Its h2 tile stays in shared memory (k-major, 128 KB) for the
+// whole block, so every K column tile is a [128 x 256] x [256 x 128]
 // product whose A operand never leaves the SM. Wl is streamed from L2 in
 // [16 x 128] slabs, double-buffered through shared memory with the next
 // slab fetched into registers while the current one is consumed. Each
 // thread keeps an 8x8 register tile of K (64 FMAs per 4 shared-memory
 // vector loads) and folds it straight into its 8x4 message accumulators:
 // a 128-column tile is exactly the columns of two input channels i, i+1.
+// It takes two small layers with kw2 % 128 == 0, out_channels == 64 and
+// an h2 tile that fits shared memory (the neurips1/UAI GKN shapes).
 //
-// That single-launch form takes two small layers with kw2 % 128 == 0,
-// out_channels == 64 and an h2 tile that fits shared memory (the
-// neurips1/UAI GKN shapes). Every other shape the JAX gate admits (wider
-// or more small layers, other widths) takes the general form at the end
-// of this file, which keeps the small activations in a device scratch
-// buffer and streams them; K stays on chip there too.
+// The general form ('general': every other shape the JAX gate admits,
+// wider or more small layers, other widths), at the end of this file,
+// keeps the small activations in a device scratch buffer and streams
+// them; K stays on chip there too.
 //
 // ROUND_BF16 mirrors compute_dtype='bfloat16' of the JAX kernel: GEMM
 // operands (attr, W0, h1, W1, h2, Wl, x) are rounded to bf16, products
@@ -42,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90_tc.cuh"
 
 namespace {
 
@@ -328,6 +339,324 @@ int launch(const float* x, const int64_t* senders, const float* attr,
   return (int)cudaGetLastError();
 }
 
+// ---- Tensor-core form: compute_dtype='bfloat16' on the single-launch
+// shapes with kw1 <= 128 (the GKN kappas) ----
+//
+// Every product of the MLP runs on the bf16 tensor cores (wgmma, fp32
+// accumulators); only attr @ W0 (a_dim <= 16, under 1 % of the
+// operations) and the contraction stay on the CUDA cores. One block of
+// two warpgroups owns a tile of BM = 128 edges, each warpgroup 64 of
+// them. Shared memory (k1_smem): a four-stage cp.async ring of 8 KB
+// stages, the bf16 h2 tile [128][kw2] as kw2 / 32 K-major slabs (the
+// 64-byte swizzle wgmma reads, off_k32), and bf16(x[senders]) channel
+// by channel [in][128]. At the GKN shape that is 115,200 bytes: two
+// blocks share an SM.
+//   1. h1 = relu(bf16(attr) @ bf16(W0) + b0) on the CUDA cores, each
+//      thread computing exactly its own entries of the warpgroup's
+//      wgmma A fragment, rounded to bf16 in registers (kw1 / 4 of them:
+//      h1 never touches shared memory); the x gather, rounded, into
+//      shared memory.
+//   2. h2 = relu(h1 @ W1 + b1), 64 columns at a time: wgmma m64n64k16
+//      with A from those registers and bf16 W1^T slabs [64 n][32 k] from
+//      the ring; the epilogue writes bf16 h2 straight into its swizzled
+//      slabs.
+//   3. K = h2 @ Wl + bl, 64 columns (one input channel) at a time:
+//      wgmma m64n64k16 on the resident h2 slabs and Wl^T slabs [64 n][32
+//      k] from the ring. In the accumulator layout a thread holds whole
+//      (row, o) entries of the channel, so the contraction is the
+//      epilogue, in registers: msg[r][o] += bf16((K[r][i*64+o] + bl) *
+//      x[r, i]), summed in fp32 in the order i = 0, 1, ...: no
+//      shuffles, no atomics, a second launch is bit-identical.
+// The ring keeps one stage's wgmma in flight while the next stage is
+// issued (wgmma.wait_group 1) and two stages of loads ahead; each tile's
+// epilogue waits for its last products. K never leaves the registers.
+// Registers are bound to two blocks an SM (128 a thread): one block an
+// SM without spills, or two-channel K tiles, measured slower (PERF.md).
+// The caller makes the bf16 operands W1^T [kw2][kw1] and Wl^T [C][kw2]
+// (rounded to nearest even, as bf16(W) in the JAX kernel) once per call.
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int BM = 128;              // edges per block
+constexpr int STAGES = 4;            // ring stages
+constexpr int STAGE = 8192;          // bytes of a ring stage
+constexpr int SLAB = BM * 64;        // bytes of a [128][32] bf16 slab
+constexpr int SLAB64 = 64 * 64;      // bytes of a [64][32] bf16 slab
+constexpr int MAX_KW1 = 128;         // h1 fragments held in registers
+constexpr int KD = STAGE / (OUT * 2);  // k depth of a Wl^T ring stage
+constexpr int SL = KD / 32;          // [64 n][32 k] slabs a Wl^T stage
+
+constexpr size_t k1_smem(int kw2, int in_ch) {
+  return 512 + (size_t)STAGES * STAGE + (size_t)kw2 * BM * 2 +
+         (size_t)in_ch * BM * 2;
+}
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__global__ void __launch_bounds__(256, 2)
+k1_kernel(const float* __restrict__ x, const int64_t* __restrict__ senders,
+          const float* __restrict__ attr, const float* __restrict__ w0,
+          const float* __restrict__ b0, const bf16* __restrict__ w1t,
+          const float* __restrict__ b1, const bf16* __restrict__ wlt,
+          const float* __restrict__ bl, float* __restrict__ msg, int64_t E,
+          int in_ch, int a_dim, int kw1, int kw2) {
+  constexpr int NK1 = MAX_KW1 / 16;   // k16 steps of h1, at most
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t pad = ((raw_s + 511) & ~511u) - raw_s;   // swizzle atoms
+  unsigned char* smem = smem_raw + pad;
+  const uint32_t ring = raw_s + pad;
+  unsigned char* h2p = smem + STAGES * STAGE;
+  const uint32_t h2s = ring + STAGES * STAGE;
+  bf16* xs = reinterpret_cast<bf16*>(h2p + (size_t)kw2 * BM * 2);
+
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int t4 = lane & 3;
+  const int wrow = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int64_t e0 = (int64_t)blockIdx.x * BM;
+
+  // W1^T stages of step it = (64-column tile, 64-deep k stage): two
+  // [64 n][32 k] slabs, zero beyond kw1
+  const int nk16 = kw1 / 16;
+  const int ns1 = (kw1 + 63) / 64;
+  const int total1 = (kw2 / 64) * ns1;
+  auto load1 = [&](int it) {
+    if (it < total1) {
+      const int t = it / ns1, s = it - t * ns1;
+      const uint32_t sb = ring + (it % STAGES) * STAGE;
+      const int r = tid >> 2, ch = tid & 3;   // one chunk a slab
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int k = s * 64 + q * 32 + ch * 8;
+        const bool ok = k < kw1;
+        cp16(sb + q * SLAB64 + off_k32(r, ch),
+             ok ? w1t + (int64_t)(t * 64 + r) * kw1 + k : w1t, ok);
+      }
+    }
+    cp_commit();
+  };
+  // Wl^T stages of step it = (input channel, KD-deep k stage): SL slabs
+  // [64 n][32 k]
+  const int ns = kw2 / KD;
+  const int total2 = in_ch * ns;
+  auto load2 = [&](int it) {
+    if (it < total2) {
+      const int t = it / ns, s = it - t * ns;
+      const uint32_t sb = ring + (it % STAGES) * STAGE;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int idx = tid + q * 256, sl = idx / (OUT * 4);
+        const int r = (idx >> 2) % OUT, ch = idx & 3;
+        cp16(sb + sl * OUT * 64 + off_k32(r, ch),
+             wlt + (int64_t)(t * OUT + r) * kw2 + s * KD + sl * 32 + ch * 8,
+             true);
+      }
+    }
+    cp_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 2; ++s) load1(s);
+
+  // 1. h1 in the A fragment layout: rows wrow and wrow + 8, columns
+  // 16 kb + 2 t4 + {0, 1} (registers 0, 1) and + 8 (registers 2, 3)
+  uint32_t h1f[NK1][4];
+  {
+    float a[2][MAX_ADIM];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int64_t e = e0 + wrow + hi * 8;
+#pragma unroll
+      for (int q = 0; q < MAX_ADIM; ++q) {
+        a[hi][q] = (e < E && q < a_dim) ? bf16r(__ldg(attr + e * a_dim + q))
+                                        : 0.f;
+      }
+    }
+#pragma unroll
+    for (int kb = 0; kb < NK1; ++kb) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = kb * 16 + half * 8 + t4 * 2;
+        float v[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+        if (kb < nk16) {
+#pragma unroll
+          for (int q = 0; q < MAX_ADIM; ++q) {
+            if (q < a_dim) {
+              const float2 w = __ldg(
+                  reinterpret_cast<const float2*>(w0 + q * kw1 + c));
+              const float w_0 = bf16r(w.x), w_1 = bf16r(w.y);
+#pragma unroll
+              for (int hi = 0; hi < 2; ++hi) {
+                v[hi][0] = fmaf(a[hi][q], w_0, v[hi][0]);
+                v[hi][1] = fmaf(a[hi][q], w_1, v[hi][1]);
+              }
+            }
+          }
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(b0 + c));
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            v[hi][0] = fmaxf(v[hi][0] + bb.x, 0.f);
+            v[hi][1] = fmaxf(v[hi][1] + bb.y, 0.f);
+          }
+        }
+        h1f[kb][half * 2] = pack_bf16(v[0][0], v[0][1]);
+        h1f[kb][half * 2 + 1] = pack_bf16(v[1][0], v[1][1]);
+      }
+    }
+  }
+  // the x gather: row r of the tile, every channel
+  {
+    const int r = tid & (BM - 1);
+    const int64_t e = e0 + r;
+    const bool ok = e < E;
+    const int64_t src = ok ? senders[e] * in_ch : 0;
+    for (int i = tid >> 7; i < in_ch; i += 2) {
+      xs[i * BM + r] = __float2bfloat16_rn(ok ? __ldg(x + src + i) : 0.f);
+    }
+  }
+
+  // 2. h2 = relu(h1 @ W1 + b1), one 64-column tile at a time. The
+  // stages of a tile are unrolled, so every k16 step names its A
+  // fragment at compile time.
+  {
+    float d[32];
+    for (int t = 0; t < kw2 / 64; ++t) {
+#pragma unroll
+      for (int s = 0; s < NK1 / 4; ++s) {
+        if (s >= ns1) break;   // block-uniform
+        const int it = t * ns1 + s;
+        cp_wait<STAGES - 3>();
+        fence_proxy_async();
+        __syncthreads();
+        load1(it + STAGES - 2);
+        const uint32_t sb = ring + (it % STAGES) * STAGE;
+        wg_fence();
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int kb = s * 4 + u;
+          if (kb < nk16) {
+            wgmma_64x64_rs(d, h1f[kb],
+                           wg_desc(sb + (u >> 1) * SLAB64) + (u & 1) * 2,
+                           kb != 0);
+          }
+        }
+        wg_commit();
+        if (s != ns1 - 1) wg_wait<1>();
+      }
+      wg_wait<0>();
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int row = wrow + hi * 8;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = t * 64 + j * 8 + t4 * 2;
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + c));
+          const uint32_t v =
+              pack_bf16(fmaxf(d[4 * j + 2 * hi] + bb.x, 0.f),
+                        fmaxf(d[4 * j + 2 * hi + 1] + bb.y, 0.f));
+          *reinterpret_cast<uint32_t*>(h2p + (c >> 5) * SLAB +
+                                       off_k32(row, (c & 31) >> 3) +
+                                       (c & 7) * 2) = v;
+        }
+      }
+    }
+  }
+
+  // 3. K = h2 @ Wl + bl, one input channel (64 columns) at a time,
+  // folded into msg
+  float acc[32];
+#pragma unroll
+  for (int q = 0; q < 32; ++q) acc[q] = 0.f;
+  {
+    float d[32];
+    // the other warpgroup's last phase-2 wgmma may still read the ring
+    // stages that the first loads below overwrite
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < STAGES - 2; ++s) load2(s);
+    for (int it = 0; it < total2; ++it) {
+      cp_wait<STAGES - 3>();
+      fence_proxy_async();
+      __syncthreads();
+      load2(it + STAGES - 2);
+      const int t = it / ns, s = it - t * ns;
+      const uint32_t sb = ring + (it % STAGES) * STAGE;
+      wg_fence();
+#pragma unroll
+      for (int sl = 0; sl < SL; ++sl) {
+        const uint64_t da =
+            wg_desc(h2s + (s * SL + sl) * SLAB + wg * 64 * 64);
+        const uint64_t db = wg_desc(sb + sl * OUT * 64);
+        wgmma_64x64(d, da, db, (s | sl) != 0);
+        wgmma_64x64(d, da + 2, db + 2, 1);
+      }
+      wg_commit();
+      if (s != ns - 1) {
+        wg_wait<1>();
+        continue;
+      }
+      wg_wait<0>();
+      const float x0 = __bfloat162float(xs[t * BM + wrow]);
+      const float x1 = __bfloat162float(xs[t * BM + wrow + 8]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float* k = d + 4 * j;
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(
+            bl + t * OUT + j * 8 + t4 * 2));
+        acc[4 * j] += bf16r((k[0] + bb.x) * x0);
+        acc[4 * j + 1] += bf16r((k[1] + bb.y) * x0);
+        acc[4 * j + 2] += bf16r((k[2] + bb.x) * x1);
+        acc[4 * j + 3] += bf16r((k[3] + bb.y) * x1);
+      }
+    }
+  }
+
+  // 4. store the valid rows
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int64_t e = e0 + wrow + hi * 8;
+    if (e >= E) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(msg + e * OUT + j * 8 + t4 * 2) =
+          make_float2(acc[4 * j + 2 * hi], acc[4 * j + 2 * hi + 1]);
+    }
+  }
+}
+
+// the kernel's dynamic shared memory and carve-out for smem bytes
+cudaError_t set_smem(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      k1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(k1_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+int launch(const float* x, const int64_t* senders, const float* attr,
+           const float* w0, const float* b0, const bf16* w1t, const float* b1,
+           const bf16* wlt, const float* bl, float* msg, int64_t E, int in_ch,
+           int a_dim, int kw1, int kw2, cudaStream_t stream) {
+  const size_t smem = k1_smem(kw2, in_ch);
+  if (a_dim < 1 || a_dim > MAX_ADIM || kw1 < 16 || kw1 % 16 != 0 ||
+      kw1 > MAX_KW1 || kw2 < 128 || kw2 % 128 != 0 || in_ch < 1 ||
+      smem > 232448) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t err = set_smem(smem);
+  if (err != cudaSuccess) return (int)err;
+  k1_kernel<<<(unsigned)((E + BM - 1) / BM), 256, smem, stream>>>(
+      x, senders, attr, w0, b0, w1t, b1, wlt, bl, msg, E, in_ch, a_dim, kw1,
+      kw2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 // ---- General form: every shape the JAX gate admits ----
 //
 // Any number of small layers (zero included), any widths, any in/out.
@@ -522,6 +851,38 @@ int gpde_edge_messages(const float* x, const int64_t* senders,
   }
   return launch<false>(x, senders, attr, w0, b0, w1, b1, wl, bl, msg, E,
                        in_ch, a_dim, kw1, kw2, s);
+}
+
+// Tensor-core form (compute_dtype='bfloat16'): w1t = W1^T [kw2][kw1] and
+// wlt = Wl^T [in_ch * 64][kw2] in bf16 (rounded to nearest even by the
+// caller), the rest fp32 as above; out_channels == 64, 1 <= a_dim <= 16,
+// kw1 % 16 == 0 and kw1 <= 128, kw2 % 128 == 0, in_ch >= 1, and shared
+// memory tc::k1_smem(kw2, in_ch) within the 227 KB of a block (refused with
+// cudaErrorInvalidValue otherwise). Every tensor contiguous; w0, b0,
+// w1t, b1, wlt and bl 16-byte aligned. Returns a cudaError_t.
+int gpde_edge_messages_tc(const float* x, const int64_t* senders,
+                          const float* attr, const float* w0,
+                          const float* b0, const void* w1t, const float* b1,
+                          const void* wlt, const float* bl, float* msg,
+                          int64_t E, int in_ch, int a_dim, int kw1, int kw2,
+                          void* stream) {
+  if (E == 0) return 0;
+  using B = const __nv_bfloat16*;
+  return tc::launch(x, senders, attr, w0, b0, reinterpret_cast<B>(w1t), b1,
+                    reinterpret_cast<B>(wlt), bl, msg, E, in_ch, a_dim, kw1,
+                    kw2, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core form's dynamic shared memory a block (*smem) and its
+// resident blocks an SM (*blocks) at (kw2, in_ch), as the card reports
+// them. Returns a cudaError_t.
+int gpde_edge_messages_tc_occupancy(int kw2, int in_ch, int* smem,
+                                    int* blocks) {
+  *smem = (int)tc::k1_smem(kw2, in_ch);
+  const cudaError_t err = tc::set_smem((size_t)*smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, tc::k1_kernel, 256, (size_t)*smem);
 }
 
 // General form, one small layer: out [M, N] = relu(A [M, K] @ W [K, N]

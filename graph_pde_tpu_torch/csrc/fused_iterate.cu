@@ -33,10 +33,15 @@
 //
 // K may also be fp8 (e4m3 or e5m2): the JAX kernels' 1-byte K stream of
 // k_storage. A run is then one 8-byte load, converted pairwise to fp32
-// (exactly), so the fp32 arithmetic is the same for every K type.
+// (exactly), so the fp32 arithmetic is the same for every K type. At the
+// serving shapes the fp8 streams take their own kernel,
+// iterate_total_fp8_kernel, which keeps the raw runs in registers and
+// twice the edges in flight (see its note).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "k_runs.cuh"
 
@@ -104,6 +109,102 @@ iterate_total_kernel(const float* __restrict__ x,
 #pragma unroll
         for (int v = 0; v < VEC; ++v) {
           acc[p][v] = fmaf(xv[u][p], kv[u][p][v], acc[p][v]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < PER; ++p) {
+    if (act[p]) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) red[cpos[p] + v] = acc[p][v];
+    }
+  }
+  __syncthreads();
+  for (int o = tid; o < out_ch; o += THREADS) {
+    float s = 0.f;
+    for (int i = 0; i < in_ch; ++i) s += red[i * out_ch + o];
+    out[(int64_t)n * out_ch + o] = s;
+  }
+}
+
+// The fp8 K streams (k_storage e4m3 / e5m2) at the serving shapes. A run
+// is 8 bytes, so the kernel above, which converts each run to 8 fp32
+// registers as it loads it, held half the bf16 form's bytes in flight at
+// 184 registers and one block an SM. Here the raw runs stay in registers
+// (two 32-bit words each) until their multiply, and U = 8 edges are in
+// flight: 8 * 2 runs * 8 B = 128 B a thread, the bf16 form's. L = out/8
+// is a template parameter for the power-of-two widths (0: a runtime
+// width), so a thread's channel and the final reduction need no runtime
+// division. The K loads of a batch do not wait for the mask: a masked
+// edge's run is loaded but never multiplied (its fp8 NaN or inf would
+// otherwise reach the sum).
+template <typename KT, int L>
+__global__ void __launch_bounds__(THREADS, 2)
+iterate_total_fp8_kernel(const float* __restrict__ x,
+                         const int64_t* __restrict__ senders,
+                         const KT* __restrict__ K,
+                         const uint8_t* __restrict__ mask,
+                         const int64_t* __restrict__ rowptr,
+                         float* __restrict__ out, int in_ch, int out_rt) {
+  constexpr int U = 8;
+  using Raw = typename RawRun<KT>::type;
+  __shared__ float red[COLS];
+  const int out_ch = L ? L * VEC : out_rt;
+  const int n = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int C = in_ch * out_ch;
+  const int64_t beg = rowptr[n], end = rowptr[n + 1];
+
+  int cpos[PER], ipos[PER];
+  bool act[PER];
+  float acc[PER][VEC];
+#pragma unroll
+  for (int p = 0; p < PER; ++p) {
+    cpos[p] = (p * THREADS + tid) * VEC;
+    act[p] = cpos[p] < C;
+    ipos[p] = act[p] ? cpos[p] / out_ch : 0;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[p][v] = 0.f;
+  }
+
+  for (int64_t e = beg; e < end; e += U) {
+    Raw kv[U][PER];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t eu = e + u;
+#pragma unroll
+      for (int p = 0; p < PER; ++p) {
+        if (eu < end && act[p]) {
+          kv[u][p] = RawRun<KT>::ldg(K + eu * C + cpos[p]);
+        } else {
+          kv[u][p] = Raw{};
+        }
+      }
+    }
+    bool live[U];
+    float xv[U][PER];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t eu = e + u;
+      live[u] = eu < end && mask[eu];
+      const int64_t s = live[u] ? senders[eu] * in_ch : 0;
+#pragma unroll
+      for (int p = 0; p < PER; ++p) {
+        xv[u][p] = live[u] && act[p] ? __ldg(x + s + ipos[p]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!live[u]) continue;   // block-uniform
+#pragma unroll
+      for (int p = 0; p < PER; ++p) {
+        float k[VEC];
+        unpack_run<KT>(kv[u][p], k);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          acc[p][v] = fmaf(xv[u][p], k[v], acc[p][v]);
         }
       }
     }
@@ -232,8 +333,27 @@ int launch(const float* x, const int64_t* senders, const KT* K,
            int64_t n_nodes, int in_ch, int out_ch, cudaStream_t stream) {
   const unsigned grid = (unsigned)n_nodes;
   if (out_ch % 8 == 0 && in_ch * out_ch <= COLS) {
-    iterate_total_kernel<KT><<<grid, THREADS, 0, stream>>>(
-        x, senders, K, mask, rowptr, out, in_ch, out_ch);
+    if constexpr (sizeof(KT) == 1) {
+      auto go = [&](auto l) {
+        iterate_total_fp8_kernel<KT, decltype(l)::value>
+            <<<grid, THREADS, 0, stream>>>(x, senders, K, mask, rowptr, out,
+                                           in_ch, out_ch);
+      };
+      switch (out_ch / 8) {
+        case 1: go(std::integral_constant<int, 1>{}); break;
+        case 2: go(std::integral_constant<int, 2>{}); break;
+        case 4: go(std::integral_constant<int, 4>{}); break;
+        case 8: go(std::integral_constant<int, 8>{}); break;
+        case 16: go(std::integral_constant<int, 16>{}); break;
+        case 32: go(std::integral_constant<int, 32>{}); break;
+        case 64: go(std::integral_constant<int, 64>{}); break;
+        case 128: go(std::integral_constant<int, 128>{}); break;
+        default: go(std::integral_constant<int, 0>{});
+      }
+    } else {
+      iterate_total_kernel<KT><<<grid, THREADS, 0, stream>>>(
+          x, senders, K, mask, rowptr, out, in_ch, out_ch);
+    }
   } else if (out_ch % 8 == 0) {
     iterate_total_general_kernel<KT, true><<<grid, THREADS, 0, stream>>>(
         x, senders, K, mask, rowptr, out, in_ch, out_ch);

@@ -6,8 +6,11 @@ graph_pde_tpu/ops/pallas_edge_conv.py).
 with kappa the edge-kernel DenseNet. The forward CUDA kernel (``csrc/
 fused_edge_conv.cu``, K1) runs the whole MLP and the contraction per tile
 of edges, so the [E, in * out] kernel matrices never reach device memory.
-Its single-launch form takes the GKN shapes; a general form takes every
-other shape the JAX gate admits (see the source).
+It has three forms, picked by ``k1_form``: on the GKN shapes in bf16 its
+MLP products run on the tensor cores ('tc'), in float32 (and on
+single-launch shapes the tensor-core tiles do not take) on the fp32 SIMT
+units ('simt'), and a general form takes every other shape the JAX gate
+admits (see the source).
 
 ``fused_edge_messages`` is a ``torch.autograd.Function``, as the JAX
 version is a ``custom_vjp``. The backward recomputes the small kappa
@@ -75,6 +78,25 @@ def kernel_shape_supported(dims, in_channels: int, out_channels: int) -> bool:
             and in_channels % 2 == 0 and smem <= _MAX_SHARED)
 
 
+# the tensor-core form holds h1 as wgmma fragments in registers, so kw1
+# <= 128 (tc::MAX_KW1 in csrc/fused_edge_conv.cu, whose entry point also
+# refuses shapes whose shared memory would not fit)
+_K1_TC_MAX_KW1 = 128
+
+
+def k1_form(dims, in_channels: int, out_channels: int, compute_dtype) -> str:
+    """The K1 kernel form a shape takes: 'tc' (bf16 tensor cores) for
+    compute_dtype='bfloat16' on the single-launch shapes
+    (``kernel_shape_supported``: out 64, kw1 % 16 == 0, kw2 % 128 == 0)
+    with kw1 <= 128; 'simt' (fp32 FMAs) for the other single-launch
+    shapes, float32 among them; 'general' for every other shape."""
+    if not kernel_shape_supported(dims, in_channels, out_channels):
+        return "general"
+    if _is_bf16(compute_dtype) and dims[0][1] <= _K1_TC_MAX_KW1:
+        return "tc"
+    return "simt"
+
+
 def _is_bf16(compute_dtype) -> bool:
     return compute_dtype in ("bfloat16", torch.bfloat16)
 
@@ -140,6 +162,7 @@ def edge_messages_bwd_plain(x, senders, h2, g, wl, *, in_channels: int,
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _FAST_ARGS = [_P] * 10 + [_I64, _I, _I, _I, _I, _I, _P]
+_TC_FWD_ARGS = [_P] * 10 + [_I64, _I, _I, _I, _I, _P]
 _DENSE_ARGS = [_P, _I64, _I, _P, _P, _I, _P, _I, _P]
 _LAST_ARGS = [_P, _I64, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]
 
@@ -152,6 +175,32 @@ def _launch_fast(x, senders, edge_attr, weights, msg, dims, in_channels,
     fn = kernels.fn("fused_edge_conv", "gpde_edge_messages", _FAST_ARGS)
     return fn(*[t.data_ptr() for t in ptrs], senders.shape[0], in_channels,
               dims[0][0], dims[0][1], dims[1][1], rb, stream)
+
+
+def _launch_tc(x, senders, edge_attr, weights, msg, dims, in_channels,
+               stream) -> int:
+    """The tensor-core form: bf16 W1^T and Wl^T, cast once per call."""
+    w0, b0, w1, b1, wl, bl = weights
+    w1t = w1.to(torch.bfloat16).t().contiguous()
+    wlt = wl.to(torch.bfloat16).t().contiguous()
+    ptrs = [x, senders, edge_attr, w0, b0, w1t, b1, wlt, bl, msg]
+    if any(t.data_ptr() % 16 for t in ptrs):
+        raise ValueError("edge-message kernel needs 16-byte aligned tensors")
+    fn = kernels.fn("fused_edge_conv", "gpde_edge_messages_tc", _TC_FWD_ARGS)
+    return fn(*[t.data_ptr() for t in ptrs], senders.shape[0], in_channels,
+              dims[0][0], dims[0][1], dims[1][1], stream)
+
+
+def k1_tc_occupancy(kw2: int, in_channels: int):
+    """(dynamic shared memory bytes a block, resident blocks an SM) of
+    the tensor-core form at (kw2, in_channels), as the current CUDA
+    device reports them."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    fn = kernels.fn("fused_edge_conv", "gpde_edge_messages_tc_occupancy",
+                    [_I, _I, _P, _P])
+    kernels.check(fn(kw2, in_channels, ctypes.byref(smem),
+                     ctypes.byref(blocks)), "K1 tc occupancy")
+    return smem.value, blocks.value
 
 
 def _launch_general(x, senders, edge_attr, weights, msg, in_channels,
@@ -207,9 +256,13 @@ def _launch(x, senders, edge_attr, weights, in_channels,
     msg = torch.empty((senders.shape[0], out_channels), dtype=torch.float32,
                       device=dev)
     rb = int(_is_bf16(compute_dtype))
+    form = k1_form(dims, in_channels, out_channels, compute_dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if kernel_shape_supported(dims, in_channels, out_channels):
+        if form == "tc":
+            err = _launch_tc(x, senders, edge_attr, weights, msg, dims,
+                             in_channels, stream)
+        elif form == "simt":
             err = _launch_fast(x, senders, edge_attr, weights, msg, dims,
                                in_channels, rb, stream)
         else:
@@ -217,6 +270,8 @@ def _launch(x, senders, edge_attr, weights, in_channels,
                                   in_channels, out_channels, rb, stream)
     kernels.check(err, "edge-message kernel launch")
     fused_edge_messages.launches += 1
+    attr = f"{form}_launches"
+    setattr(fused_edge_messages, attr, getattr(fused_edge_messages, attr) + 1)
     return msg
 
 
@@ -397,8 +452,9 @@ def fused_edge_messages(x, senders, edge_attr, kernel_params, *,
     """[E, out] float32 messages x[senders] @ kappa(edge_attr), fused,
     differentiable in x, edge_attr and every kappa parameter.
 
-    CUDA tensors launch the K1 kernel (counted in
-    ``fused_edge_messages.launches``, once per call in either form) and,
+    CUDA tensors launch the K1 kernel in the form ``k1_form`` picks
+    (counted in ``fused_edge_messages.launches``, once per call, and in
+    ``tc_launches``, ``simt_launches`` or ``general_launches``) and,
     in the backward, the B1-bwd kernel; CPU tensors take the plain
     versions."""
     if not fused_path_supported(kernel_params, in_channels, out_channels):
@@ -410,8 +466,11 @@ def fused_edge_messages(x, senders, edge_attr, kernel_params, *,
 
 
 fused_edge_messages.launches = 0
+fused_edge_messages.tc_launches = 0
+fused_edge_messages.simt_launches = 0
+fused_edge_messages.general_launches = 0
 
 __all__ = ["fused_edge_messages", "edge_messages_plain",
            "fused_edge_messages_bwd", "edge_messages_bwd_plain",
            "fused_path_supported", "kernel_shape_supported", "bwd_splits",
-           "b1_bwd_form", "C_CHUNK"]
+           "b1_bwd_form", "k1_form", "C_CHUNK"]

@@ -6,9 +6,9 @@ Skips without a GPU. On the card (tests/conftest.py imports jax, which the
 GPU machine need not have): python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerance: 1e-4 of the output's max-abs in float32 (sums in another
-order); bf16 K1 and B1-bwd at 5e-3 (one bf16 ulp can flip where the fp32
-sums before a rounding differ in order); the bf16 model gradients as
-stated at GRAD_BF16_TOL. TF32 is off for every comparison.
+order); bf16 K1 (its tensor-core form too) and B1-bwd at 5e-3 (one bf16
+ulp can flip where the fp32 sums before a rounding differ in order); the
+bf16 model gradients as stated at GRAD_BF16_TOL. TF32 is off for every comparison.
 """
 import dataclasses
 import importlib
@@ -23,12 +23,13 @@ from graph_pde_tpu_torch.models.gkn import params_to
 from graph_pde_tpu_torch.ops.cached_contraction import (
     cached_contraction, cached_contraction_bwd, cached_contraction_bwd_plain,
     cached_contraction_plain, to_fp8)
-from graph_pde_tpu_torch.ops.dense import dense_apply, dense_init
+from graph_pde_tpu_torch.ops.dense import dense_apply, dense_init, layer_dims
 from graph_pde_tpu_torch.ops.fused_edge_conv import (b1_bwd_form,
                                                      edge_messages_bwd_plain,
                                                      edge_messages_plain,
                                                      fused_edge_messages,
-                                                     fused_edge_messages_bwd)
+                                                     fused_edge_messages_bwd,
+                                                     k1_form)
 from graph_pde_tpu_torch.ops.fused_iterate import (b2_bwd_form,
                                                    fused_iterate_bwd,
                                                    fused_iterate_bwd_plain,
@@ -77,6 +78,92 @@ def test_k1_matches_plain(dev, dtype, tol, e, layers, w_in, w_out):
     want = edge_messages_plain(x, s, a, kp, in_channels=w_in,
                                out_channels=w_out, compute_dtype=dtype)
     assert _rel(got, want) <= tol
+
+
+# (kappa layers, in) of K1's tensor-core form (out 64): the GKN kappa, a
+# narrow one (kw2 one 128-column tile), and kw1 = 16 (half a 32-deep slab)
+K1_TC_SHAPES = [((6, 128, 256, 64 * 64), 64), ((6, 32, 128, 4 * 64), 4),
+                ((6, 16, 128, 8 * 64), 8)]
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("e", [1, 127, 129, 70001])
+@pytest.mark.parametrize("layers,w_in", K1_TC_SHAPES)
+def test_k1_forms_ragged(dev, dtype, e, layers, w_in):
+    """On the single-launch shapes bf16 takes the tensor-core form and
+    float32 the SIMT form, as k1_form says and the per-form counters
+    show; within the tolerance of the plain version on fewer edges than
+    one 128-edge tile and on ragged last tiles, and a second launch
+    bit-identical (no atomics)."""
+    g = torch.Generator().manual_seed(e + w_in)
+    kp = dense_init(g, list(layers), device=dev)
+    x = torch.randn(300, w_in, generator=g).to(dev)
+    s = torch.randint(0, 300, (e,), generator=g).to(dev)
+    a = torch.randn(e, 6, generator=g).to(dev)
+    kw_args = dict(in_channels=w_in, out_channels=64, compute_dtype=dtype)
+    form = k1_form(layer_dims(kp), w_in, 64, dtype)
+    assert form == ("tc" if dtype else "simt")
+    counter = f"{form}_launches"
+    before = (fused_edge_messages.launches,
+              getattr(fused_edge_messages, counter))
+    got = fused_edge_messages(x, s, a, kp, **kw_args)
+    again = fused_edge_messages(x, s, a, kp, **kw_args)
+    torch.cuda.synchronize()
+    assert (fused_edge_messages.launches - before[0],
+            getattr(fused_edge_messages, counter) - before[1]) == (2, 2)
+    assert torch.equal(got, again)
+    want = edge_messages_plain(x, s, a, kp, **kw_args)
+    assert _rel(got, want) <= (5e-3 if dtype else 1e-4)
+
+
+def test_k1_general_form_counted(dev):
+    """A shape outside the single-launch tiles takes the general form in
+    both dtypes, counted as such."""
+    g = torch.Generator().manual_seed(3)
+    kp = dense_init(g, [6, 16, 32, 16 * 16], device=dev)
+    x = torch.randn(40, 16, generator=g).to(dev)
+    s = torch.randint(0, 40, (300,), generator=g).to(dev)
+    a = torch.randn(300, 6, generator=g).to(dev)
+    for dtype in (None, "bfloat16"):
+        assert k1_form(layer_dims(kp), 16, 16, dtype) == "general"
+        before = fused_edge_messages.general_launches
+        fused_edge_messages(x, s, a, kp, in_channels=16, out_channels=16,
+                            compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert fused_edge_messages.general_launches == before + 1
+
+
+@pytest.mark.parametrize("name", ["float8_e4m3", "float8_e5m2"])
+@pytest.mark.parametrize("w", [16, 64, 128])
+def test_k2_fp8_nodes_with_zero_and_one_edge(dev, name, w):
+    """K2's fp8 kernel on a graph where node 0 has no edge, node 1 one
+    edge, node 2 one masked edge and the rest many (ragged against the
+    eight edges in flight): within 1e-4 of the plain version, empty rows
+    exactly zero, counted as the fp8 form."""
+    g = torch.Generator().manual_seed(w + 19)
+    n, e = 30, 1500
+    recv = torch.sort(torch.randint(3, n, (e,), generator=g)).values
+    recv[0], recv[1] = 1, 2
+    recv = torch.sort(recv).values
+    mask = torch.ones(e, dtype=torch.bool)
+    mask[1] = False                     # node 2's only edge
+    mask[-7:] = False
+    s = torch.randint(0, n, (e,), generator=g).to(dev)
+    x = torch.randn(n, w, generator=g).to(dev)
+    K = (torch.randn(e, w * w, generator=g) * 30).to(torch.bfloat16).to(dev)
+    k8 = to_fp8(K, name)
+    setup = sorted_iterate_setup(recv.to(dev), mask.to(dev), n)
+    attr = "e4m3_launches" if name == "float8_e4m3" else "e5m2_launches"
+    before = getattr(fused_iterate_total, attr)
+    got = fused_iterate_total(x, s, K, setup, in_channels=w, out_channels=w,
+                              k8=k8)
+    torch.cuda.synchronize()
+    assert getattr(fused_iterate_total, attr) == before + 1
+    want = fused_iterate_total_plain(x, s, k8, setup, in_channels=w,
+                                     out_channels=w)
+    assert _rel(got, want) <= 1e-4
+    assert bool((got[0] == 0).all()) and bool((got[2] == 0).all())
+    assert bool((got[1] != 0).any())
 
 
 @pytest.mark.parametrize("k_dtype", [torch.float32, torch.bfloat16])

@@ -31,7 +31,9 @@ from graph_pde_tpu_torch.ops.cached_contraction import (apply_cached_kernel,
 from graph_pde_tpu_torch.ops.fused_edge_conv import (b1_bwd_form,
                                                      edge_messages_plain,
                                                      fused_edge_messages,
-                                                     fused_path_supported)
+                                                     fused_path_supported,
+                                                     k1_form,
+                                                     kernel_shape_supported)
 from graph_pde_tpu_torch.ops.fused_iterate import (b2_bwd_form,
                                                    fused_iterate_supported,
                                                    fused_iterate_total,
@@ -246,6 +248,33 @@ def test_backward_kernel_forms():
                 assert i * w <= 4096 or 4096 % w == 0, (i, w)
     assert [w for w in sorted(widths) if b2_bwd_form(w) == "warp"] == [
         8, 16, 32, 64, 128, 256]
+
+
+def test_k1_forms():
+    """k1_form maps each shape to one K1 kernel form: the bf16 tensor-core
+    form on the single-launch shapes with kw1 <= 128 (the GKN kappas,
+    kw1 16 included), the SIMT form in float32 there and in bf16 where
+    kw1 > 128, the general form on every other shape in both dtypes."""
+    def dims(*layers):
+        return list(zip(layers[:-1], layers[1:]))
+
+    gkn = dims(6, 128, 256, 64 * 64)
+    for dt in ("bfloat16", torch.bfloat16):
+        assert k1_form(gkn, 64, 64, dt) == "tc"
+    assert k1_form(gkn, 64, 64, None) == "simt"
+    assert k1_form(dims(6, 32, 128, 4 * 64), 4, 64, "bfloat16") == "tc"
+    assert k1_form(dims(6, 16, 128, 8 * 64), 8, 64, "bfloat16") == "tc"
+    # off the tiles: kw1 beyond the last h2 column tile
+    off = dims(6, 144, 256, 64 * 64)
+    assert kernel_shape_supported(off, 64, 64)
+    assert k1_form(off, 64, 64, "bfloat16") == "simt"
+    assert k1_form(off, 64, 64, None) == "simt"
+    # general: the ker_width 1024 kappa, out != 64, no small layer
+    for layers, i, o in (((6, 1024, 1024, 64 * 64), 64, 64),
+                         ((6, 16, 32, 16 * 16), 16, 16),
+                         ((6, 3 * 100), 3, 100)):
+        for dt in (None, "bfloat16"):
+            assert k1_form(dims(*layers), i, o, dt) == "general", layers
 
 
 def test_library_name_covers_included_headers(tmp_path, monkeypatch):
