@@ -6,6 +6,9 @@
                                  # gradient check, once deterministic
                                  # and N times (default 8) in the
                                  # default mode, with its distances
+    python3 chip_smoke.py --grad-locate   # only the e5m2 gradient
+                                 # check's two paths against a float64
+                                 # version, op by op (grad_locate)
 
 Phases, each fatal on failure:
   1. card identity (nvidia-smi) and the build of every CUDA kernel;
@@ -64,7 +67,18 @@ Phases, each fatal on failure:
      library times, and the step time of each training path; beside the
      redesigned forms, the forms they replaced on the main path (K1 and
      B1-bwd bf16 on the SIMT units, B2-bwd a block per edge) on the same
-     inputs.
+     inputs;
+  7. the command line (graph_pde_tpu_torch.cli.main, in this process,
+     from a temporary directory): `run uai4_full_grid_241` for one epoch
+     of two steps at full width with `--bundle` (each step must launch
+     K1 tc and B1-bwd tc `depth` times, the test evaluation K1 tc
+     `depth` times, nothing else; the bundle must hold the trained
+     params bit for bit), `predict` on that bundle with a fresh s=241
+     sample from a .mat file (the split path: K1 tc only; the written
+     predictions within 5e-3 of the plain predictor), `run
+     uai1_full_resolution` (the runner's unfused kcached path: no hand
+     kernel; its warm step logged beside phase 5's fused one; multires
+     at 16, 31, 61), `list` and a one-point smoke `sweep`.
 
 Prints one JSON line of kernel records before the last line, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, with no result
@@ -1013,6 +1027,21 @@ def plain_on_card():
         fe._launch, fe._launch_bwd, fi._launch, fi._launch_bwd = saved
 
 
+def grad_inputs(cfg, u_norm, s, r, node_block):
+    """The step-1 gradient checks' inputs: the prepared arrays of two
+    synthetic samples (so that a per-node normalizer has a spread), the
+    first as a batch of one on the card, and seeded parameters."""
+    import torch
+
+    from graph_pde_tpu_torch.data.datasets import map_arrays
+    from graph_pde_tpu_torch.models import gkn_init
+
+    arrays, graphs = training_data(2, s, r, u_norm, node_block, SEED + 7)
+    batch = map_arrays(lambda a: a[:1], graphs.to())
+    params = gkn_init(torch.Generator().manual_seed(SEED + 8), cfg)
+    return arrays, batch, params
+
+
 def step1_grads(cfg, plain_cfg, loss, u_norm, s, r, node_block,
                 plain_ctx=contextlib.nullcontext):
     """A function that takes the step-1 loss gradients of ``cfg``
@@ -1021,17 +1050,10 @@ def step1_grads(cfg, plain_cfg, loss, u_norm, s, r, node_block,
     and returns (loss, gradients, launches) of each."""
     import torch
 
-    from graph_pde_tpu_torch.models import gkn_init
     from graph_pde_tpu_torch.train import GKNTask, make_loss_fn
     from graph_pde_tpu_torch.train.trainer import param_leaves, trainable
 
-    from graph_pde_tpu_torch.data.datasets import map_arrays
-
-    # two samples so that the per-node normalizer has a spread; the
-    # gradients are taken on the first
-    arrays, graphs = training_data(2, s, r, u_norm, node_block, SEED + 7)
-    batch = map_arrays(lambda a: a[:1], graphs.to())
-    params = gkn_init(torch.Generator().manual_seed(SEED + 8), cfg)
+    arrays, batch, params = grad_inputs(cfg, u_norm, s, r, node_block)
 
     def grads(c):
         task = GKNTask(c, u_normalizer=arrays.u_normalizer, loss_type=loss,
@@ -1109,6 +1131,461 @@ def grad_spread(repeats: int) -> None:
             f"(per parameter {[f'{v:.3e}' for v in det]}); default mode "
             f"{[f'{v:.3e}' for v in runs]}, {over} of {repeats} above "
             f"{GRAD_BF16_TOL:g}")
+
+
+@contextlib.contextmanager
+def op_tape(tape: dict):
+    """Within it, the kcached fused path records its intermediates in
+    ``tape`` (name -> list, in call order): each depth step's forward
+    input "x" and sum "K2", each backward step's "dtotal" and B2-bwd's
+    "dxj" and "dmsg", `_outer`'s dK "dK step", the Function's "dx"
+    (the index_add_ of dxj), the 6-step sum of dK on the cached K "dK
+    sum" and the cached K itself "kk". It wraps whatever launches are in
+    place, the kernels or (inside plain_on_card) the plain versions."""
+    from graph_pde_tpu_torch.models import gkn
+    from graph_pde_tpu_torch.ops import fused_iterate as fi
+
+    Fn = fi._FusedIterateTotal
+    launch, launch_bwd, outer, cached, bwd = (
+        fi._launch, fi._launch_bwd, fi._outer, gkn._cached_kernel,
+        Fn.backward)
+
+    def rec(key, val):
+        tape.setdefault(key, []).append(val.detach().clone())
+
+    def k2(x, s, K, setup, i, o):
+        out = launch(x, s, K, setup, i, o)
+        rec("x", x)
+        rec("K2", out)
+        return out
+
+    def b2(K, setup, dt, i, o):
+        dxj, dmsg = launch_bwd(K, setup, dt, i, o)
+        rec("dtotal", dt)
+        rec("dxj", dxj)
+        rec("dmsg", dmsg)
+        return dxj, dmsg
+
+    def outer_(x, senders, dmsg, dtype):
+        dk = outer(x, senders, dmsg, dtype)
+        rec("dK step", dk)
+        return dk
+
+    def cached_(kp, attr, k_dtype):
+        kk = cached(kp, attr, k_dtype)
+        rec("kk", kk)
+        kk.register_hook(lambda g: rec("dK sum", g))
+        return kk
+
+    def backward(ctx, dtotal):
+        grads = bwd(ctx, dtotal)
+        rec("dx", grads[0])
+        return grads
+
+    fi._launch, fi._launch_bwd, fi._outer = k2, b2, outer_
+    gkn._cached_kernel = cached_
+    Fn.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        fi._launch, fi._launch_bwd, fi._outer = launch, launch_bwd, outer
+        gkn._cached_kernel = cached
+        Fn.backward = staticmethod(bwd)
+
+
+def fp64_tape(cfg, batch, params, k8) -> dict:
+    """The fused kcached path's step-1 L1 loss and gradients in float64:
+    the forward reads the fp8 values k8 (exact in float64) and dK lands on
+    a float64 kappa of the float64 parameters (the straight-through
+    estimator), with no bfloat16 rounding anywhere. Records what
+    ``op_tape`` records, each backward step's B2-bwd, `_outer` and dx
+    values computed in float64 from the recorded cotangent."""
+    import torch
+
+    from graph_pde_tpu_torch.data.datasets import map_arrays
+    from graph_pde_tpu_torch.graph.graph import flatten_stacked
+    from graph_pde_tpu_torch.ops.dense import dense_apply
+    from graph_pde_tpu_torch.ops.segment import segment_counts
+    from graph_pde_tpu_torch.train.trainer import param_leaves
+
+    tape = {}
+
+    def rec(key, val):
+        tape.setdefault(key, []).append(val.detach().clone())
+
+    p = map_arrays(lambda t: t.detach().double().requires_grad_(True),
+                   params)
+    g = flatten_stacked(batch)
+    w, n = cfg.width, g.x.shape[0]
+    mask = g.edge_mask()
+    x = g.x.double() @ p["fc1"]["w"] + p["fc1"]["b"]
+    kk = dense_apply(p["kernel"], g.edge_attr.double())
+    kk.register_hook(lambda d: rec("dK sum", d))
+    K = kk + (k8.double() - kk).detach()
+    counts = segment_counts(g.receivers, mask, n)[:, None].double()
+    for t in range(cfg.depth):
+        rec("x", x)
+        msg = torch.einsum("ei,eio->eo", x[g.senders], K.view(-1, w, w))
+        total = x.new_zeros(n, w).index_add(
+            0, g.receivers, torch.where(mask[:, None], msg, 0.0))
+        total.register_hook(lambda d: rec("dtotal", d))
+        rec("K2", total)
+        x = total / counts + x @ p["root"] + p["bias"]
+        if t != cfg.depth - 1 or cfg.relu_last:
+            x = torch.relu(x)
+    pred = x @ p["fc2"]["w"] + p["fc2"]["b"]
+    node = (torch.arange(n, device=x.device) < batch.n_node[0]).double()
+    loss = ((pred[:, 0] - g.y[:, 0].double()) * node).abs().sum()
+    loss.backward()
+    tape["params"] = [t.grad for t in param_leaves(p)]
+    return tape
+
+
+def kappa_bwd64(kp, attr, dk) -> list:
+    """The parameter gradients of the bf16 kappa MLP, pulled back from
+    ``dk`` in float64 through the activations (and ReLU pattern) of the
+    bf16 forward that the kcached path runs: the backward without its
+    bf16 roundings. (dW0, db0, dW1, ...)."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.edge_conv import _cast_params
+
+    with torch.no_grad():
+        kp = _cast_params(kp, torch.bfloat16)
+        h, hs, ys = attr.to(torch.bfloat16), [], []
+        for layer in kp:
+            hs.append(h)
+            ys.append(h @ layer["w"] + layer["b"])
+            h = torch.relu(ys[-1])
+        dy, grads = dk.double(), []
+        for j in reversed(range(len(kp))):
+            grads = [hs[j].double().T @ dy, dy.sum(0)] + grads
+            if j:
+                dy = (dy @ kp[j]["w"].double().T) * (ys[j - 1] > 0)
+    return grads
+
+
+def grad_locate() -> None:
+    """Locates where phase 5's e5m2 step-1 gradient check's two paths
+    part: the kernels (a) and the Functions' plain versions on the card
+    (b), both under deterministic algorithms, against (c), the same
+    function in float64 on the same e5m2 K values (``fp64_tape``). For
+    every intermediate of every depth step it logs each path's distance
+    from (c), the two paths' distance from each other, and each path's
+    local error: its op's output against that op computed in float64 on
+    the path's own inputs. Relative max-abs throughout, as the check."""
+    import warnings
+
+    import torch
+
+    from graph_pde_tpu_torch.graph.graph import flatten_stacked
+    from graph_pde_tpu_torch.ops.cached_contraction import to_fp8
+    from graph_pde_tpu_torch.train import GKNTask, make_loss_fn
+    from graph_pde_tpu_torch.train.trainer import param_leaves, trainable
+
+    warnings.simplefilter("ignore")   # deterministic-mode notices
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = dataclasses.replace(uai1_config(), compute_dtype="bfloat16",
+                              k_storage="float8_e5m2")
+    arrays, batch, params = grad_inputs(cfg, "gaussian", S_GRAD1, R_GRAD1, 0)
+    task = GKNTask(cfg, u_normalizer=arrays.u_normalizer, loss_type="l1",
+                   use_sample_idx=False)
+
+    def taped(ctx):
+        tape = {}
+        p = trainable(params)
+        zero_counts()
+        with ctx(), op_tape(tape):
+            lv, _ = make_loss_fn(task, "l1")(p, batch)
+            lv.backward()
+        torch.cuda.synchronize()
+        tape["params"] = [t.grad for t in param_leaves(p)]
+        tape["launches"] = read_counts()
+        return tape
+
+    a = taped(contextlib.nullcontext)
+    b = taped(plain_on_card)
+    require(a["launches"] == expected(cfg, cfg.depth, cfg.depth),
+            f"grad locate kernel launches {a['launches']}")
+    require(not any(b["launches"].values()), "grad locate plain launches")
+    require(torch.equal(a["kk"][0], b["kk"][0]), "both paths' cached K equal")
+    k8 = to_fp8(a["kk"][0], cfg.k_storage)
+    c = fp64_tape(cfg, batch, params, k8)
+    g = flatten_stacked(batch)
+    mask, depth, w = g.edge_mask(), cfg.depth, cfg.width
+    K64 = k8.double().view(-1, w, w)
+    n = g.x.shape[0]
+
+    def dmsg64(dt):
+        return torch.where(mask[:, None], dt.double()[g.receivers], 0.0)
+
+    def outer64(x, dm):
+        return (x.double()[g.senders][:, :, None]
+                * dm.double()[:, None, :]).reshape(dm.shape[0], -1)
+
+    def index_add64(v, idx):
+        return torch.zeros(n, v.shape[1], dtype=torch.float64,
+                           device=v.device).index_add(0, idx, v.double())
+
+    def local(path, key, j):
+        """path's op output against the op in float64 on its inputs."""
+        if key == "K2":
+            msg = torch.einsum("ei,eio->eo", path["x"][j].double()[g.senders],
+                               K64)
+            want = index_add64(torch.where(mask[:, None], msg, 0.0),
+                               g.receivers)
+        elif key == "dmsg":
+            want = dmsg64(path["dtotal"][j])
+        elif key == "dxj":
+            want = torch.einsum("eio,eo->ei", K64, dmsg64(path["dtotal"][j]))
+        elif key == "dK step":
+            # the step's x is the forward input of step depth-1-j
+            want = outer64(path["x"][depth - 1 - j], path["dmsg"][j])
+        elif key == "dx":
+            want = index_add64(path["dxj"][j], g.senders)
+        else:
+            return float("nan")
+        return rel_err(path[key][j], want)[1]
+
+    def c_value(key, t):
+        """(c)'s value of step t (forward order)."""
+        if key in ("x", "K2"):
+            return c[key][t]
+        dt = c["dtotal"][depth - 1 - t]
+        if key == "dtotal":
+            return dt
+        dm = dmsg64(dt)
+        if key == "dmsg":
+            return dm
+        if key == "dxj":
+            return torch.einsum("eio,eo->ei", K64, dm)
+        if key == "dK step":
+            return outer64(c["x"][t], dm)
+        return index_add64(torch.einsum("eio,eo->ei", K64, dm), g.senders)
+
+    log("grad locate: uai1, bf16 compute, e5m2 K, s=31 r=0.2, step-1 "
+        "gradients under deterministic algorithms; relative max-abs "
+        "distances: a = kernels, b = plain versions on the card, c = "
+        "float64; 'local' = the op against itself in float64 on the "
+        "path's own inputs")
+    log("grad locate: op | step | a-c | b-c | a-b | a local | b local")
+    for key in ("K2", "dtotal", "dmsg", "dxj", "dK step", "dx"):
+        for t in range(depth):
+            j = t if key == "K2" else depth - 1 - t
+            want = c_value(key, t)
+            log(f"grad locate: {key} | {t} | "
+                f"{rel_err(a[key][j], want)[1]:.4e} | "
+                f"{rel_err(b[key][j], want)[1]:.4e} | "
+                f"{rel_err(a[key][j], b[key][j])[1]:.4e} | "
+                f"{local(a, key, j):.4e} | {local(b, key, j):.4e}")
+    sums = [sum(path["dK step"][j].double() for j in range(depth))
+            for path in (a, b)]
+    log(f"grad locate: dK sum | all | "
+        f"{rel_err(a['dK sum'][0], c['dK sum'][0])[1]:.4e} | "
+        f"{rel_err(b['dK sum'][0], c['dK sum'][0])[1]:.4e} | "
+        f"{rel_err(a['dK sum'][0], b['dK sum'][0])[1]:.4e} | "
+        f"{rel_err(a['dK sum'][0], sums[0])[1]:.4e} | "
+        f"{rel_err(b['dK sum'][0], sums[1])[1]:.4e}")
+    # the bf16 kappa backward, local: each path's own dK sum pulled back
+    # in float64 through the bf16 forward's activations
+    kappa = {name: kappa_bwd64(params["kernel"], g.edge_attr,
+                               path["dK sum"][0])
+             for name, path in (("a", a), ("b", b))}
+    names = ["fc1.w", "fc1.b"] + [
+        f"kernel{i}.{t}" for i in range(len(params["kernel"]))
+        for t in ("w", "b")] + ["root", "bias", "fc2.w", "fc2.b"]
+    for i, name in enumerate(names):
+        ga, gb, gc = a["params"][i], b["params"][i], c["params"][i]
+        loc = ("", "")
+        if name.startswith("kernel"):
+            k = i - 2
+            loc = tuple(f"{rel_err(path['params'][i], kappa[p][k])[1]:.4e}"
+                        for p, path in (("a", a), ("b", b)))
+        log(f"grad locate: grad {i} {name} | final | "
+            f"{rel_err(ga, gc)[1]:.4e} | {rel_err(gb, gc)[1]:.4e} | "
+            f"{rel_err(ga, gb)[1]:.4e} | {loc[0]} | {loc[1]}")
+    torch.use_deterministic_algorithms(False)
+
+
+@contextlib.contextmanager
+def counted_steps(steps: list, evals: list):
+    """Within it, every train step and every evaluation batch that the
+    trainer's fit and evaluate run zeroes the launch counters just
+    before it and appends its launches and wall time (ending in a sync)
+    to ``steps`` / ``evals``; a step also its loss and the parameter
+    tree it updated."""
+    import torch
+
+    from graph_pde_tpu_torch.train import trainer
+
+    made = trainer.make_train_step, trainer.make_eval_step
+
+    def counting(make, out):
+        def make_counted(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def counted(params, batch):
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                r = step(params, batch)
+                torch.cuda.synchronize()
+                rec = dict(ms=(time.perf_counter() - t0) * 1e3,
+                           launches=read_counts())
+                if isinstance(r, dict):
+                    rec.update(loss=float(r["loss"]), params=params)
+                out.append(rec)
+                return r
+            return counted
+        return make_counted
+
+    trainer.make_train_step = counting(made[0], steps)
+    trainer.make_eval_step = counting(made[1], evals)
+    try:
+        yield
+    finally:
+        trainer.make_train_step, trainer.make_eval_step = made
+
+
+def cli_call(args) -> list:
+    """``graph_pde_tpu_torch.cli.main(args)`` in this process: fails
+    unless it returns 0; logs and returns its standard output lines."""
+    import io
+
+    from graph_pde_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"phase 7:   {line[:300]}")
+    log(f"phase 7: cli {' '.join(args)}: exit {rc}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(rc == 0, f"cli {args[0]} exit {rc}")
+    return lines
+
+
+def phase_cli(warm_fused_uai1_ms: float) -> dict:
+    """Phase 7: the port's command line, called in this process from a
+    temporary directory (its data cache and outputs go there). Trains
+    uai4_full_grid_241 for one epoch of two steps at full width with a
+    bundle; serves the bundle on a fresh s=241 sample read from a .mat
+    file; trains uai1_full_resolution (the unfused kcached path the
+    runner takes) with its multires evaluation; lists the registry and
+    runs a one-point smoke sweep. Returns each path's launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graph_pde_tpu_torch.data import darcy_dataset
+    from graph_pde_tpu_torch.experiments import names
+    from graph_pde_tpu_torch.inference import GKNPredictor
+    from graph_pde_tpu_torch.train import load_bundle
+    from graph_pde_tpu_torch.train.trainer import param_leaves
+    from graph_pde_tpu_torch.utils.matio import MatReader, write_mat
+
+    here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    os.chdir(tmp)
+    launches = {}
+    try:
+        cfg4 = uai4_config()
+        steps, evals = [], []
+        with counted_steps(steps, evals):
+            cli_call(["run", "uai4_full_grid_241", "--set", "ntrain=2",
+                      "--set", "ntest=1", "--set", "epochs=1",
+                      "--bundle", "uai4_bundle"])
+        require(len(steps) == 2 and len(evals) == 1,
+                f"uai4 run: {len(steps)} steps, {len(evals)} evaluations")
+        for st in steps:
+            want = expected(cfg4, cfg4.depth, cfg4.depth)
+            require(st["launches"] == want,
+                    f"cli uai4 step launches {st['launches']}")
+            require(bool(np.isfinite(st["loss"])), "cli uai4 loss finite")
+        require(evals[0]["launches"] == expected(cfg4, cfg4.depth, 0),
+                f"cli uai4 evaluation launches {evals[0]['launches']}")
+        log(f"phase 7: uai4 run: step times (ms) "
+            f"{[round(st['ms'], 1) for st in steps]}, losses "
+            f"{[st['loss'] for st in steps]}, evaluation "
+            f"{evals[0]['ms']:.1f} ms; launches a step {steps[0]['launches']}")
+        params, mcfg, norms, extra = load_bundle("uai4_bundle")
+        trained = param_leaves(steps[-1]["params"])
+        require(all(torch.equal(a.detach().cpu(), b) for a, b in
+                    zip(trained, param_leaves(params))),
+                "the bundle's params equal the trained params bit for bit")
+        launches["cli run uai4"] = {
+            k: sum(r["launches"][k] for r in steps + evals) for k in COUNTED}
+
+        fields = darcy_dataset(1, S_UAI4, seed=SEED + 11)
+        write_mat("request.mat", fields)
+        zero_counts()
+        t0 = time.perf_counter()
+        lines = cli_call(["predict", "uai4_bundle", "--input", "request.mat",
+                          "--truth-field", "sol", "--output", "pred.mat"])
+        torch.cuda.synchronize()
+        got = read_counts()
+        require(got == expected(cfg4, cfg4.depth, 0),
+                f"cli predict launches {got}")
+        launches["cli predict uai4"] = got
+        summary = json.loads(lines[-1])
+        require("rel_l2" in summary and np.isfinite(summary["rel_l2"]),
+                f"cli predict summary {summary}")
+        pred = MatReader("pred.mat").read_field("pred")
+        require(pred.shape == (1, S_UAI4, S_UAI4)
+                and bool(np.isfinite(pred).all()), "pred.mat read back")
+        req = MatReader("request.mat")
+        plain = GKNPredictor(
+            params, dataclasses.replace(mcfg, impl="scan"),
+            input_normalizers={k: norms[k] for k in
+                               ("a", "a_smooth", "a_gradx", "a_grady")},
+            u_normalizer=norms["u"], radius=extra["radius"]).predict(
+                *[req.read_field(k) for k in
+                  ("coeff", "Kcoeff", "Kcoeff_x", "Kcoeff_y")])
+        _, rel = rel_err(torch.from_numpy(pred.reshape(1, -1)),
+                         torch.from_numpy(plain))
+        require(rel <= BF16_TOL, f"cli predict vs plain predictor {rel:.3e}")
+        log(f"phase 7: predict s={S_UAI4} from a .mat file: "
+            f"{time.perf_counter() - t0:.1f} s, rel-L2 {summary['rel_l2']}, "
+            f"against the plain predictor (impl='scan') {rel:.3e} relative "
+            f"max-abs (tol {BF16_TOL:g}); launches {got}")
+
+        steps, evals = [], []
+        with counted_steps(steps, evals):
+            lines = cli_call(["run", "uai1_full_resolution", "--set",
+                              "ntrain=2", "--set", "ntest=1", "--set",
+                              "epochs=1"])
+        counts = {k: sum(r["launches"][k] for r in steps + evals)
+                  for k in COUNTED}
+        require(not any(counts.values()),
+                f"cli uai1 run (unfused kcached) launches {counts}")
+        require(len(steps) == 2 and len(evals) == 4,
+                f"uai1 run: {len(steps)} steps, {len(evals)} evaluations")
+        result = json.loads(lines[-1])
+        require(all(np.isfinite(v) for v in result["multires"].values())
+                and sorted(map(int, result["multires"])) == [16, 31, 61],
+                f"uai1 multires {result.get('multires')}")
+        warm = steps[-1]["ms"]
+        log(f"phase 7: uai1 run (unfused kcached, fp32): step times (ms) "
+            f"{[round(st['ms'], 1) for st in steps]}, warm step "
+            f"{warm:.1f} ms against {warm_fused_uai1_ms:.1f} ms for phase "
+            f"5's fused uai1 step; multires {result['multires']}")
+
+        lines = cli_call(["list"])
+        require(lines == names(), "cli list prints every registry name")
+        lines = cli_call(["sweep", "neurips1_gkn", "--smoke", "--axis",
+                          "nystrom_m=[48]"])
+        point = json.loads(lines[-1])
+        require(len(lines) == 1 and point["swept"] == {"nystrom_m": 48}
+                and np.isfinite(point["final_test_l2"]),
+                f"cli sweep point {point}")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(launches=launches, uai1_unfused_warm_step_ms=warm)
 
 
 def profile_kernels(name, fn) -> None:
@@ -1570,6 +2047,10 @@ def main(argv) -> int:
         grad_spread(int(argv[1]) if len(argv) > 1 else 8)
         log(ident)
         return 0
+    if argv[:1] == ["--grad-locate"]:
+        grad_locate()
+        log(ident)
+        return 0
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -1669,11 +2150,14 @@ def main(argv) -> int:
     log("phase 6: training step times " + json.dumps(
         {k: dict(warm_step_ms=v["warm_step_ms"], step_ms=v["step_ms"],
                  peak_gib=v["peak_gib"]) for k, v in trained.items()}))
+    cli_paths = phase_cli(trained["uai1 train"]["warm_step_ms"])
+    lap("phase 7 wall time")
 
     by_path = {f"serving {k}": v for k, v in launches.items()}
     by_path.update({k: v["launches"] for k, v in trained.items()})
     by_path.update(grads)
     by_path.update(b3_launches)
+    by_path.update(cli_paths["launches"])
 
     def count(key, counts):
         """A form's launches in one path's counts: K2 and B2-bwd count

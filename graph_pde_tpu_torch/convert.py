@@ -9,7 +9,7 @@ function from the same numbers.
 ``normalizer_from_state`` rebuilds a normalizer from the state dict the
 JAX package's bundle export writes (train/export.py): ``{"kind": "unit"
 | "gaussian", "mean", "std", "eps"}`` or ``{"kind": "range", "a",
-"b"}``.
+"b"}``. ``normalizer_state`` is its inverse and writes the same dict.
 """
 from __future__ import annotations
 
@@ -60,4 +60,23 @@ def normalizer_from_state(state: Mapping[str, Any]):
     return norm
 
 
-__all__ = ["gkn_params_from_numpy", "normalizer_from_state"]
+def _list(t) -> list:
+    return torch.as_tensor(t).detach().cpu().numpy().tolist()
+
+
+def normalizer_state(norm) -> dict:
+    """The JSON-ready state of a normalizer, as the JAX package's bundle
+    export writes it."""
+    if isinstance(norm, UnitGaussianNormalizer):
+        return {"kind": "unit", "mean": _list(norm.mean),
+                "std": _list(norm.std), "eps": norm.eps}
+    if isinstance(norm, GaussianNormalizer):
+        return {"kind": "gaussian", "mean": float(norm.mean),
+                "std": float(norm.std), "eps": norm.eps}
+    if isinstance(norm, RangeNormalizer):
+        return {"kind": "range", "a": _list(norm.a), "b": _list(norm.b)}
+    raise TypeError(f"no state for a {type(norm).__name__}")
+
+
+__all__ = ["gkn_params_from_numpy", "normalizer_from_state",
+           "normalizer_state"]

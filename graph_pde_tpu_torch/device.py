@@ -15,14 +15,14 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises without a GPU); anything else as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to run the "
-                "plain PyTorch versions on the CPU explicitly")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` -> ``cuda``; anything else as given. A CUDA device
+    raises without a GPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU explicitly")
+    return dev
 
 
 __all__ = ["resolve_device", "DeviceLike"]

@@ -1,0 +1,343 @@
+"""One runner for the registered experiments (counterpart of
+graph_pde_tpu/experiments/runners.py; Darcy GKN).
+
+data -> graphs -> fit -> evaluation protocol, returning per-epoch
+histories and decoded rel-L2 metrics. The protocols are the reference's:
+'fixed' (the test set of the training graphs), 'multires' (the same
+weights at other resolutions), 'split_random' and 'split_downsample'
+(full-field evaluation through split/assemble), and per-m test graphs
+(``eval_m``). Shard training (``train_split``) trains on
+DownsampleGridSplitter shards. Runs on CUDA unless the caller passes
+``device='cpu'``. Other families and Burgers raise NotImplementedError,
+naming the ROADMAP item that ports them; the run figures are not ported.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..data import darcy_gkn_graphs, load_or_generate_darcy, prepare_darcy
+from ..device import DeviceLike, resolve_device
+from ..graph import (DownsampleGridSplitter, RandomGridSplitter,
+                     make_box_grid, repad_edges, stack_graphs)
+from ..inference import _largest_divisor_leq as _divisor_near
+from ..inference import _np
+from ..models.gkn import GKNConfig, gkn_apply, gkn_init
+from ..train import GKNTask, TrainConfig, evaluate, fit
+from ..utils.losses import LpLoss
+from ..utils.matio import MatReader
+from .registry import ExperimentConfig
+
+# families and datasets of the registry that are not ported yet
+_NOT_PORTED = {
+    "mgkn_general": "MGKN general",
+    "mgkn_orthogonal": "MGKN orthogonal",
+    "gcn": "GCN",
+    "torus_t": "torus time series",
+    "burgers": "Burgers data and GKN on Burgers",
+}
+
+
+def _load_darcy_fields(cfg: ExperimentConfig, n: int, path: Optional[str],
+                       seed: int) -> Dict[str, np.ndarray]:
+    if path is not None:
+        reader = MatReader(path)
+        return {k: reader.read_field(k)[:n]
+                for k in ("coeff", "Kcoeff", "Kcoeff_x", "Kcoeff_y", "sol")}
+    return load_or_generate_darcy(n, cfg.source_res, seed=seed)
+
+
+def _kernel_layers(cfg: ExperimentConfig, ker_in: int):
+    w2 = cfg.width ** 2
+    if cfg.kernel_variant == "nn":
+        return (ker_in, cfg.ker_width, cfg.ker_width, w2)
+    if cfg.kernel_variant == "nn5":
+        # UAI8_kernel.py:21: a 5-layer kappa
+        return (ker_in, cfg.ker_width // 4, cfg.ker_width // 2,
+                cfg.ker_width, w2)
+    return (ker_in, cfg.ker_width // 2, cfg.ker_width, w2)
+
+
+def run_experiment(cfg: ExperimentConfig, smoke: bool = False,
+                   progress=None, profile_dir: Optional[str] = None,
+                   device: DeviceLike = None) -> Dict:
+    """Runs ``cfg`` (its ``smoke()`` version with ``smoke``).
+    ``progress(epoch, params, train_l2, test_l2)`` runs after each
+    epoch; ``profile_dir`` captures a torch.profiler trace of the run
+    (train/metrics.py ``profile_trace``)."""
+    if smoke:
+        cfg = cfg.smoke()
+    for part in (cfg.family, cfg.dataset):
+        if part in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{cfg.name}: {part!r} is not ported yet (ROADMAP queue "
+                f"A: {_NOT_PORTED[part]})")
+    if cfg.family != "gkn" or cfg.dataset != "darcy":
+        raise ValueError(f"unknown family/dataset {cfg.family!r}/"
+                         f"{cfg.dataset!r}")
+    dev = resolve_device(device)
+    if profile_dir:
+        from ..train.metrics import profile_trace
+
+        with profile_trace(profile_dir):
+            result = _run_gkn(cfg, progress, dev)
+        result["profile_dir"] = profile_dir
+        return result
+    return _run_gkn(cfg, progress, dev)
+
+
+def _gkn_config(cfg: ExperimentConfig) -> GKNConfig:
+    return GKNConfig(
+        width=cfg.width, ker_width=cfg.ker_width, depth=cfg.depth,
+        ker_in=6, in_width=6, kernel_layers=_kernel_layers(cfg, 6),
+        relu_last=(cfg.relu_last or cfg.kernel_variant == "nn"),
+        decoder_mlp=cfg.decoder_mlp, impl=cfg.impl,
+        compute_dtype=cfg.compute_dtype, k_storage=cfg.k_storage)
+
+
+def _task(cfg: ExperimentConfig, mcfg: GKNConfig, arrays) -> GKNTask:
+    # per-node (unit) stats are gathered at each node's grid index
+    return GKNTask(mcfg, u_normalizer=arrays.u_normalizer,
+                   loss_type=cfg.loss, use_sample_idx=cfg.u_norm == "unit")
+
+
+def _darcy_data(cfg: ExperimentConfig):
+    """Train arrays and fitted normalizers; test arrays with encoded u."""
+    fields = _load_darcy_fields(cfg, cfg.ntrain, cfg.data_path,
+                                cfg.data_seed)
+    arrays, norms = prepare_darcy(fields, n=cfg.ntrain, r=cfg.downsample,
+                                  u_norm=cfg.u_norm)
+    test_fields = _load_darcy_fields(cfg, cfg.ntest, cfg.test_data_path,
+                                     cfg.data_seed + 1)
+    test_arrays, _ = prepare_darcy(
+        test_fields, n=cfg.ntest, r=cfg.downsample, normalizers=norms,
+        u_normalizer=arrays.u_normalizer)
+    test_arrays.u = _np(arrays.u_normalizer.encode(test_arrays.u))
+    return arrays, norms, test_arrays
+
+
+def _run_gkn(cfg: ExperimentConfig, progress, dev: torch.device) -> Dict:
+    radius_test = cfg.radius_test or cfg.radius_train
+    arrays, norms, test_arrays = _darcy_data(cfg)
+    if cfg.train_split:
+        # UAI7 shard training (UAI7_evaluate.py:131-141)
+        train_g = _darcy_shard_train_graphs(cfg, arrays)
+    else:
+        train_g = darcy_gkn_graphs(
+            arrays, m=cfg.nystrom_m, k=cfg.graphs_per_sample,
+            radius=cfg.radius_train, seed=cfg.seed,
+            node_block=cfg.node_block)
+    test_g = darcy_gkn_graphs(test_arrays, m=cfg.nystrom_m,
+                              radius=radius_test, seed=cfg.seed + 1,
+                              node_block=cfg.node_block)
+
+    mcfg = _gkn_config(cfg)
+    params = gkn_init(torch.Generator().manual_seed(cfg.seed), mcfg,
+                      device=dev)
+    task = _task(cfg, mcfg, arrays)
+    tc = TrainConfig(epochs=cfg.epochs, batch_size=cfg.batch_size,
+                     learning_rate=cfg.learning_rate,
+                     weight_decay=cfg.weight_decay,
+                     scheduler_step=cfg.scheduler_step,
+                     scheduler_gamma=cfg.scheduler_gamma, loss=cfg.loss,
+                     seed=cfg.seed)
+    res = fit(task, params, train_g, tc, test_data=test_g,
+              callback=progress, device=dev)
+    result = {
+        "config": cfg.name,
+        "train_l2": res.train_l2,
+        "test_l2": res.test_l2,
+        "test_epochs": res.test_epochs,
+        "epoch_times": res.epoch_times,
+        "final_test_l2": res.test_l2[-1] if res.test_l2 else None,
+    }
+    if cfg.eval_protocol == "multires":
+        result["multires"], result["multires_fresh_fields"] = \
+            _eval_gkn_multires(cfg, mcfg, res.params, arrays, norms,
+                               radius_test, dev)
+    elif cfg.eval_protocol == "split_random":
+        result.update(_eval_gkn_split_random(cfg, mcfg, res.params, arrays,
+                                             norms, dev))
+    elif cfg.eval_protocol == "split_downsample":
+        result.update(_eval_gkn_split_downsample(cfg, mcfg, res.params,
+                                                 arrays, norms, dev))
+    if cfg.eval_m:
+        result["eval_by_m"] = _eval_gkn_by_m(cfg, task, res.params,
+                                             test_arrays, radius_test, dev)
+    result["params"] = res.params
+    # serving-bundle payload (cli run --bundle, train/export.py)
+    result["_bundle"] = {
+        "model_cfg": mcfg,
+        "normalizers": dict(norms, u=arrays.u_normalizer),
+        "extra": {"family": "gkn", "dataset": cfg.dataset,
+                  "radius": radius_test, "experiment": cfg.name},
+    }
+    return result
+
+
+def _eval_gkn_by_m(cfg, task, params, test_arrays, radius_test, dev):
+    """Test-side node-count generalization (UAI5_sample_generalize.py):
+    the same weights on test graphs subsampled at each m of eval_m."""
+    return {int(m): evaluate(
+        task, params, darcy_gkn_graphs(test_arrays, m=m, radius=radius_test,
+                                       seed=cfg.seed + 5),
+        batch_size=cfg.batch_size, device=dev) for m in cfg.eval_m}
+
+
+def _eval_gkn_multires(cfg, mcfg, params, arrays, norms, radius_test,
+                       dev):
+    """Zero-shot resolution generalization (UAI3_resolution.py:240-265):
+    the same weights on graphs built at other resolutions. Returns
+    ({s: rel-L2}, [resolutions evaluated on freshly generated fields])."""
+    out, fresh = {}, []
+    task = _task(cfg, mcfg, arrays)
+    for s_eval in cfg.eval_resolutions:
+        if (cfg.source_res >= s_eval
+                and (cfg.source_res - 1) % (s_eval - 1) == 0):
+            # stride-downsample the same test fields: the reference
+            # evaluates identical samples at every resolution
+            fields = _load_darcy_fields(cfg, cfg.ntest, cfg.test_data_path,
+                                        cfg.data_seed + 2)
+            r = (cfg.source_res - 1) // (s_eval - 1)
+        else:
+            warnings.warn(
+                f"multires eval at s={s_eval}: source grid "
+                f"{cfg.source_res} cannot derive it; using freshly "
+                "generated fields (flagged in multires_fresh_fields)")
+            fresh.append(int(s_eval))
+            fields = load_or_generate_darcy(cfg.ntest, s_eval,
+                                            seed=cfg.data_seed + 2)
+            r = 1
+        test_arrays, _ = prepare_darcy(
+            fields, n=cfg.ntest, r=r, normalizers=norms,
+            u_normalizer=arrays.u_normalizer)
+        test_arrays.u = _np(arrays.u_normalizer.encode(test_arrays.u))
+        g = darcy_gkn_graphs(test_arrays, m=cfg.nystrom_m,
+                             radius=radius_test, seed=cfg.seed + 3)
+        out[int(test_arrays.s)] = evaluate(task, params, g,
+                                           batch_size=cfg.batch_size,
+                                           device=dev)
+    return out, fresh
+
+
+def _predict_shards(mcfg, params, graphs, dev) -> list:
+    """Each shard's [n_node] predictions, one shard at a time."""
+    preds = []
+    with torch.inference_mode():
+        for g in graphs:
+            out = gkn_apply(params, mcfg, g.to(dev))[:, 0]
+            preds.append(_np(out)[: int(g.n_node)])
+    return preds
+
+
+def _darcy_shard_train_graphs(cfg, arrays):
+    """A fixed set of ntrain * k DownsampleGridSplitter training shards
+    with labels (UAI7_evaluate.py:131-141), stacked at one capacity."""
+    s = arrays.s
+    grid = make_box_grid([[0, 1], [0, 1]], [s, s])
+    # m >= the largest shard's subgrid (the x=0, y=0 one) fills every
+    # shard to exactly m nodes: one node capacity
+    sub = (s - 1) // cfg.train_split + 1 if s % 2 == 1 \
+        else s // cfg.train_split
+    m = max(cfg.nystrom_m or sub * sub, sub * sub)
+    sp = DownsampleGridSplitter(grid, s, r=cfg.train_split, m=m,
+                                radius=cfg.radius_train, seed=cfg.seed)
+    graphs = []
+    for j in range(cfg.ntrain):
+        theta = _theta(arrays, j)
+        for _ in range(cfg.graphs_per_sample):
+            graphs.append(sp.sample(theta, arrays.u[j])[0])
+    cap = max(int(g.senders.shape[0]) for g in graphs)
+    return stack_graphs([repad_edges(g, cap) for g in graphs])
+
+
+def _theta(arrays, j: int) -> np.ndarray:
+    return np.stack([arrays.a[j], arrays.a_smooth[j], arrays.a_gradx[j],
+                     arrays.a_grady[j]], axis=1)
+
+
+def _split_test_arrays(cfg, arrays, norms):
+    n = min(cfg.ntest, 10)
+    fields = _load_darcy_fields(cfg, n, cfg.test_data_path,
+                                cfg.data_seed + 2)
+    test_arrays, _ = prepare_darcy(fields, n=n, r=cfg.downsample,
+                                   normalizers=norms,
+                                   u_normalizer=arrays.u_normalizer)
+    return test_arrays
+
+
+def _shard_l2(cfg, arrays, lp, p, idx, truth) -> float:
+    """One shard's rel-L2, decoded with the shard's own per-point
+    stats."""
+    norm = arrays.u_normalizer
+    d = (norm.decode(p[None, :], sample_idx=idx[None])
+         if cfg.u_norm == "unit" else norm.decode(p[None, :]))
+    return float(lp.rel(_np(d), truth[idx][None]))
+
+
+def _full_l2(arrays, lp, full_enc, truth) -> float:
+    """Decodes an assembled encoded field with the full-grid stats (the
+    reference's order: assemble, then decode) and returns its rel-L2."""
+    full = _np(arrays.u_normalizer.decode(full_enc[None, :]))
+    return float(lp.rel(full, truth[None]))
+
+
+def _eval_gkn_split_random(cfg, mcfg, params, arrays, norms, dev):
+    """Full-field rel-L2 through RandomGridSplitter covers
+    (UAI7_evaluate2.py:150-161, 222-231), and the mean shard rel-L2."""
+    s = arrays.s
+    test_arrays = _split_test_arrays(cfg, arrays, norms)
+    grid = make_box_grid([[0, 1], [0, 1]], [s, s])
+    m = _divisor_near(s * s, cfg.nystrom_m or 200)
+    sp = RandomGridSplitter(grid, s, d=2, m=m, l=cfg.split_l,
+                            radius=cfg.radius_train, seed=cfg.seed)
+    lp = LpLoss(size_average=False)
+    total, shards = 0.0, []
+    for j in range(test_arrays.a.shape[0]):
+        graphs = sp.get_data(_theta(test_arrays, j))
+        preds = _predict_shards(mcfg, params, graphs, dev)
+        idxs = [np.asarray(g.sample_idx)[: int(g.n_node)] for g in graphs]
+        shards += [_shard_l2(cfg, arrays, lp, p, idx, test_arrays.u[j])
+                   for p, idx in zip(preds, idxs)]
+        total += _full_l2(arrays, lp, sp.assemble(preds, idxs),
+                          test_arrays.u[j])
+    count = test_arrays.a.shape[0]
+    return {"full_field_l2": total / max(count, 1),
+            "shard_l2": sum(shards) / max(len(shards), 1)}
+
+
+def _eval_gkn_split_downsample(cfg, mcfg, params, arrays, norms, dev):
+    """Full-field rel-L2 through DownsampleGridSplitter shards and
+    sigma=1 smoothing (UAI7_evaluate.py:218-229), and the mean shard
+    rel-L2."""
+    s = arrays.s
+    test_arrays = _split_test_arrays(cfg, arrays, norms)
+    grid = make_box_grid([[0, 1], [0, 1]], [s, s])
+    # the test stride is the training stride (UAI7_evaluate.py:174-176),
+    # else the sqrt heuristic
+    r = cfg.train_split or max(2, int(round(s / np.sqrt(cfg.nystrom_m
+                                                        or 200))))
+    sub = (s - 1) // r + 1 if s % 2 == 1 else s // r
+    m = max(cfg.nystrom_m or sub * sub, sub * sub)
+    sp = DownsampleGridSplitter(grid, s, r=r, m=m, radius=cfg.radius_train,
+                                seed=cfg.seed)
+    lp = LpLoss(size_average=False)
+    total, shards = 0.0, []
+    for j in range(test_arrays.a.shape[0]):
+        graphs, xys = zip(*sp.get_data(_theta(test_arrays, j)))
+        preds = _predict_shards(mcfg, params, graphs, dev)
+        shards += [_shard_l2(cfg, arrays, lp, p,
+                             np.asarray(g.sample_idx)[: len(p)],
+                             test_arrays.u[j])
+                   for p, g in zip(preds, graphs)]
+        total += _full_l2(arrays, lp, sp.assemble(preds, xys, sigma=1.0),
+                          test_arrays.u[j])
+    count = test_arrays.a.shape[0]
+    return {"full_field_l2": total / max(count, 1),
+            "shard_l2": sum(shards) / max(len(shards), 1)}
+
+
+__all__ = ["run_experiment"]

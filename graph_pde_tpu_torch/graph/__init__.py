@@ -1,11 +1,13 @@
-from .graph import Graph, build_graph, stack_graphs, flatten_stacked, round_up
+from .graph import (Graph, build_graph, stack_graphs, flatten_stacked,
+                    repad_edges, round_up)
 from .build import radius_connectivity, forward_filter, edge_attributes
 from .mesh import make_box_grid, SquareMeshGenerator, RandomMeshGenerator
-from .splitters import RandomGridSplitter
+from .splitters import RandomGridSplitter, DownsampleGridSplitter
 
 __all__ = [
-    "Graph", "build_graph", "stack_graphs", "flatten_stacked", "round_up",
+    "Graph", "build_graph", "stack_graphs", "flatten_stacked", "repad_edges",
+    "round_up",
     "radius_connectivity", "forward_filter", "edge_attributes",
     "make_box_grid", "SquareMeshGenerator", "RandomMeshGenerator",
-    "RandomGridSplitter",
+    "RandomGridSplitter", "DownsampleGridSplitter",
 ]

@@ -333,10 +333,38 @@ def flatten_stacked(g: Graph) -> Graph:
     )
 
 
+def repad_edges(g: Graph, e_pad: int) -> Graph:
+    """Grows a flat host graph's edge capacity to ``e_pad``: the tail is
+    masked edges parked at receiver ``N_pad - 1``, as ``build_graph``
+    pads, and the sender sort is rebuilt."""
+    if g.node_block:
+        raise ValueError("repad_edges: blocked-CSR not supported")
+    e = g.senders.shape[0]
+    if e_pad < e:
+        raise ValueError(f"edge capacity {e_pad} < {e}")
+    if e_pad == e:
+        return g
+    extra = e_pad - e
+    n_pad = g.x.shape[0]
+    receivers = np.concatenate(
+        [np.asarray(g.receivers), np.full(extra, n_pad - 1, np.int32)])
+    senders = np.concatenate(
+        [np.asarray(g.senders), np.zeros(extra, np.int32)])
+    sperm, sspan = _sender_sort(senders)
+    return dataclasses.replace(
+        g, senders=senders, receivers=receivers,
+        edge_attr=np.concatenate(
+            [np.asarray(g.edge_attr),
+             np.zeros((extra, g.edge_attr.shape[1]), np.float32)]),
+        sorted_span=_sorted_span_flag(receivers),
+        sender_perm=sperm, sender_span=sspan)
+
+
 __all__ = [
     "Graph",
     "build_graph",
     "stack_graphs",
     "flatten_stacked",
+    "repad_edges",
     "round_up",
 ]

@@ -1,16 +1,21 @@
 """Split/assemble for full-resolution evaluation (counterpart of
-RandomGridSplitter in graph_pde_tpu/graph/splitters.py).
+RandomGridSplitter and DownsampleGridSplitter in
+graph_pde_tpu/graph/splitters.py).
 
-``RandomGridSplitter`` covers the grid with ``l`` random disjoint
-partitions into n/m subgraphs; ``assemble`` accumulates the shard
-predictions and averages the l repetitions.
+- ``RandomGridSplitter`` covers the grid with ``l`` random disjoint
+  partitions into n/m subgraphs; ``assemble`` accumulates the shard
+  predictions and averages the l repetitions.
+- ``DownsampleGridSplitter`` covers it with the r^2 strided (x::r, y::r)
+  shards, each filled with random extra nodes up to m; ``assemble``
+  re-interleaves the shards and Gaussian-smooths the field.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.filters import gaussian_filter
 from . import build
 from .graph import Graph, build_graph, round_up
 
@@ -69,4 +74,95 @@ class RandomGridSplitter:
         return (out / self.l).astype(np.float32)
 
 
-__all__ = ["RandomGridSplitter"]
+class DownsampleGridSplitter:
+    """Strided shards of an s x s grid (reference: multipole-graph-
+    neural-operator/utilities.py:1010-1151). Shard (x, y) holds the
+    nodes (x::r, y::r) and, where m exceeds their count, m minus that
+    many random grid nodes; edge attributes are [x_i, x_j, a_i, a_j]."""
+
+    def __init__(self, grid: np.ndarray, resolution: int, r: int,
+                 m: int = 100, radius: float = 0.15,
+                 edge_features: int = 1, seed: Optional[int] = None):
+        self.grid = np.asarray(grid).reshape(resolution, resolution, 2)
+        self.resolution = resolution
+        self.s = (int((resolution - 1) / r) + 1 if resolution % 2 == 1
+                  else int(resolution / r))
+        self.r = r
+        self.n = resolution ** 2
+        self.m = m
+        self.radius = radius
+        self.edge_features = edge_features
+        self.rng = np.random.default_rng(seed)
+        self.index = np.arange(self.n).reshape(resolution, resolution)
+
+    def _attrs(self, grid_split, theta_split, ei):
+        a = theta_split[:, : self.edge_features]
+        attr = np.zeros((ei.shape[1], 4 + 2 * self.edge_features),
+                        np.float32)
+        attr[:, :4] = np.concatenate(
+            [grid_split[ei[0]], grid_split[ei[1]]], axis=1)
+        attr[:, 4:4 + self.edge_features] = a[ei[0]]
+        attr[:, 4 + self.edge_features:] = a[ei[1]]
+        return attr
+
+    def _shard(self, theta, x, y):
+        theta_d = theta.shape[-1]
+        grid_sub = self.grid[x::self.r, y::self.r].reshape(-1, 2)
+        theta_sub = theta[x::self.r, y::self.r].reshape(-1, theta_d)
+        index_sub = self.index[x::self.r, y::self.r].reshape(-1)
+        if self.m < grid_sub.shape[0]:
+            return grid_sub, theta_sub, index_sub
+        idx = self.rng.permutation(self.n)[: self.m - grid_sub.shape[0]]
+        return (np.concatenate([grid_sub, self.grid.reshape(self.n, -1)[idx]]),
+                np.concatenate([theta_sub, theta.reshape(self.n, -1)[idx]]),
+                np.concatenate([index_sub, idx]))
+
+    def _raw(self, theta, x, y):
+        gs, ts, idx = self._shard(theta, x, y)
+        ei = build.radius_connectivity(gs, self.radius)
+        return (np.concatenate([gs, ts], axis=1), ei,
+                self._attrs(gs, ts, ei), idx)
+
+    def get_data(self, theta: np.ndarray, edge_multiple: int = 512
+                 ) -> List[Tuple[Graph, Tuple[int, int]]]:
+        """All r^2 shards, one capacity: [(graph, (x, y)), ...]."""
+        theta = np.asarray(theta).reshape(self.resolution, self.resolution,
+                                          -1)
+        raw = [(self._raw(theta, x, y), (x, y))
+               for x in range(self.r) for y in range(self.r)]
+        e_pad = round_up(max(r_[1].shape[1] for r_, _ in raw),
+                         edge_multiple)
+        n_pad = round_up(max(r_[0].shape[0] for r_, _ in raw), 8)
+        return [(build_graph(X, ei[0], ei[1], attr, sample_idx=idx,
+                             n_node_pad=n_pad, n_edge_pad=e_pad), xy)
+                for (X, ei, attr, idx), xy in raw]
+
+    def sample(self, theta: np.ndarray, Y: np.ndarray,
+               n_edge_pad: Optional[int] = None, edge_multiple: int = 512):
+        """One random training shard with labels: (graph, (x, y))."""
+        theta = np.asarray(theta).reshape(self.resolution, self.resolution,
+                                          -1)
+        Y = np.asarray(Y).reshape(-1)
+        x = int(self.rng.integers(0, self.r))
+        y = int(self.rng.integers(0, self.r))
+        X, ei, attr, idx = self._raw(theta, x, y)
+        e_pad = n_edge_pad or round_up(ei.shape[1], edge_multiple)
+        g = build_graph(X, ei[0], ei[1], attr, y=Y[idx], sample_idx=idx,
+                        n_node_pad=round_up(X.shape[0], 8), n_edge_pad=e_pad)
+        return g, (x, y)
+
+    def assemble(self, preds: Sequence[np.ndarray],
+                 split_xy: Sequence[Tuple[int, int]],
+                 sigma: float = 1.0) -> np.ndarray:
+        """Re-interleaves shard predictions (each a prefix of the shard's
+        strided nodes) and smooths: [s*s]."""
+        out = np.zeros((self.resolution, self.resolution), np.float32)
+        for p, (x, y) in zip(preds, split_xy):
+            nx = (self.resolution - x + self.r - 1) // self.r
+            ny = (self.resolution - y + self.r - 1) // self.r
+            out[x::self.r, y::self.r] = np.asarray(p).reshape(-1)[
+                : nx * ny].reshape(nx, ny)
+        return gaussian_filter(out, sigma=sigma, mode="constant").reshape(-1)
+
+
+__all__ = ["RandomGridSplitter", "DownsampleGridSplitter"]

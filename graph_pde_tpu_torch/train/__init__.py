@@ -5,10 +5,12 @@ from .trainer import (TrainConfig, Task, make_loss_fn, make_train_step,
 from .tasks import GKNTask
 from .checkpoint import save_checkpoint, restore_checkpoint, latest_step
 from .metrics import MetricsLogger, profile_trace
+from .export import save_bundle, load_bundle, load_meta
 
 __all__ = [
     "adam_steplr", "TrainConfig", "Task", "make_loss_fn",
     "make_train_step", "make_eval_step", "fit", "evaluate", "FitResult",
     "param_leaves", "trainable", "GKNTask", "save_checkpoint",
     "restore_checkpoint", "latest_step", "MetricsLogger", "profile_trace",
+    "save_bundle", "load_bundle", "load_meta",
 ]

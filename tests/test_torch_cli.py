@@ -1,0 +1,186 @@
+"""The port's command line (graph_pde_tpu_torch.cli) on the CPU, and
+serving a JAX bundle with the port.
+
+``run neurips1_gkn --smoke --bundle`` then ``predict --synthetic 2 --res
+33`` (the smoke training grid: neurips1's unit u-normalizer serves only
+there) must write what the port's GKNPredictor gives on the loaded
+bundle. A bundle written by the JAX package, restored there and carried
+over as numpy, must serve the same fields as JAX's GKNPredictor within
+1e-5 of the output's max-abs.
+"""
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from graph_pde_tpu import inference as jinf
+from graph_pde_tpu.models import gkn as jgkn
+from graph_pde_tpu.train import export as jexport
+from graph_pde_tpu.utils import normalizers as jnorm
+
+from graph_pde_tpu_torch import cli
+from graph_pde_tpu_torch.convert import gkn_params_from_numpy
+from graph_pde_tpu_torch.data import load_or_generate_darcy
+from graph_pde_tpu_torch.experiments import names
+from graph_pde_tpu_torch.inference import GKNPredictor
+from graph_pde_tpu_torch.train import load_bundle, load_meta
+from graph_pde_tpu_torch.utils.matio import MatReader
+
+SERVE_TOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def own_data_cache(tmp_path_factory):
+    """Both packages cache synthetic data under ./.data_cache; this
+    module generates its own in a directory of its own, so no other test
+    process reads a file while it is being written."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(tmp_path_factory.mktemp("cwd"))
+        yield
+
+
+def _last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """One smoke run with a bundle, curves, results JSON and a passing
+    --expect-l2 (tolerance wide enough for any finite rel-L2)."""
+    d = tmp_path_factory.mktemp("run")
+    args = ["run", "neurips1_gkn", "--smoke", "--device", "cpu",
+            "--bundle", str(d / "bundle"), "--curves", str(d / "curves"),
+            "--out", str(d / "result.json"), "--expect-l2", "0.5",
+            "--tol", "10"]
+    rc = cli.main(args)
+    return d, rc
+
+
+def test_run_writes_bundle_curves_and_passes(trained):
+    d, rc = trained
+    assert rc == 0
+    result = json.load(open(d / "result.json"))
+    assert np.isfinite(result["final_test_l2"])
+    train = np.loadtxt(d / "curves" / "neurips1_gkn_train_l2.txt")
+    test = np.loadtxt(d / "curves" / "neurips1_gkn_test_l2.txt")
+    np.testing.assert_allclose(train[:, 1], result["train_l2"], rtol=1e-6)
+    np.testing.assert_allclose(test[:, 1], result["test_l2"], rtol=1e-6)
+    assert list(test[:, 0]) == result["test_epochs"]
+    params, cfg, norms, extra = load_bundle(str(d / "bundle"))
+    assert extra["experiment"] == "neurips1_gkn" and cfg.width == 16
+    assert sorted(norms) == ["a", "a_gradx", "a_grady", "a_smooth", "u"]
+
+
+def test_predict_equals_the_predictor(trained, capsys):
+    d, _ = trained
+    out = str(d / "pred.mat")
+    rc = cli.main(["predict", str(d / "bundle"), "--synthetic", "2",
+                   "--res", "33", "--output", out, "--device", "cpu"])
+    assert rc == 0
+    summary = _last_json(capsys.readouterr().out)
+    assert summary["n"] == 2 and summary["s"] == 33
+    assert np.isfinite(summary["rel_l2"]) and summary["output"] == out
+    got = MatReader(out).read_field("pred")
+    params, cfg, norms, extra = load_bundle(str(d / "bundle"))
+    f = load_or_generate_darcy(2, 33)
+    want = GKNPredictor(
+        params, cfg, input_normalizers={k: norms[k] for k in
+                                        ("a", "a_smooth", "a_gradx",
+                                         "a_grady")},
+        u_normalizer=norms["u"], radius=extra["radius"],
+        device="cpu").predict(f["coeff"], f["Kcoeff"], f["Kcoeff_x"],
+                              f["Kcoeff_y"])
+    np.testing.assert_array_equal(got.reshape(2, -1), want)
+
+
+def test_expect_l2_fail_exit_code(tmp_path, capsys):
+    rc = cli.main(["run", "neurips1_gkn", "--smoke", "--device", "cpu",
+                   "--set", "epochs=1", "--expect-l2", "5.0",
+                   "--tol", "1e-3"])
+    assert rc == 1
+    assert "-> FAIL" in capsys.readouterr().out
+
+
+def test_run_profile_writes_a_trace(tmp_path, capsys):
+    prof = tmp_path / "prof"
+    rc = cli.main(["run", "neurips1_gkn", "--smoke", "--device", "cpu",
+                   "--set", "epochs=1", "--set", "ntrain=2",
+                   "--profile", str(prof)])
+    assert rc == 0
+    assert _last_json(capsys.readouterr().out)["profile_dir"] == str(prof)
+    assert json.load(open(prof / "trace.json"))["traceEvents"]
+
+
+def test_predict_needs_an_input(trained):
+    d, _ = trained
+    assert cli.main(["predict", str(d / "bundle"), "--device", "cpu"]) == 2
+
+
+def test_predict_mgkn_bundle_exits_2(tmp_path, capsys):
+    d = tmp_path / "mgkn"
+    d.mkdir()
+    (d / "bundle.json").write_text(json.dumps({
+        "model_config_class": "MGKNGeneralConfig", "model_config": {},
+        "normalizers": {}, "extra": {"family": "mgkn_general",
+                                     "dataset": "darcy"}}))
+    rc = cli.main(["predict", str(d), "--synthetic", "1", "--res", "9",
+                   "--device", "cpu"])
+    assert rc == 2
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_list_prints_the_registry(capsys):
+    assert cli.main(["list"]) == 0
+    assert capsys.readouterr().out.split() == names()
+
+
+@pytest.mark.parametrize("args", [
+    ["run", "neurips1_gkn", "--smoke"],
+    ["sweep", "neurips1_gkn", "--smoke"],
+    ["predict", "missing_bundle", "--synthetic", "1"],
+])
+def test_default_device_needs_cuda(monkeypatch, args):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args)
+
+
+def test_jax_bundle_served_by_the_port(tmp_path):
+    """A JAX bundle: JAX restores its params (orbax), the port takes them
+    as numpy and reads bundle.json itself; both predictors serve the
+    same fields."""
+    kw = dict(width=8, ker_width=16, depth=2, ker_in=6, in_width=6,
+              kernel_layers=(6, 8, 16, 64), relu_last=False,
+              impl="kcached")
+    jcfg = jgkn.GKNConfig(**kw)
+    f = load_or_generate_darcy(4, 17, seed=3)
+    flat = {k: v.reshape(4, -1) for k, v in f.items()}
+    norms = {"a": jnorm.GaussianNormalizer(flat["coeff"]),
+             "a_smooth": jnorm.GaussianNormalizer(flat["Kcoeff"]),
+             "a_gradx": jnorm.GaussianNormalizer(flat["Kcoeff_x"]),
+             "a_grady": jnorm.GaussianNormalizer(flat["Kcoeff_y"]),
+             "u": jnorm.GaussianNormalizer(flat["sol"])}
+    d = str(tmp_path / "jax_bundle")
+    jexport.save_bundle(d, jgkn.gkn_init(jax.random.PRNGKey(1), jcfg), jcfg,
+                        normalizers=norms,
+                        extra={"family": "gkn", "dataset": "darcy",
+                               "radius": 0.3})
+    jp, jc, jn, jx = jexport.load_bundle(d)
+    want = jinf.GKNPredictor(
+        params=jp, cfg=jc, input_normalizers={k: jn[k] for k in jn
+                                              if k != "u"},
+        u_normalizer=jn["u"], radius=jx["radius"]).predict(f["coeff"][:2])
+    tcfg, tn, tx = load_meta(d)
+    got = GKNPredictor(
+        gkn_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"), tcfg,
+        input_normalizers={k: tn[k] for k in tn if k != "u"},
+        u_normalizer=tn["u"], radius=tx["radius"],
+        device="cpu").predict(f["coeff"][:2])
+    want = np.asarray(want)
+    assert got.shape == want.shape == (2, 17 * 17)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= SERVE_TOL, err
+    assert os.path.isdir(os.path.join(d, "params"))
