@@ -9,12 +9,14 @@ Usage:
     python -m graph_pde_tpu_torch.cli sweep <experiment> [--smoke]
         [--axis key=[v1,v2,...]] [--out results.json] [--device ...]
     python -m graph_pde_tpu_torch.cli predict <bundle_dir>
-        (--input fields.mat | --synthetic N --res S) [--n N]
+        (--input fields.mat | --synthetic N [--res S]) [--n N]
         [--output pred.mat] [--truth-field sol] [--device ...]
 
 One entry point over the experiment registry. ``run --bundle`` exports
-a serving bundle (train/export.py) and ``predict`` serves it on new
-Darcy coefficient fields at any grid resolution (GKNPredictor). Every
+a serving bundle (train/export.py) and ``predict`` serves it: a GKN
+bundle on new Darcy coefficient fields at any grid resolution
+(GKNPredictor), an orthogonal-MGKN bundle on Burgers initial conditions
+'a' at its training resolution (MGKNOrthogonalPredictor). Every
 command runs on CUDA unless ``--device cpu`` asks for the CPU; without
 a GPU it raises. The JSON summary lines are the JAX CLI's.
 """
@@ -99,9 +101,59 @@ def _predict_darcy(args, params, mcfg, norms, extra, device):
     return 0
 
 
+def _predict_burgers_orthogonal(args, params, mcfg, norms, extra, device):
+    """Orthogonal-MGKN serving: Burgers initial conditions 'a' [n, s] in
+    (at the bundle's training s, or a multiple of it, stride-downsampled
+    as the reference reads its 2^13 fields), decoded solutions out."""
+    from .inference import MGKNOrthogonalPredictor
+
+    truth = None
+    if args.input:
+        from .utils.matio import MatReader
+
+        reader = MatReader(args.input)
+        a = reader.read_field("a")
+        if args.truth_field:
+            truth = reader.read_field(args.truth_field)
+    else:
+        from .data import load_or_generate_burgers
+
+        fields = load_or_generate_burgers(args.synthetic, mcfg.s)
+        a, truth = fields["a"], fields["u"]
+    if args.n:
+        a = a[: args.n]
+        truth = None if truth is None else truth[: args.n]
+    if a.shape[1] != mcfg.s and a.shape[1] % mcfg.s == 0:
+        a = a[:, :: a.shape[1] // mcfg.s]
+        truth = None if truth is None else \
+            truth[:, :: truth.shape[1] // mcfg.s]
+    predictor = MGKNOrthogonalPredictor(
+        params, mcfg, a_normalizer=norms["a"], u_normalizer=norms["u"],
+        device=device)
+    t0 = time.perf_counter()
+    pred = predictor.predict(a)
+    dt = time.perf_counter() - t0
+    n, s = pred.shape
+    summary = {"n": n, "s": s, "wall_time_s": round(dt, 3),
+               "per_sample_ms": round(1000 * dt / n, 2)}
+    if truth is not None:
+        from .utils.losses import LpLoss
+
+        rel = LpLoss(size_average=True).rel(pred, np.asarray(truth)[:, :s])
+        summary["rel_l2"] = round(float(rel), 6)
+    if args.output:
+        from .utils.matio import write_mat
+
+        write_mat(args.output, {"pred": pred})
+        summary["output"] = args.output
+    print(json.dumps(summary))
+    return 0
+
+
 def _predict(args, device):
-    """Serves a trained bundle on new input fields: GKN on Darcy. The
-    MGKN bundles exit 2 until those models are ported."""
+    """Serves a trained bundle on new input fields: GKN on Darcy, the
+    orthogonal MGKN on Burgers. MGKN-general bundles exit 2 until that
+    model is ported."""
     from .train import load_bundle
 
     if not args.input and not args.synthetic:
@@ -114,6 +166,9 @@ def _predict(args, device):
         return 2
     family = extra.get("family", "gkn")
     dataset = extra.get("dataset", "darcy")
+    if family == "mgkn_orthogonal":
+        return _predict_burgers_orthogonal(args, params, mcfg, norms, extra,
+                                           device)
     if family == "gkn" and dataset == "darcy":
         return _predict_darcy(args, params, mcfg, norms, extra, device)
     print(f"error: no serving path for family={family!r} "
@@ -276,12 +331,16 @@ def _parser() -> argparse.ArgumentParser:
     predp.add_argument("bundle", help="bundle dir from run --bundle")
     predp.add_argument("--input", default=None,
                        help=".mat with 'coeff' [n, s, s] (+ optional "
-                            "Kcoeff/Kcoeff_x/Kcoeff_y; derived if absent)")
+                            "Kcoeff/Kcoeff_x/Kcoeff_y; derived if absent)"
+                            ", or 'a' [n, s] for an orthogonal-MGKN "
+                            "bundle")
     predp.add_argument("--synthetic", type=int, default=0, metavar="N",
-                       help="generate N synthetic Darcy fields instead "
-                            "of --input")
+                       help="generate N synthetic fields (Darcy, or "
+                            "Burgers for an orthogonal-MGKN bundle) "
+                            "instead of --input")
     predp.add_argument("--res", type=int, default=61,
-                       help="grid resolution for --synthetic")
+                       help="grid resolution for --synthetic Darcy "
+                            "fields (Burgers: the bundle's s)")
     predp.add_argument("--n", type=int, default=None,
                        help="predict only the first N samples")
     predp.add_argument("--output", default=None,

@@ -6,6 +6,10 @@ or checkpoint tree) and returns the same tree of float32 tensors. The
 layout is the same in both packages, so the port computes the same
 function from the same numbers.
 
+``mgkn_orthogonal_params_from_numpy`` does the same for the orthogonal
+MGKN's tree ``{"fc1", "conv": [{"kernel", "root", "bias"}, ...], "fc2",
+"fc3"}``, keeping "conv" a list of one entry per level.
+
 ``normalizer_from_state`` rebuilds a normalizer from the state dict the
 JAX package's bundle export writes (train/export.py): ``{"kind": "unit"
 | "gaussian", "mean", "std", "eps"}`` or ``{"kind": "range", "a",
@@ -36,6 +40,14 @@ def gkn_params_from_numpy(tree, device: DeviceLike = None):
         return torch.from_numpy(np.array(node, np.float32)).to(dev)
 
     return conv(tree)
+
+
+def mgkn_orthogonal_params_from_numpy(tree, device: DeviceLike = None):
+    """The orthogonal MGKN's numpy parameter tree -> the same tree of
+    float32 tensors on ``device`` (None -> CUDA), "conv" a list."""
+    params = gkn_params_from_numpy(tree, device)
+    params["conv"] = list(params["conv"])
+    return params
 
 
 def _f32(v) -> torch.Tensor:
@@ -78,5 +90,5 @@ def normalizer_state(norm) -> dict:
     raise TypeError(f"no state for a {type(norm).__name__}")
 
 
-__all__ = ["gkn_params_from_numpy", "normalizer_from_state",
-           "normalizer_state"]
+__all__ = ["gkn_params_from_numpy", "mgkn_orthogonal_params_from_numpy",
+           "normalizer_from_state", "normalizer_state"]

@@ -1,17 +1,22 @@
-"""Darcy dataset builders: PDE fields -> padded, stacked Graph batches
-(counterpart of the Darcy part of graph_pde_tpu/data/datasets.py).
+"""Dataset builders: PDE fields -> padded, stacked graph batches
+(counterpart of graph_pde_tpu/data/datasets.py; Darcy GKN and Burgers).
 
-- ``load_or_generate_darcy``: synthetic Darcy fields, cached on disk.
+- ``load_or_generate_darcy`` / ``load_or_generate_burgers``: synthetic
+  fields, cached on disk.
 - ``prepare_darcy``: downsample, flatten, normalize (GaussianNormalizer
   on coeff/Kcoeff/Kcoeff_x/Kcoeff_y; UnitGaussian or Gaussian on sol).
 - ``darcy_gkn_graphs``: full-grid (UAI1 protocol, one mesh shared by all
   samples) or Nystrom-sampled (m nodes, k graphs per sample) GKN graphs,
   flat or blocked-CSR (``node_block``). Node features [x, y, a, a_smooth,
   a_gradx, a_grady]; edge attributes [x_i, x_j, a_i, a_j].
-- ``batch_iterator``: stacked sub-batches of a leading-batch-axis tree.
+- ``prepare_burgers``, ``burgers_gkn_graphs`` (1-d Nystrom GKN graphs,
+  node features [x, a]) and ``burgers_multipole_data`` (the orthogonal
+  MGKN's level grids, FMM edge lists and per-sample edge attributes).
+- ``batch_iterator``: stacked sub-batches of a leading-batch-axis tree
+  (Graphs, other dataclasses such as MultipoleGraph1D, dicts, lists).
 
 The builders are host numpy and give the same arrays as the JAX
-package's from the same seed. Burgers and MGKN data are not ported yet.
+package's from the same seed. MGKN-general data is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 from ..graph.graph import (_ARRAY_FIELDS, Graph, build_graph, round_up,
                            stack_graphs)
 from ..graph.mesh import RandomMeshGenerator, SquareMeshGenerator
+from ..graph.multipole import get_edge_attr, multi_pole_grid1d
 from ..utils.normalizers import GaussianNormalizer, UnitGaussianNormalizer
 
 
@@ -41,6 +47,23 @@ def load_or_generate_darcy(n: int, s: int, seed: int = 0,
     from .synthetic import darcy_dataset
 
     data = darcy_dataset(n, s, seed=seed)
+    np.savez_compressed(path, **data)
+    return data
+
+
+def load_or_generate_burgers(n: int, s: int, seed: int = 0,
+                             cache_dir: str = ".data_cache",
+                             nu: float = 0.01) -> Dict[str, np.ndarray]:
+    """Synthetic Burgers pairs ``{"a", "u"}`` [n, s], cached as ``.npz``
+    under ``cache_dir`` (the JAX package's file name)."""
+    os.makedirs(cache_dir, exist_ok=True)
+    path = os.path.join(cache_dir, f"burgers_n{n}_s{s}_nu{nu}_seed{seed}.npz")
+    if os.path.exists(path):
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+    from .synthetic import burgers_dataset
+
+    data = burgers_dataset(n, s, seed=seed, nu=nu)
     np.savez_compressed(path, **data)
     return data
 
@@ -170,13 +193,104 @@ def darcy_gkn_graphs(
     return stack_graphs(graphs)
 
 
+@dataclasses.dataclass
+class BurgersArrays:
+    a: np.ndarray          # encoded [n, s]
+    u: np.ndarray          # encoded [n, s] (raw with encode_u=False)
+    a_normalizer: object
+    u_normalizer: object
+    s: int
+
+
+def prepare_burgers(fields: Dict[str, np.ndarray], n: int, r: int = 1,
+                    a_normalizer=None, u_normalizer=None,
+                    encode_u: bool = True) -> BurgersArrays:
+    """Downsamples by r and normalizes: a Gaussian normalizer on a, a
+    unit (per-point) one on u, each fitted here unless given."""
+    a = fields["a"][:n, ::r]
+    u = fields["u"][:n, ::r]
+    s = a.shape[1]
+    if a_normalizer is None:
+        a_normalizer = GaussianNormalizer(a)
+    if u_normalizer is None:
+        u_normalizer = UnitGaussianNormalizer(u)
+    a = _np(a_normalizer.encode(a))
+    if encode_u:
+        u = _np(u_normalizer.encode(u))
+    return BurgersArrays(a, u, a_normalizer, u_normalizer, s)
+
+
+def burgers_gkn_graphs(
+    arrays: BurgersArrays,
+    *,
+    m: int,
+    k: int = 1,
+    radius: float = 0.25,
+    seed: int = 0,
+    edge_multiple: int = 512,
+    n_edge_pad: Optional[int] = None,
+) -> Graph:
+    """Stacked 1-d Nystrom GKN graphs (neurips5_GKN.py:110-135): node
+    features [x, a], edge attributes [x_i, x_j, a_i, a_j]."""
+    s = arrays.s
+    n = arrays.a.shape[0]
+    gen = RandomMeshGenerator([[0, 1]], [s], sample_size=m, seed=seed)
+    raw = []
+    for j in range(n):
+        for _ in range(k):
+            idx = gen.sample()
+            grid = gen.get_grid()
+            ei = gen.ball_connectivity(radius)
+            attr = gen.attributes(theta=arrays.a[j])
+            x = np.concatenate([grid, arrays.a[j][idx][:, None]], axis=1)
+            raw.append((x, ei, attr, arrays.u[j][idx], idx))
+    e_max = max(r[1].shape[1] for r in raw)
+    e_pad = n_edge_pad or round_up(e_max, edge_multiple)
+    graphs = [
+        build_graph(x, ei[0], ei[1], attr, y=y, sample_idx=si,
+                    n_node_pad=round_up(m, 8), n_edge_pad=e_pad)
+        for (x, ei, attr, y, si) in raw
+    ]
+    return stack_graphs(graphs)
+
+
+def burgers_multipole_data(arrays: BurgersArrays, is_periodic: bool = True):
+    """The orthogonal MGKN's data (MGKN_orthogonal_burgers1d.py:146-183):
+    (xs [n, s, 2] = [x, a], ys [n, s, 1], senders, receivers: one int64
+    [E_l] array per edge list, shared by every sample, attrs: one
+    [n, E_l, 4] array per edge list). Edge list 0 (nearest neighbors)
+    and 1 take the finest level's grid and a, edge list l > 1 level l's."""
+    n, s = arrays.a.shape
+    theta = arrays.a[:, :, None]
+    grids, thetas, edges = multi_pole_grid1d(theta, 1, s, n,
+                                             is_periodic=is_periodic)
+    senders = [e[0].astype(np.int64) for e in edges]
+    receivers = [e[1].astype(np.int64) for e in edges]
+    attrs = []
+    for i, e in enumerate(edges):
+        li = max(i - 1, 0)
+        attrs.append(np.stack([
+            get_edge_attr(grids[li], thetas[li][j, :, 0], e)
+            for j in range(n)]))
+    xs = np.stack([np.stack([grids[0], arrays.a[j]], axis=1)
+                   for j in range(n)])
+    ys = arrays.u[:, :, None]
+    return (xs.astype(np.float32), ys.astype(np.float32), senders,
+            receivers, attrs)
+
+
 def map_arrays(fn, tree):
     """``fn`` applied to every array (numpy or torch) of a tree of
-    Graphs, dicts, tuples and lists; other leaves are kept."""
+    Graphs, other dataclasses, dicts, tuples and lists; other leaves are
+    kept."""
     if isinstance(tree, Graph):
         return dataclasses.replace(tree, **{
             f: fn(getattr(tree, f)) for f in _ARRAY_FIELDS
             if getattr(tree, f) is not None})
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_arrays(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: map_arrays(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
@@ -190,6 +304,8 @@ def leading_size(tree) -> int:
     """The leading (batch) size of a stacked tree."""
     if isinstance(tree, Graph):
         return tree.x.shape[0]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return leading_size(getattr(tree, dataclasses.fields(tree)[0].name))
     if isinstance(tree, dict):
         return leading_size(next(iter(tree.values())))
     if isinstance(tree, (tuple, list)):
@@ -218,6 +334,8 @@ def batch_iterator(stacked, batch_size: int,
         yield map_arrays(take, stacked)
 
 
-__all__ = ["load_or_generate_darcy", "DarcyArrays", "prepare_darcy",
-           "darcy_gkn_graphs", "batch_iterator", "map_arrays",
+__all__ = ["load_or_generate_darcy", "load_or_generate_burgers",
+           "DarcyArrays", "prepare_darcy", "darcy_gkn_graphs",
+           "BurgersArrays", "prepare_burgers", "burgers_gkn_graphs",
+           "burgers_multipole_data", "batch_iterator", "map_arrays",
            "leading_size"]

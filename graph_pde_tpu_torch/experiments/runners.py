@@ -1,15 +1,17 @@
 """One runner for the registered experiments (counterpart of
-graph_pde_tpu/experiments/runners.py; Darcy GKN).
+graph_pde_tpu/experiments/runners.py; GKN on Darcy and Burgers, and the
+orthogonal MGKN on Burgers).
 
 data -> graphs -> fit -> evaluation protocol, returning per-epoch
 histories and decoded rel-L2 metrics. The protocols are the reference's:
 'fixed' (the test set of the training graphs), 'multires' (the same
 weights at other resolutions), 'split_random' and 'split_downsample'
-(full-field evaluation through split/assemble), and per-m test graphs
-(``eval_m``). Shard training (``train_split``) trains on
-DownsampleGridSplitter shards. Runs on CUDA unless the caller passes
-``device='cpu'``. Other families and Burgers raise NotImplementedError,
-naming the ROADMAP item that ports them; the run figures are not ported.
+(full-field evaluation through split/assemble; on Burgers the 1-d
+split_random cover), and per-m test graphs (``eval_m``). Shard training
+(``train_split``) trains on DownsampleGridSplitter shards. Runs on CUDA
+unless the caller passes ``device='cpu'``. The other families raise
+NotImplementedError, naming the ROADMAP item that ports them; the run
+figures are not ported.
 """
 from __future__ import annotations
 
@@ -19,14 +21,18 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..data import darcy_gkn_graphs, load_or_generate_darcy, prepare_darcy
+from ..data import (burgers_gkn_graphs, burgers_multipole_data,
+                    darcy_gkn_graphs, load_or_generate_burgers,
+                    load_or_generate_darcy, prepare_burgers, prepare_darcy)
 from ..device import DeviceLike, resolve_device
 from ..graph import (DownsampleGridSplitter, RandomGridSplitter,
                      make_box_grid, repad_edges, stack_graphs)
 from ..inference import _largest_divisor_leq as _divisor_near
 from ..inference import _np
 from ..models.gkn import GKNConfig, gkn_apply, gkn_init
-from ..train import GKNTask, TrainConfig, evaluate, fit
+from ..models.mgkn_orthogonal import (MGKNOrthogonalConfig,
+                                      mgkn_orthogonal_init, multipole_batch)
+from ..train import GKNTask, MGKNOrthogonalTask, TrainConfig, evaluate, fit
 from ..utils.losses import LpLoss
 from ..utils.matio import MatReader
 from .registry import ExperimentConfig
@@ -34,10 +40,8 @@ from .registry import ExperimentConfig
 # families and datasets of the registry that are not ported yet
 _NOT_PORTED = {
     "mgkn_general": "MGKN general",
-    "mgkn_orthogonal": "MGKN orthogonal",
     "gcn": "GCN",
     "torus_t": "torus time series",
-    "burgers": "Burgers data and GKN on Burgers",
 }
 
 
@@ -48,6 +52,14 @@ def _load_darcy_fields(cfg: ExperimentConfig, n: int, path: Optional[str],
         return {k: reader.read_field(k)[:n]
                 for k in ("coeff", "Kcoeff", "Kcoeff_x", "Kcoeff_y", "sol")}
     return load_or_generate_darcy(n, cfg.source_res, seed=seed)
+
+
+def _load_burgers_fields(cfg: ExperimentConfig, n: int,
+                         path: Optional[str], seed: int):
+    if path is not None:
+        reader = MatReader(path)
+        return {k: reader.read_field(k)[:n] for k in ("a", "u")}
+    return load_or_generate_burgers(n, cfg.source_res, seed=seed)
 
 
 def _kernel_layers(cfg: ExperimentConfig, ker_in: int):
@@ -75,24 +87,30 @@ def run_experiment(cfg: ExperimentConfig, smoke: bool = False,
             raise NotImplementedError(
                 f"{cfg.name}: {part!r} is not ported yet (ROADMAP queue "
                 f"A: {_NOT_PORTED[part]})")
-    if cfg.family != "gkn" or cfg.dataset != "darcy":
+    runners = {"gkn": _run_gkn, "mgkn_orthogonal": _run_mgkn_orthogonal}
+    if cfg.family not in runners or cfg.dataset not in ("darcy", "burgers"):
         raise ValueError(f"unknown family/dataset {cfg.family!r}/"
                          f"{cfg.dataset!r}")
+    run = runners[cfg.family]
     dev = resolve_device(device)
     if profile_dir:
         from ..train.metrics import profile_trace
 
         with profile_trace(profile_dir):
-            result = _run_gkn(cfg, progress, dev)
+            result = run(cfg, progress, dev)
         result["profile_dir"] = profile_dir
         return result
-    return _run_gkn(cfg, progress, dev)
+    return run(cfg, progress, dev)
 
 
 def _gkn_config(cfg: ExperimentConfig) -> GKNConfig:
+    # node features [x, y, a, a_smooth, a_gradx, a_grady] on Darcy, [x, a]
+    # on Burgers; edge attributes [x_i, x_j, a_i, a_j] in d dimensions
+    ker_in, in_width = (6, 6) if cfg.dataset == "darcy" else (4, 2)
     return GKNConfig(
         width=cfg.width, ker_width=cfg.ker_width, depth=cfg.depth,
-        ker_in=6, in_width=6, kernel_layers=_kernel_layers(cfg, 6),
+        ker_in=ker_in, in_width=in_width,
+        kernel_layers=_kernel_layers(cfg, ker_in),
         relu_last=(cfg.relu_last or cfg.kernel_variant == "nn"),
         decoder_mlp=cfg.decoder_mlp, impl=cfg.impl,
         compute_dtype=cfg.compute_dtype, k_storage=cfg.k_storage)
@@ -119,20 +137,42 @@ def _darcy_data(cfg: ExperimentConfig):
     return arrays, norms, test_arrays
 
 
+def _burgers_data(cfg: ExperimentConfig):
+    """Train arrays (normalizers fitted on them) and test arrays, from
+    one set of ntrain + ntest fields."""
+    fields = _load_burgers_fields(cfg, cfg.ntrain + cfg.ntest,
+                                  cfg.data_path, cfg.data_seed)
+    arrays = prepare_burgers(fields, n=cfg.ntrain, r=cfg.downsample)
+    test_arrays = prepare_burgers(
+        {k: v[cfg.ntrain:] for k, v in fields.items()}, n=cfg.ntest,
+        r=cfg.downsample, a_normalizer=arrays.a_normalizer,
+        u_normalizer=arrays.u_normalizer)
+    return arrays, test_arrays
+
+
 def _run_gkn(cfg: ExperimentConfig, progress, dev: torch.device) -> Dict:
     radius_test = cfg.radius_test or cfg.radius_train
-    arrays, norms, test_arrays = _darcy_data(cfg)
-    if cfg.train_split:
-        # UAI7 shard training (UAI7_evaluate.py:131-141)
-        train_g = _darcy_shard_train_graphs(cfg, arrays)
+    if cfg.dataset == "darcy":
+        arrays, norms, test_arrays = _darcy_data(cfg)
+        if cfg.train_split:
+            # UAI7 shard training (UAI7_evaluate.py:131-141)
+            train_g = _darcy_shard_train_graphs(cfg, arrays)
+        else:
+            train_g = darcy_gkn_graphs(
+                arrays, m=cfg.nystrom_m, k=cfg.graphs_per_sample,
+                radius=cfg.radius_train, seed=cfg.seed,
+                node_block=cfg.node_block)
+        test_g = darcy_gkn_graphs(test_arrays, m=cfg.nystrom_m,
+                                  radius=radius_test, seed=cfg.seed + 1,
+                                  node_block=cfg.node_block)
     else:
-        train_g = darcy_gkn_graphs(
-            arrays, m=cfg.nystrom_m, k=cfg.graphs_per_sample,
-            radius=cfg.radius_train, seed=cfg.seed,
-            node_block=cfg.node_block)
-    test_g = darcy_gkn_graphs(test_arrays, m=cfg.nystrom_m,
-                              radius=radius_test, seed=cfg.seed + 1,
-                              node_block=cfg.node_block)
+        arrays, test_arrays = _burgers_data(cfg)
+        norms = {"a": arrays.a_normalizer}
+        train_g = burgers_gkn_graphs(arrays, m=cfg.nystrom_m,
+                                     k=cfg.graphs_per_sample,
+                                     radius=cfg.radius_train, seed=cfg.seed)
+        test_g = burgers_gkn_graphs(test_arrays, m=cfg.nystrom_m,
+                                    radius=radius_test, seed=cfg.seed + 1)
 
     mcfg = _gkn_config(cfg)
     params = gkn_init(torch.Generator().manual_seed(cfg.seed), mcfg,
@@ -154,17 +194,21 @@ def _run_gkn(cfg: ExperimentConfig, progress, dev: torch.device) -> Dict:
         "epoch_times": res.epoch_times,
         "final_test_l2": res.test_l2[-1] if res.test_l2 else None,
     }
-    if cfg.eval_protocol == "multires":
+    darcy = cfg.dataset == "darcy"
+    if cfg.eval_protocol == "multires" and darcy:
         result["multires"], result["multires_fresh_fields"] = \
             _eval_gkn_multires(cfg, mcfg, res.params, arrays, norms,
                                radius_test, dev)
-    elif cfg.eval_protocol == "split_random":
+    elif cfg.eval_protocol == "split_random" and darcy:
         result.update(_eval_gkn_split_random(cfg, mcfg, res.params, arrays,
                                              norms, dev))
+    elif cfg.eval_protocol == "split_random":
+        result["full_field_l2"] = _eval_gkn_split_random_burgers(
+            cfg, mcfg, res.params, arrays, dev)
     elif cfg.eval_protocol == "split_downsample":
         result.update(_eval_gkn_split_downsample(cfg, mcfg, res.params,
                                                  arrays, norms, dev))
-    if cfg.eval_m:
+    if cfg.eval_m and darcy:
         result["eval_by_m"] = _eval_gkn_by_m(cfg, task, res.params,
                                              test_arrays, radius_test, dev)
     result["params"] = res.params
@@ -176,6 +220,75 @@ def _run_gkn(cfg: ExperimentConfig, progress, dev: torch.device) -> Dict:
                   "radius": radius_test, "experiment": cfg.name},
     }
     return result
+
+
+def _eval_gkn_split_random_burgers(cfg, mcfg, params, arrays, dev) -> float:
+    """1-d full-grid evaluation through RandomGridSplitter
+    (neurips5_GKN.py:138-147): disjoint m-node subgraphs cover all s
+    points, each decoded with its own points' stats, stitched; the mean
+    rel-L2 over at most 10 test samples."""
+    s = arrays.s
+    n_eval = min(cfg.ntest, 10)
+    fields = _load_burgers_fields(cfg, cfg.ntrain + cfg.ntest,
+                                  cfg.data_path, cfg.data_seed)
+    test = prepare_burgers(
+        {k: v[cfg.ntrain:] for k, v in fields.items()}, n=n_eval,
+        r=cfg.downsample, a_normalizer=arrays.a_normalizer,
+        u_normalizer=arrays.u_normalizer, encode_u=False)
+    m = _divisor_near(s, cfg.nystrom_m or 128)
+    sp = RandomGridSplitter(make_box_grid([[0, 1]], [s]), s, d=1, m=m, l=1,
+                            radius=cfg.radius_train, seed=cfg.seed)
+    lp = LpLoss(size_average=False)
+    total = 0.0
+    for j in range(n_eval):
+        graphs = sp.get_data(test.a[j][:, None])
+        preds = _predict_shards(mcfg, params, graphs, dev)
+        idxs = [np.asarray(g.sample_idx)[: int(g.n_node)] for g in graphs]
+        dec = [_np(arrays.u_normalizer.decode(p[None, :],
+                                              sample_idx=idx[None]))[0]
+               for p, idx in zip(preds, idxs)]
+        full = sp.assemble(dec, idxs)
+        total += float(lp.rel(full[None], test.u[j][None]))
+    return total / n_eval
+
+
+def _run_mgkn_orthogonal(cfg: ExperimentConfig, progress,
+                         dev: torch.device) -> Dict:
+    """The orthogonal MGKN on Burgers (MGKN_orthogonal_burgers1d.py): the
+    level hierarchy of the training grid, trained on the decoded rel-L2;
+    the bundle carries the training s."""
+    arrays, test_arrays = _burgers_data(cfg)
+    train_g = multipole_batch(*burgers_multipole_data(arrays))
+    test_g = multipole_batch(*burgers_multipole_data(test_arrays))
+    mcfg = MGKNOrthogonalConfig(width=cfg.width, ker_width=cfg.ker_width,
+                                depth=cfg.depth, ker_in=4, in_width=2,
+                                s=arrays.s, impl=cfg.impl,
+                                compute_dtype=cfg.compute_dtype,
+                                k_storage=cfg.k_storage)
+    params = mgkn_orthogonal_init(torch.Generator().manual_seed(cfg.seed),
+                                  mcfg, device=dev)
+    task = MGKNOrthogonalTask(mcfg, u_normalizer=arrays.u_normalizer,
+                              loss_type=cfg.loss)
+    tc = TrainConfig(epochs=cfg.epochs, batch_size=cfg.batch_size,
+                     learning_rate=cfg.learning_rate,
+                     weight_decay=cfg.weight_decay,
+                     scheduler_step=cfg.scheduler_step,
+                     scheduler_gamma=cfg.scheduler_gamma, loss=cfg.loss,
+                     seed=cfg.seed)
+    res = fit(task, params, train_g, tc, test_data=test_g,
+              callback=progress, device=dev)
+    return {"config": cfg.name, "train_l2": res.train_l2,
+            "test_l2": res.test_l2, "test_epochs": res.test_epochs,
+            "epoch_times": res.epoch_times,
+            "final_test_l2": res.test_l2[-1] if res.test_l2 else None,
+            "params": res.params,
+            "_bundle": {"model_cfg": mcfg,
+                        "normalizers": {"a": arrays.a_normalizer,
+                                        "u": arrays.u_normalizer},
+                        "extra": {"family": "mgkn_orthogonal",
+                                  "experiment": cfg.name,
+                                  "dataset": cfg.dataset,
+                                  "train_s": int(arrays.s)}}}
 
 
 def _eval_gkn_by_m(cfg, task, params, test_arrays, radius_test, dev):

@@ -1,4 +1,5 @@
-"""Serving API (counterpart of GKNPredictor in graph_pde_tpu/inference.py).
+"""Serving API (counterpart of graph_pde_tpu/inference.py; GKN and the
+orthogonal MGKN).
 
 ``GKNPredictor`` maps raw Darcy coefficient fields to decoded solution
 fields at any grid resolution:
@@ -10,7 +11,12 @@ fields at any grid resolution:
 
 Graphs are built on the host as in the JAX package, moved to the
 predictor's device once per batch, and run by ``gkn_apply_batched``.
-The predictor runs on CUDA unless it is given ``device="cpu"``.
+
+``MGKNOrthogonalPredictor`` maps raw Burgers initial conditions a [n, s]
+to decoded solutions at the training resolution ``cfg.s`` (the level
+hierarchy is baked into the weights), all n samples as one batch.
+
+Predictors run on CUDA unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ from .device import DeviceLike, resolve_device
 from .graph import (RandomGridSplitter, SquareMeshGenerator, build_graph,
                     edge_attributes, make_box_grid, round_up, stack_graphs)
 from .models.gkn import GKNConfig, gkn_apply_batched, params_to
+from .models.mgkn_orthogonal import (MGKNOrthogonalConfig,
+                                     mgkn_orthogonal_apply_batched,
+                                     multipole_batch)
 
 
 def _np(t) -> np.ndarray:
@@ -168,6 +177,46 @@ class GKNPredictor:
             return _np(self.u_normalizer.decode(values))
 
 
+@dataclasses.dataclass
+class MGKNOrthogonalPredictor:
+    """Serves an orthogonal-MGKN bundle on raw Burgers initial
+    conditions a [n, s] at the training resolution cfg.s (level count
+    log2(s) - 1, one conv per level, MGKN_orthogonal_burgers1d.py:21-43)."""
+
+    params: object
+    cfg: MGKNOrthogonalConfig
+    a_normalizer: object
+    u_normalizer: object
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.params = params_to(self.params, self.device)
+
+    def predict(self, a) -> np.ndarray:
+        """a: [n, s] initial conditions at the training resolution.
+        Returns decoded solutions [n, s]."""
+        from .data.datasets import BurgersArrays, burgers_multipole_data
+
+        a = np.asarray(a, np.float32)
+        n, s = a.shape
+        if s != self.cfg.s:
+            raise ValueError(
+                f"orthogonal MGKN serves at its training resolution "
+                f"s={self.cfg.s} (the level hierarchy is baked into the "
+                f"weights); got s={s}")
+        enc = _np(self.a_normalizer.encode(a))
+        arrays = BurgersArrays(a=enc, u=np.zeros_like(enc),
+                               a_normalizer=self.a_normalizer,
+                               u_normalizer=self.u_normalizer, s=s)
+        batch = multipole_batch(*burgers_multipole_data(arrays))
+        with torch.inference_mode():
+            pred = mgkn_orthogonal_apply_batched(
+                self.params, self.cfg, batch.to(self.device))
+            pred = _np(pred[:, :, 0])
+        return _np(self.u_normalizer.decode(pred))
+
+
 def _largest_divisor_leq(n: int, m: int) -> int:
     best = 1
     d = 1
@@ -180,4 +229,4 @@ def _largest_divisor_leq(n: int, m: int) -> int:
     return best
 
 
-__all__ = ["GKNPredictor", "derive_aux_fields"]
+__all__ = ["GKNPredictor", "MGKNOrthogonalPredictor", "derive_aux_fields"]

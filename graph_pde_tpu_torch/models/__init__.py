@@ -1,4 +1,9 @@
 from .gkn import GKNConfig, gkn_init, gkn_apply, gkn_apply_batched, params_to
+from .mgkn_orthogonal import (MultipoleGraph1D, MGKNOrthogonalConfig,
+                              mgkn_orthogonal_init, mgkn_orthogonal_apply,
+                              mgkn_orthogonal_apply_batched, multipole_batch)
 
 __all__ = ["GKNConfig", "gkn_init", "gkn_apply", "gkn_apply_batched",
-           "params_to"]
+           "params_to", "MultipoleGraph1D", "MGKNOrthogonalConfig",
+           "mgkn_orthogonal_init", "mgkn_orthogonal_apply",
+           "mgkn_orthogonal_apply_batched", "multipole_batch"]

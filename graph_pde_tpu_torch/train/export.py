@@ -5,7 +5,8 @@ the code: ``params/`` (a ``train/checkpoint.py`` checkpoint of the
 parameter tree, through ``torch.save``) and ``bundle.json`` with the JAX
 package's schema: ``model_config_class``, ``model_config`` (the config
 dataclass as a dict), ``normalizers`` (name -> ``convert.
-normalizer_state``) and ``extra`` (family, dataset, radius, experiment).
+normalizer_state``) and ``extra`` (family, dataset, radius or train_s,
+experiment). GKN and orthogonal MGKN bundles load.
 A JAX bundle's params are an orbax checkpoint, which only the JAX
 package reads; its ``bundle.json`` loads here as it is.
 """
@@ -19,12 +20,13 @@ from typing import Any, Dict, Optional
 from ..convert import normalizer_from_state, normalizer_state
 from ..data.datasets import map_arrays
 from ..models.gkn import GKNConfig
+from ..models.mgkn_orthogonal import MGKNOrthogonalConfig
 from .checkpoint import restore_checkpoint, save_checkpoint
 
-_MODEL_CONFIGS = {"GKNConfig": GKNConfig}
+_MODEL_CONFIGS = {"GKNConfig": GKNConfig,
+                  "MGKNOrthogonalConfig": MGKNOrthogonalConfig}
 # model config classes of the JAX package whose models are not ported yet
 _NOT_PORTED = {"MGKNGeneralConfig": "ROADMAP queue A: MGKN general",
-               "MGKNOrthogonalConfig": "ROADMAP queue A: MGKN orthogonal",
                "GCNConfig": "ROADMAP queue A: GCN"}
 _META = "bundle.json"
 

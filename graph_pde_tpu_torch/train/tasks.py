@@ -1,11 +1,13 @@
 """Task adapters binding a model family to the trainer (counterpart of
-graph_pde_tpu/train/tasks.py; GKN only, the MGKN and GCN tasks come with
-their models)."""
+graph_pde_tpu/train/tasks.py; GKN and orthogonal MGKN, the MGKN-general
+and GCN tasks come with their models)."""
 from __future__ import annotations
 
 import torch
 
 from ..models.gkn import GKNConfig, gkn_apply_batched
+from ..models.mgkn_orthogonal import (MGKNOrthogonalConfig,
+                                      mgkn_orthogonal_apply_batched)
 from .trainer import Task
 
 
@@ -46,4 +48,21 @@ class GKNTask(_NormalizerDecodeMixin, Task):
         return _node_mask_batched(batch)
 
 
-__all__ = ["GKNTask"]
+class MGKNOrthogonalTask(_NormalizerDecodeMixin, Task):
+    def __init__(self, cfg: MGKNOrthogonalConfig, u_normalizer=None,
+                 loss_type="rel2"):
+        self.cfg = cfg
+        self.u_normalizer = u_normalizer
+        self.loss_type = loss_type
+        self.use_sample_idx = False  # full-grid outputs
+
+    def forward(self, params, batch):
+        return mgkn_orthogonal_apply_batched(params, self.cfg, batch)
+
+    def mask(self, batch):
+        b = batch.x.shape[0]
+        return torch.ones((b, self.cfg.s), dtype=torch.float32,
+                          device=batch.x.device)
+
+
+__all__ = ["GKNTask", "MGKNOrthogonalTask"]

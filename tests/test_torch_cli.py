@@ -17,15 +17,22 @@ import pytest
 import torch
 
 from graph_pde_tpu import inference as jinf
+from graph_pde_tpu.data import datasets as jdata
+from graph_pde_tpu.data import synthetic as jsyn
 from graph_pde_tpu.models import gkn as jgkn
+from graph_pde_tpu.models import mgkn_orthogonal as jmo
 from graph_pde_tpu.train import export as jexport
 from graph_pde_tpu.utils import normalizers as jnorm
 
 from graph_pde_tpu_torch import cli
-from graph_pde_tpu_torch.convert import gkn_params_from_numpy
-from graph_pde_tpu_torch.data import load_or_generate_darcy
+from graph_pde_tpu_torch import train as ttrain
+from graph_pde_tpu_torch.convert import (gkn_params_from_numpy,
+                                         mgkn_orthogonal_params_from_numpy)
+from graph_pde_tpu_torch.data import (load_or_generate_burgers,
+                                      load_or_generate_darcy)
 from graph_pde_tpu_torch.experiments import names
-from graph_pde_tpu_torch.inference import GKNPredictor
+from graph_pde_tpu_torch.inference import (GKNPredictor,
+                                           MGKNOrthogonalPredictor)
 from graph_pde_tpu_torch.train import load_bundle, load_meta
 from graph_pde_tpu_torch.utils.matio import MatReader
 
@@ -184,3 +191,72 @@ def test_jax_bundle_served_by_the_port(tmp_path):
     err = np.abs(got - want).max() / np.abs(want).max()
     assert err <= SERVE_TOL, err
     assert os.path.isdir(os.path.join(d, "params"))
+
+
+# a seconds-scale orthogonal MGKN run: s=16 (three levels), one epoch
+ORTHO_RUN = ["run", "mgkn_orthogonal_burgers1d", "--set", "source_res=16",
+             "--set", "downsample=1", "--set", "ntrain=2", "--set",
+             "ntest=1", "--set", "epochs=1", "--set", "width=8", "--set",
+             "ker_width=32", "--set", "depth=1", "--device", "cpu"]
+
+
+def test_predict_orthogonal_bundle_equals_the_predictor(tmp_path, capsys):
+    """run --bundle on the orthogonal MGKN, then predict on synthetic
+    Burgers fields at the bundle's s: the written predictions equal the
+    predictor's, and another s is refused as the JAX predictor refuses
+    it."""
+    d = str(tmp_path / "ortho")
+    assert cli.main(ORTHO_RUN + ["--bundle", d]) == 0
+    capsys.readouterr()
+    params, cfg, norms, extra = load_bundle(d)
+    assert extra["family"] == "mgkn_orthogonal" and extra["train_s"] == 16
+    assert cfg.s == 16 and cfg.impl == "kcached"
+    out = str(tmp_path / "pred.mat")
+    rc = cli.main(["predict", d, "--synthetic", "2", "--output", out,
+                   "--device", "cpu"])
+    assert rc == 0
+    summary = _last_json(capsys.readouterr().out)
+    assert summary["n"] == 2 and summary["s"] == 16
+    assert np.isfinite(summary["rel_l2"])
+    got = MatReader(out).read_field("pred")
+    pred = MGKNOrthogonalPredictor(params, cfg, norms["a"], norms["u"],
+                                   device="cpu")
+    want = pred.predict(load_or_generate_burgers(2, 16)["a"])
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="training resolution s=16"):
+        pred.predict(np.zeros((1, 8), np.float32))
+
+
+def test_jax_orthogonal_bundle_served_by_the_port(tmp_path, monkeypatch,
+                                                  capsys):
+    """A JAX orthogonal-MGKN bundle through the port's ``cli predict``:
+    JAX restores its params (orbax), the port reads bundle.json itself;
+    the port's predictions within 1e-5 of the max-abs of the JAX
+    predictor's on the same fields."""
+    fields = jsyn.burgers_dataset(3, 16, seed=4, gen_res=256)
+    arrays = jdata.prepare_burgers(fields, n=3)
+    jcfg = jmo.MGKNOrthogonalConfig(width=8, ker_width=32, depth=2, s=16,
+                                    impl="kcached")
+    d = str(tmp_path / "jax_ortho")
+    jexport.save_bundle(
+        d, jmo.mgkn_orthogonal_init(jax.random.PRNGKey(2), jcfg), jcfg,
+        normalizers={"a": arrays.a_normalizer, "u": arrays.u_normalizer},
+        extra={"family": "mgkn_orthogonal", "experiment": "x",
+               "dataset": "burgers", "train_s": 16})
+    jp, jc, jn, _ = jexport.load_bundle(d)
+    tp = mgkn_orthogonal_params_from_numpy(jax.tree.map(np.asarray, jp),
+                                           "cpu")
+    monkeypatch.setattr(ttrain, "load_bundle",
+                        lambda path: (tp, *load_meta(path)))
+    out = str(tmp_path / "pred.mat")
+    rc = cli.main(["predict", d, "--synthetic", "2", "--output", out,
+                   "--device", "cpu"])
+    assert rc == 0
+    assert _last_json(capsys.readouterr().out)["s"] == 16
+    got = MatReader(out).read_field("pred")
+    want = np.asarray(jinf.MGKNOrthogonalPredictor(
+        jp, jc, jn["a"], jn["u"]).predict(
+            load_or_generate_burgers(2, 16)["a"]))
+    assert got.shape == want.shape == (2, 16)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= SERVE_TOL, err

@@ -234,6 +234,52 @@ def test_wrappers_raise_on_unsupported_cuda_shapes(dev):
         fused_iterate_total(x, s, K, setup, in_channels=16, out_channels=16)
 
 
+# (edge list, kappa layers) of the orthogonal MGKN at s=1024: the
+# nearest-neighbor list with the widest kappa, and two coarse levels
+ORTHO_SHAPES = [(0, (4, 1024, 1024, 64 * 64)), (4, (4, 64, 64, 64 * 64)),
+                (6, (4, 16, 16, 64 * 64))]
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, 1e-4), ("bfloat16", 5e-3)])
+@pytest.mark.parametrize("idx,layers", ORTHO_SHAPES)
+def test_k1_b1_bwd_orthogonal_kappas(dev, dtype, tol, idx, layers):
+    """K1 and B1-bwd at the orthogonal model's level shapes (attr width
+    4, kw1 = kw2 from 1024 down to 16, general form) on the level's own
+    periodic edge list: the forward and every B1-bwd output against the
+    plain versions, in the forms k1_form and b1_bwd_form pick."""
+    from graph_pde_tpu_torch.graph.multipole import (_interactive_edges,
+                                                     _nearest_neighbor_edges)
+
+    n = 1024 // 2 ** max(idx - 1, 0)
+    ei = (_nearest_neighbor_edges(n, True) if idx == 0
+          else _interactive_edges(n, True))
+    g = torch.Generator().manual_seed(idx)
+    kp = dense_init(g, list(layers), device=dev)
+    e = ei.shape[1]
+    x = torch.randn(n, 64, generator=g).to(dev)
+    s = torch.as_tensor(ei[0]).to(dev)
+    a = torch.rand(e, 4, generator=g).to(dev)
+    kw_args = dict(in_channels=64, out_channels=64, compute_dtype=dtype)
+    form = k1_form(layer_dims(kp), 64, 64, dtype)
+    assert form == "general"
+    before = fused_edge_messages.general_launches
+    got = fused_edge_messages(x, s, a, kp, **kw_args)
+    torch.cuda.synchronize()
+    assert fused_edge_messages.general_launches == before + 1
+    assert _rel(got, edge_messages_plain(x, s, a, kp, **kw_args)) <= tol
+    h2 = dense_apply(kp[:-1], a, out_nonlinearity=torch.relu)
+    gg = torch.randn(e, 64, generator=g).to(dev)
+    kw = layers[1]
+    attr = f"{b1_bwd_form(kw, 64, 64, dtype)}_launches"
+    assert attr == ("tc_launches" if dtype else "simt_launches")
+    before = getattr(fused_edge_messages_bwd, attr)
+    got = fused_edge_messages_bwd(x, s, h2, gg, kp[-1]["w"], **kw_args)
+    torch.cuda.synchronize()
+    assert getattr(fused_edge_messages_bwd, attr) == before + 1
+    want = edge_messages_bwd_plain(x, s, h2, gg, kp[-1]["w"], **kw_args)
+    for name, a_, b_ in zip(("dx_src", "dh2", "dWl", "dbl"), got, want):
+        assert _rel(a_, b_) <= tol, name
+
 # (kw, in, out): the GKN shape, the ker_width 1024 'nn' kappa, a narrow
 # kappa, no small layer (kw = attr width), out not a power of two, out > 128
 B1_SHAPES = [(256, 64, 64), (1024, 64, 64), (32, 16, 16), (6, 3, 100),

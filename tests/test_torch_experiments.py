@@ -77,8 +77,7 @@ def test_sweep_configs_match_jax(name):
 
 
 @pytest.mark.parametrize("name", ["mgkn_general_darcy2d", "neurips4_gcn",
-                                  "mgkn_orthogonal_burgers1d",
-                                  "grain_torus_timeseries", "neurips5_gkn"])
+                                  "grain_torus_timeseries"])
 def test_unported_experiments_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         trun.run_experiment(treg.get(name), smoke=True, device="cpu")
