@@ -23,7 +23,11 @@ Phases, each fatal on failure:
      uai1 s=61 training graph (fp32 and bf16 K) and in every K stream
      type at widths 16 and 128 (warp form) and 12 and 512 (block form);
      every kernel at registry shapes the main paths do not reach (the
-     general forms); B3-fwd and B3-bwd (fp32 and bf16 K) at the uai1
+     general forms; K1's general form and B1-bwd's SIMT form both on
+     16,384 edges, where they split the work over channel groups or
+     depth splits, and on 131,072 edges, where one group and one split
+     fill the card, a second launch bit-identical); B3-fwd and B3-bwd
+     (fp32 and bf16 K) at the uai1
      full-graph shape and at widths 12 and 128; K2 and B2-bwd on the
      e4m3 and e5m2 fp8 K streams of the full uai1 graph; K1's bf16
      tensor-core form on the full uai4 s=241 graph, on a ragged prefix
@@ -89,12 +93,13 @@ Phases, each fatal on failure:
      temporary directory: K1 and B1-bwd against their plain versions at
      each of the ten level shapes of the full-width model (kappa (4, kw,
      kw, 4096), kw 1024 ... 16, fp32 and bf16, every B1-bwd output); K1
-     general and B1-bwd SIMT timed at kw 1024 and 512; `run
+     general and B1-bwd SIMT timed at every level, their grids logged at
+     kw 1024 and 512 and each of their kernels profiled at kw 1024; `run
      mgkn_orthogonal_burgers1d` (width 64, ker_width 1024, depth 4,
      s=1024, 2 steps, 1 test sample) under the registry's
      impl='kcached' with `--bundle` (no launch) and under `--set
      impl=auto` (each step K1 general 36, K1 simt 4, B1-bwd simt 40),
-     one step of each profiled, K1 and B1-bwd timed at every level;
+     one step of each profiled;
      `predict` on the kcached bundle against the
      plain predictor (impl='reference'; 1e-4); the full-width step-1
      gradients of impl='auto' against 'reference' (1e-4); `run
@@ -294,6 +299,28 @@ def phase_kernels_vs_plain(g, h, params) -> dict:
     return errs
 
 
+def k1_general_grid(e, w, sms) -> dict:
+    """K1 general's last-layer grid on e edges, in = out = w: the
+    channel groups G that k1_general_groups picks and the blocks."""
+    from graph_pde_tpu_torch.ops.fused_edge_conv import k1_general_groups
+
+    groups, per = k1_general_groups(e, w, w, sms)
+    return dict(G=groups, channels_a_group=min(per, w),
+                blocks=-(-e // 128) * groups * -(-w // 128))
+
+
+def b1_simt_grid(e, kw, w, sms) -> dict:
+    """B1-bwd SIMT's dx and dh grids on e edges, in = out = w: the
+    channel groups Gx and depth splits S that b1_bwd_simt_grid picks
+    and each kernel's blocks."""
+    from graph_pde_tpu_torch.ops.fused_edge_conv import b1_bwd_simt_grid
+
+    gx, _, hs, depth = b1_bwd_simt_grid(e, kw, w, w, sms)
+    return dict(Gx=gx, S=hs, depth=min(depth, w * w),
+                blocks_dx=-(-e // 128) * gx,
+                blocks_dh=-(-e // 128) * -(-kw // 128) * hs)
+
+
 def phase_general_forms(g, dev) -> dict:
     """K1's general form and K2's column passes against the plain
     versions, at shapes of registry configs that the serving path does
@@ -301,7 +328,10 @@ def phase_general_forms(g, dev) -> dict:
     width-16 kappa (6, 16, 32, 256), K2 at width 128 (K rows of 16384)
     and at width 12 (the element-wise path); B1-bwd at the same two
     kappas and B2-bwd at the same two widths. On the first GENERAL_SLICE
-    edges of the s=61 graph, weights and features from a seed."""
+    edges of the s=61 graph, weights and features from a seed; K1
+    general and B1-bwd's SIMT form also on the first GENERAL_TIME_SLICE
+    edges, where their grids take one channel group and one depth
+    split (on GENERAL_SLICE edges, several)."""
     import torch
 
     from graph_pde_tpu_torch.ops.dense import (dense_apply, dense_init,
@@ -318,28 +348,43 @@ def phase_general_forms(g, dev) -> dict:
     setup = sorted_iterate_setup(g.receivers[:GENERAL_SLICE],
                                  g.edge_mask()[:GENERAL_SLICE], n)
     errs = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.inference_mode():
+        # K1 general on GENERAL_SLICE edges (several channel groups) and
+        # on GENERAL_TIME_SLICE edges (one group: the edge tiles fill the
+        # card); a second launch bit-identical
         for layers, w in (((6, 1024, 1024, 4096), 64), ((6, 16, 32, 256), 16)):
             kp = dense_init(gen, layers, device=dev)
             require(not kernel_shape_supported(layer_dims(kp), w, w),
                     f"{layers} takes the general form")
             x = torch.randn(n, w, generator=gen).to(dev)
-            for dt, tol in ((None, F32_TOL), ("bfloat16", BF16_TOL)):
-                zero_counts()
-                got = fused_edge_messages(x, s, a, kp, in_channels=w,
-                                          out_channels=w, compute_dtype=dt)
-                counts = read_counts()
-                want = edge_messages_plain(x, s, a, kp, in_channels=w,
-                                           out_channels=w, compute_dtype=dt)
-                torch.cuda.synchronize()
-                ab, rel = rel_err(got, want)
-                name = f"K1 general {layers} {dt or 'float32'}"
-                log(f"phase 2: {name}: max-abs err {ab:.3e}, relative "
-                    f"{rel:.3e} (tol {tol:g})")
-                require(counts["K1 general"] == 1 == counts["K1"],
-                        f"{name}: took the general form ({counts})")
-                require(rel <= tol and bool(torch.isfinite(got).all()), name)
-                errs[name] = ab
+            for ne in (GENERAL_SLICE, GENERAL_TIME_SLICE):
+                grid = k1_general_grid(ne, w, sms)
+                require((grid["G"] > 1) == (ne == GENERAL_SLICE),
+                        f"K1 general {layers} on {ne} edges: grid {grid}")
+                sl, al = g.senders[:ne], g.edge_attr[:ne]
+                for dt, tol in ((None, F32_TOL), ("bfloat16", BF16_TOL)):
+                    kw_args = dict(in_channels=w, out_channels=w,
+                                   compute_dtype=dt)
+                    zero_counts()
+                    got = fused_edge_messages(x, sl, al, kp, **kw_args)
+                    again = fused_edge_messages(x, sl, al, kp, **kw_args)
+                    counts = read_counts()
+                    want = edge_messages_plain(x, sl, al, kp, **kw_args)
+                    torch.cuda.synchronize()
+                    ab, rel = rel_err(got, want)
+                    name = f"K1 general {layers} {dt or 'float32'}"
+                    log(f"phase 2: {name}, {ne} edges, grid {grid}: max-abs "
+                        f"err {ab:.3e}, relative {rel:.3e} (tol {tol:g}); "
+                        f"second launch bit-identical")
+                    require(counts["K1 general"] == 2 == counts["K1"],
+                            f"{name}: took the general form ({counts})")
+                    require(bool(torch.equal(got, again)),
+                            f"{name}: a second launch is bit-identical")
+                    require(rel <= tol and bool(torch.isfinite(got).all()),
+                            name)
+                    errs[name] = max(errs.get(name, 0.0), ab)
+                del got, again, want
         for w in (128, 12):
             kp = dense_init(gen, (6, 32, w * w), device=dev)
             x = torch.randn(n, w, generator=gen).to(dev)
@@ -360,15 +405,31 @@ def phase_general_forms(g, dev) -> dict:
                         name)
                 errs[name] = ab
             del kk, K
-        # B1-bwd at the same kappas (one code path for every shape)
+        # B1-bwd at the same kappas (one code path for every shape); its
+        # SIMT form (float32) also on GENERAL_TIME_SLICE edges, where the
+        # dx and dh grids take one group and one split
+        gen1 = torch.Generator().manual_seed(SEED + 15)
         for layers, w in (((6, 1024, 1024, 4096), 64), ((6, 16, 32, 256), 16)):
             kp = dense_init(gen, layers, device=dev)
             x = torch.randn(n, w, generator=gen).to(dev)
             h2 = dense_apply(kp[:-1], a, out_nonlinearity=torch.relu)
             gg = torch.randn(GENERAL_SLICE, w, generator=gen).to(dev)
+            log(f"phase 2: B1-bwd {layers}, {GENERAL_SLICE} edges, SIMT "
+                f"grid {b1_simt_grid(GENERAL_SLICE, layers[-2], w, sms)}")
             for dt, tol in ((None, F32_TOL), ("bfloat16", BF16_TOL)):
                 name = f"B1-bwd {layers} {dt or 'float32'}"
                 check_b1_bwd(name, x, s, h2, gg, kp[-1]["w"], w, dt, tol)
+            ne = GENERAL_TIME_SLICE
+            grid = b1_simt_grid(ne, layers[-2], w, sms)
+            require(grid["Gx"] == 1 == grid["S"],
+                    f"B1-bwd {layers} on {ne} edges: grid {grid}")
+            h2 = dense_apply(kp[:-1], g.edge_attr[:ne],
+                             out_nonlinearity=torch.relu)
+            gg = torch.randn(ne, w, generator=gen1).to(dev)
+            check_b1_bwd(f"B1-bwd {layers} float32, {ne} edges, grid {grid}",
+                         x, g.senders[:ne], h2, gg, kp[-1]["w"], w, None,
+                         F32_TOL)
+            del h2, gg
         # B2-bwd: the warp form at widths 16 and 128 (64 is the uai1
         # graph's, below), the block form at 12 (element-wise) and 512
         # (K rows of 262,144 columns: the first B2_WIDE_SLICE edges), in
@@ -1726,7 +1787,7 @@ def phase_cli(warm_fused_uai1_ms: float) -> dict:
     return dict(launches=launches, uai1_unfused_warm_step_ms=warm)
 
 
-def profile_kernels(name, fn) -> None:
+def profile_kernels(name, fn, phase=6) -> None:
     """Device time of each CUDA kernel in one call of ``fn``, from a
     torch.profiler trace (written under results/)."""
     import torch
@@ -1737,7 +1798,8 @@ def profile_kernels(name, fn) -> None:
         fn()
         torch.cuda.synchronize()
     for ms, count, key in kernel_rows(prof):
-        log(f"phase 6: {name} profile: {key[:60]}: {ms:.3f} ms x {count}")
+        log(f"phase {phase}: {name} profile: {key[:60]}: {ms:.3f} ms x "
+            f"{count}")
 
 
 def kernel_rows(prof) -> list:
@@ -1768,15 +1830,17 @@ def b1_bwd_simt(x, s, h2, g, wl, w, dt):
     c = w * w
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     splits, dbl_splits = fe.bwd_splits(e, kw, c, sms)
+    _, x_per, hs, depth = fe.b1_bwd_simt_grid(e, kw, w, w, sms)
     new = lambda *sh: torch.zeros(sh, dtype=torch.float32, device=x.device)
     outs = (new(e, w), new(e, kw), new(kw, c), new(c), new(splits, kw, c),
-            new(dbl_splits, c))
+            new(dbl_splits, c), new(hs, e, kw) if hs > 1 else None)
     fn = kernels.fn("fused_edge_conv_bwd", "gpde_edge_messages_bwd",
                     fe._BWD_ARGS)
     stream = torch.cuda.current_stream().cuda_stream
-    kernels.check(fn(*[t.data_ptr() for t in (h2, x, s, g, wl, *outs)], e,
-                     kw, w, w, splits, dbl_splits, int(dt == "bfloat16"),
-                     stream), "B1-bwd SIMT form")
+    kernels.check(fn(*[t.data_ptr() for t in (h2, x, s, g, wl, *outs[:6])],
+                     None if outs[6] is None else outs[6].data_ptr(), e, kw,
+                     w, w, splits, dbl_splits, x_per, depth,
+                     int(dt == "bfloat16"), stream), "B1-bwd SIMT form")
     return outs[:4]
 
 
@@ -2257,7 +2321,8 @@ def ortho_times(graphs, params) -> dict:
     sample: kernel and plain times and bounds, and what the step's
     launches (depth of each a step) cost beyond their bounds. The two
     widest levels, kw 1024 (E 2,048) and kw 512 (E 3,066), go into the
-    kernels line."""
+    kernels line with their grids; at kw 1024 each kernel of the two
+    calls is profiled."""
     import torch
 
     from graph_pde_tpu_torch.ops.dense import dense_apply, layer_dims
@@ -2266,6 +2331,7 @@ def ortho_times(graphs, params) -> dict:
         fused_edge_messages_bwd, k1_form)
 
     dev = params["fc1"]["w"].device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator().manual_seed(SEED + 14)
     depth = ortho_config().depth
     rec, levels = {}, []
@@ -2299,9 +2365,16 @@ def ortho_times(graphs, params) -> dict:
             for r in (fwd, bwd):
                 set_bound(r)
             levels.append((idx, form, fwd, bwd))
+            if kw == 1024:   # each kernel of the two calls, by device time
+                profile_kernels("ortho_kw1024_K1", k1, phase=8)
+                profile_kernels("ortho_kw1024_B1-bwd", b1, phase=8)
             if kw in (1024, 512):
+                fwd["grid"] = k1_general_grid(e, 64, sms)
+                bwd["grid"] = b1_simt_grid(e, kw, 64, sms)
                 rec[f"K1 general ortho kw{kw}"] = fwd
                 rec[f"B1-bwd simt ortho kw{kw}"] = bwd
+    for key, r in rec.items():
+        log(f"phase 8: {key}: grid {r['grid']}")
     log("phase 8: level | kw | E | K1 form | K1 ms | plain | bound | "
         "B1-bwd ms | plain | bound")
     excess = {"K1 general": 0.0, "K1 simt": 0.0, "B1-bwd simt": 0.0}
@@ -2716,12 +2789,13 @@ def main(argv) -> int:
                f"{k} {dt}", counter=k, paths=b3_paths[dt])
         for k in ("B3-fwd", "B3-bwd") for dt in ("float32", "bfloat16")]
     # the orthogonal path's fp32 forms, at its widest level (kw 1024),
-    # with the kw 512 level beside it
+    # with the kw 512 level beside it, each with its call's grid
     records += [
         record(name, f"{key} ortho kw1024", source, replaces,
                f"{err} ortho float32", counter=key, form=key.split()[-1],
+               grid=times[f"{key} ortho kw1024"]["grid"],
                at_kw512={f: times[f"{key} ortho kw512"][f]
-                         for f in ("ms", "plain_ms", "bound_ms")},
+                         for f in ("ms", "plain_ms", "bound_ms", "grid")},
                orthogonal_step_excess_ms=times[f"{key} ortho kw1024"][
                    "step_excess_ms"])
         for name, key, source, replaces, err in (

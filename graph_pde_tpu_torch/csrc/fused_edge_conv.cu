@@ -52,6 +52,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
 #include "sm90_tc.cuh"
 
 namespace {
@@ -62,6 +65,23 @@ constexpr int BK = 16;        // depth of one staged B slab
 constexpr int THREADS = 256;
 constexpr int OUT = 64;       // out_channels this kernel takes
 constexpr int MAX_ADIM = 16;  // edge attribute width bound
+
+// Raises a kernel's dynamic shared memory bound to `bytes` once for each
+// device: `done` is the kernel's own set of devices already raised (bit
+// d for device ordinal d), so a launch makes no attribute call.
+cudaError_t smem_once(const void* kernel, int bytes,
+                      std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
 
 template <bool RB>
 __device__ __forceinline__ float rnd(float v) {
@@ -146,14 +166,29 @@ __device__ __forceinline__ void tile_gemm(const float* __restrict__ At, int K,
   }
 }
 
+// v = the eight floats at p (16-byte aligned) if ok, else zeros.
+__device__ __forceinline__ void ld8_or_zero(bool ok, const float* p,
+                                            float (&v)[8]) {
+  float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+  if (ok) {
+    lo = __ldg(reinterpret_cast<const float4*>(p));
+    hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
 // The same product with both operands streamed from global memory and
 // every bound checked: c[r][j] += sum_k A[m0 + row(r)][k] * B[k][col(j)]
 // over k < K, with A row-major [M][K] and B row-major with leading dim
 // ldb. Tile column bc + q of this thread's B loads (bc = (tid & 15) * 8)
 // is B column boff[q], or zero where boff[q] < 0; rows >= M and k >= K
 // read as zero. As: shared 2 x [BK][TE] (k-major), Bs: shared
-// 2 x [BK][BN]. Ends with a barrier.
-template <bool RB>
+// 2 x [BK][BN]. Ends with a barrier. VEC: K % 8 == 0, A and B 16-byte
+// aligned, ldb % 4 == 0, and boff[q] == boff[0] + q (boff[0] % 4 == 0)
+// or every boff[q] < 0, so each thread's eight operands of A and of B
+// are two float4 loads.
+template <bool RB, bool VEC>
 __device__ __forceinline__ void tile_gemm_streamed(
     const float* __restrict__ A, int64_t M, int K, int64_t m0,
     const float* __restrict__ B, int64_t ldb, const int (&boff)[8],
@@ -169,11 +204,19 @@ __device__ __forceinline__ void tile_gemm_streamed(
   auto fetch = [&](int kt) {
     const int k0 = kt * BK;
     const int kb = k0 + br;
+    if constexpr (VEC) {
+      const bool a_ok = a_live && k0 + ak < K;
+      const bool b_ok = kb < K && boff[0] >= 0;
+      ld8_or_zero(a_ok, a_ok ? a_row + k0 + ak : A, sa);
+      ld8_or_zero(b_ok, b_ok ? B + kb * ldb + boff[0] : B, sb);
+    } else {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int k = k0 + ak + q;
-      sa[q] = (a_live && k < K) ? __ldg(a_row + k) : 0.f;
-      sb[q] = (kb < K && boff[q] >= 0) ? __ldg(B + kb * ldb + boff[q]) : 0.f;
+      for (int q = 0; q < 8; ++q) {
+        const int k = k0 + ak + q;
+        sa[q] = (a_live && k < K) ? __ldg(a_row + k) : 0.f;
+        sb[q] = (kb < K && boff[q] >= 0) ? __ldg(B + kb * ldb + boff[q])
+                                         : 0.f;
+      }
     }
   };
   auto stash = [&](int buf) {
@@ -664,13 +707,30 @@ int launch(const float* x, const int64_t* senders, const float* attr,
 //   dense_relu_kernel, once per small layer: h <- relu(h @ W + b), with
 //     h in a device scratch buffer. These are the small activations,
 //     never K.
-//   last_contract_kernel: per tile of 128 edges, streams h and Wl and
-//     folds each 128-column tile of K into the messages in registers.
+//   last_contract_kernel: per tile of 128 edges and group of input
+//     channels, streams h and Wl and folds each 128-column tile of K
+//     into the messages (K never leaves the SM).
 // A K tile holds P = 128 / ow input channels of ow output columns each,
 // ow = out_ch rounded up to a power of two, at most 128 (above 128
-// outputs, blockIdx.y picks the block's 128 outputs and P = 1). Threads
-// whose columns share an output meet in shared memory at the end and
-// are summed in a fixed order.
+// outputs, blockIdx.z picks the block's 128 outputs and P = 1).
+//
+// What bounds it: operations, on the fp32 SIMT units (or bf16-rounded
+// operands, still fp32 FMAs). The multipole models' levels have few
+// edges (16 to 3,066 at s = 1024), so a grid of one block per 128 edges
+// would leave most of the 132 SMs idle. Block (m, g, z) owns 128 edges
+// and the g-th group of `per` input channels, whole K tiles; the caller
+// picks the number of groups G (ops/fused_edge_conv.py
+// k1_general_groups) so that the grid fills the card twice over where
+// the tiles allow, and G = 1 where the edge tiles alone do. Each thread
+// keeps its 8 x 8 partial messages in its own slots of shared memory,
+// so the registers hold only the K tile and two blocks share an SM. At
+// the end the threads whose columns share an output meet there and are
+// summed in a fixed order. With G > 1 each block writes its group's
+// partial messages and sum_parts_kernel adds the G partials in the
+// order g = 0, 1, ...: bit-repeatable, no atomics. With G == 1 the
+// block writes the messages. Where K % 8 == 0 and out_ch % 8 == 0 (and
+// h, Wl are 16-byte aligned: VEC) a thread's eight h and eight Wl
+// operands of a slab are two float4 loads each.
 
 template <bool RB>
 __global__ void __launch_bounds__(THREADS)
@@ -695,7 +755,7 @@ dense_relu_kernel(const float* __restrict__ A, int64_t M, int K,
 #pragma unroll
     for (int j = 0; j < 8; ++j) c[r][j] = 0.f;
   }
-  tile_gemm_streamed<RB>(A, M, K, m0, W, N, boff, as, bs, c);
+  tile_gemm_streamed<RB, false>(A, M, K, m0, W, N, boff, as, bs, c);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = n0 + tile_col(tx, j);
@@ -709,49 +769,56 @@ dense_relu_kernel(const float* __restrict__ A, int64_t M, int K,
   }
 }
 
-template <bool RB>
-__global__ void __launch_bounds__(THREADS, 1)
+// Partial slots of a thread: its 8 x 8 messages as 16 float4s, slot
+// 2 * r + j / 4 of thread t at acc[slot * THREADS + t] (a warp's 32
+// threads read 512 contiguous bytes).
+constexpr int ACC_SLOTS = 16;
+constexpr size_t kLastSmem =
+    sizeof(float) * (2 * BK * TE + 2 * BK * BN) +
+    sizeof(float4) * ACC_SLOTS * THREADS;   // as, bs, acc: 96 KB
+
+// out[g][e][o] (out = msg where gridDim.y == 1): the messages of block
+// (m, g, z)'s edges over input channels [g * per, (g + 1) * per) and
+// outputs [128 z, 128 z + 128). per is a multiple of P (or >= in_ch).
+template <bool RB, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
 last_contract_kernel(const float* __restrict__ h, int64_t M, int K,
                      const float* __restrict__ wl,
                      const float* __restrict__ bl,
                      const float* __restrict__ x,
                      const int64_t* __restrict__ senders,
-                     float* __restrict__ msg, int in_ch, int out_ch,
-                     int ow) {
+                     float* __restrict__ out, int in_ch, int out_ch,
+                     int ow, int per) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* as = smem;                  // 2 x [BK][TE]
-  float* bs = smem + 2 * BK * TE;    // 2 x [BK][BN]
-  float* red = smem;                 // [TE][BN] once the tiles are done
+  float* as = reinterpret_cast<float*>(smem4);   // 2 x [BK][TE]
+  float* bs = as + 2 * BK * TE;                  // 2 x [BK][BN]
+  float4* acc = smem4 + (2 * BK * TE + 2 * BK * BN) / 4;
+  __shared__ int64_t src[TE];        // x row offset of each edge, or -1
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
   const int64_t m0 = (int64_t)blockIdx.x * TE;
-  const int o0 = blockIdx.y * BN;
+  const int i_lo = blockIdx.y * per;
+  const int i_hi = in_ch - i_lo < per ? in_ch : i_lo + per;
+  const int o0 = blockIdx.z * BN;
   const int P = BN / ow;
   const int64_t C = (int64_t)in_ch * out_ch;
 
-  int64_t src[8];                    // x row offset of each of my edges
+  if (tid < TE) src[tid] = m0 + tid < M ? senders[m0 + tid] * in_ch : -1;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int64_t row = m0 + tile_row(ty, r);
-    src[r] = row < M ? senders[row] * in_ch : -1;
+  for (int q = 0; q < ACC_SLOTS; ++q) {
+    acc[q * THREADS + tid] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  float acc[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
-  }
+  // src is read after tile_gemm_streamed's first barrier
 
-  for (int i0 = 0; i0 < in_ch; i0 += P) {
+  for (int i0 = i_lo; i0 < i_hi; i0 += P) {
     // tile column col is channel i0 + col / ow, output o0 + col % ow
     int boff[8];
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int col = tx * 8 + q;
       const int i = i0 + col / ow, o = o0 + col % ow;
-      boff[q] = (i < in_ch && o < out_ch) ? i * out_ch + o : -1;
+      boff[q] = (i < i_hi && o < out_ch) ? i * out_ch + o : -1;
     }
     float c[8][8];
 #pragma unroll
@@ -759,47 +826,75 @@ last_contract_kernel(const float* __restrict__ h, int64_t M, int K,
 #pragma unroll
       for (int j = 0; j < 8; ++j) c[r][j] = 0.f;
     }
-    tile_gemm_streamed<RB>(h, M, K, m0, wl, C, boff, as, bs, c);
+    tile_gemm_streamed<RB, VEC>(h, M, K, m0, wl, C, boff, as, bs, c);
+    int ich[8];       // channel of column j, or -1 outside the shape
+    float bias[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = tile_col(tx, j);
       const int i = i0 + col / ow, o = o0 + col % ow;
-      if (i >= in_ch || o >= out_ch) continue;
-      const float bias = __ldg(bl + i * out_ch + o);
+      const bool ok = i < i_hi && o < out_ch;
+      ich[j] = ok ? i : -1;
+      bias[j] = ok ? __ldg(bl + i * out_ch + o) : 0.f;
+    }
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        if (src[r] < 0) continue;
-        const float xv = rnd<RB>(__ldg(x + src[r] + i));
-        const float kv = c[r][j] + bias;
-        if constexpr (RB) {
-          acc[r][j] += rnd<RB>(kv * xv);
-        } else {
-          acc[r][j] = fmaf(kv, xv, acc[r][j]);
+    for (int r = 0; r < 8; ++r) {
+      const int64_t s = src[tile_row(ty, r)];
+      if (s < 0) continue;
+#pragma unroll
+      for (int jq = 0; jq < 2; ++jq) {
+        float4* slot = acc + (r * 2 + jq) * THREADS + tid;
+        const float4 a = *slot;
+        float v[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = jq * 4 + jj;
+          if (ich[j] < 0) continue;
+          const float xv = rnd<RB>(__ldg(x + s + ich[j]));
+          const float kv = c[r][j] + bias[j];
+          if constexpr (RB) {
+            v[jj] += rnd<RB>(kv * xv);
+          } else {
+            v[jj] = fmaf(kv, xv, v[jj]);
+          }
         }
+        *slot = make_float4(v[0], v[1], v[2], v[3]);
       }
     }
   }
-
-  // tile_gemm_streamed ended with a barrier: as and bs are free
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      red[tile_row(ty, r) * BN + tile_col(tx, j)] = acc[r][j];
-    }
-  }
   __syncthreads();
+
+  // out[e, o] = sum_p acc(e, p * ow + o), p = 0, 1, ...: element (row,
+  // col) of the block's tile is thread ((row % 64) / 4) * 16 + (col %
+  // 64) / 4, r = (row / 64) * 4 + row % 4, j = (col / 64) * 4 + col % 4
+  const float* accf = reinterpret_cast<const float*>(acc);
+  float* dst = out + (int64_t)blockIdx.y * M * out_ch;
   for (int idx = tid; idx < TE * ow; idx += THREADS) {
     const int e = idx / ow, o = idx - e * ow;
     const int64_t row = m0 + e;
     if (row >= M || o0 + o >= out_ch) continue;
+    const int t_row = ((e & 63) >> 2) * 16;
+    const int r = (e >> 6) * 4 + (e & 3);
     float s = 0.f;
-    for (int g = 0; g < P; ++g) s += red[e * BN + g * ow + o];
-    msg[row * out_ch + o0 + o] = s;
+    for (int p = 0; p < P; ++p) {
+      const int col = p * ow + o;
+      const int t = t_row + ((col & 63) >> 2);
+      s += accf[((r * 2 + (col >> 6)) * THREADS + t) * 4 + (col & 3)];
+    }
+    dst[row * out_ch + o0 + o] = s;
   }
 }
 
-constexpr size_t kLastSmem = sizeof(float) * TE * BN;  // red; as + bs fit
+// out[j] = sum_{g < G} part[g][j], in order of g.
+__global__ void __launch_bounds__(THREADS)
+sum_parts_kernel(const float* __restrict__ part, int G, int64_t n,
+                 float* __restrict__ out) {
+  const int64_t j = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (j >= n) return;
+  float s = 0.f;
+  for (int g = 0; g < G; ++g) s += part[(int64_t)g * n + j];
+  out[j] = s;
+}
 
 template <bool RB>
 int launch_dense_relu(const float* A, int64_t M, int K, const float* W,
@@ -811,21 +906,28 @@ int launch_dense_relu(const float* A, int64_t M, int K, const float* W,
   return (int)cudaGetLastError();
 }
 
-template <bool RB>
+template <bool RB, bool VEC>
 int launch_last_contract(const float* h, int64_t M, int K, const float* wl,
                          const float* bl, const float* x,
-                         const int64_t* senders, float* msg, int in_ch,
-                         int out_ch, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      last_contract_kernel<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kLastSmem);
+                         const int64_t* senders, float* msg, float* part,
+                         int in_ch, int out_ch, int ow, int per,
+                         cudaStream_t stream) {
+  static std::atomic<uint64_t> ready{0};
+  cudaError_t err = smem_once(
+      reinterpret_cast<const void*>(last_contract_kernel<RB, VEC>),
+      (int)kLastSmem, ready);
   if (err != cudaSuccess) return (int)err;
-  int ow = 1;
-  while (ow < out_ch && ow < BN) ow <<= 1;
-  const dim3 grid((unsigned)((M + TE - 1) / TE),
+  const int groups = (in_ch + per - 1) / per;
+  const dim3 grid((unsigned)((M + TE - 1) / TE), (unsigned)groups,
                   (unsigned)((out_ch + BN - 1) / BN));
-  last_contract_kernel<RB><<<grid, THREADS, kLastSmem, stream>>>(
-      h, M, K, wl, bl, x, senders, msg, in_ch, out_ch, ow);
+  last_contract_kernel<RB, VEC><<<grid, THREADS, kLastSmem, stream>>>(
+      h, M, K, wl, bl, x, senders, groups > 1 ? part : msg, in_ch, out_ch,
+      ow, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || groups == 1) return (int)err;
+  const int64_t n = M * out_ch;
+  sum_parts_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
+                     stream>>>(part, groups, n, msg);
   return (int)cudaGetLastError();
 }
 
@@ -898,19 +1000,38 @@ int gpde_dense_relu(const float* A, int64_t M, int K, const float* W,
 
 // General form, last layer and contraction: msg [M, out_ch] from the
 // last hidden activations h [M, K], Wl [K, in_ch * out_ch], bl, x
-// [nodes, in_ch] and senders [M], all contiguous. Returns a cudaError_t.
+// [nodes, in_ch] and senders [M], all contiguous, in G = ceil(in_ch /
+// per) groups of `per` input channels: per is a multiple of the P
+// channels a K tile holds, or at least in_ch (refused with
+// cudaErrorInvalidValue otherwise). With G > 1, part [G, M, out_ch] is
+// scratch. Returns a cudaError_t.
 int gpde_last_contract(const float* h, int64_t M, int K, const float* wl,
                        const float* bl, const float* x,
-                       const int64_t* senders, float* msg, int in_ch,
-                       int out_ch, int round_bf16, void* stream) {
+                       const int64_t* senders, float* msg, float* part,
+                       int in_ch, int out_ch, int per, int round_bf16,
+                       void* stream) {
+  int ow = 1;
+  while (ow < out_ch && ow < BN) ow <<= 1;
+  if (per < 1 || (per % (BN / ow) != 0 && per < in_ch)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int groups = (in_ch + per - 1) / per;
+  if (groups > 65535 || (groups > 1 && part == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (M == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (round_bf16) {
-    return launch_last_contract<true>(h, M, K, wl, bl, x, senders, msg,
-                                      in_ch, out_ch, s);
-  }
-  return launch_last_contract<false>(h, M, K, wl, bl, x, senders, msg,
-                                     in_ch, out_ch, s);
+  const bool vec = K % 8 == 0 && out_ch % 8 == 0 &&
+                   (reinterpret_cast<uintptr_t>(h) |
+                    reinterpret_cast<uintptr_t>(wl)) % 16 == 0;
+  auto go = [&](auto rb, auto v) {
+    return launch_last_contract<decltype(rb)::value, decltype(v)::value>(
+        h, M, K, wl, bl, x, senders, msg, part, in_ch, out_ch, ow, per, s);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (round_bf16) return vec ? go(T{}, T{}) : go(T{}, F{});
+  return vec ? go(F{}, T{}) : go(F{}, F{});
 }
 
 }  // extern "C"

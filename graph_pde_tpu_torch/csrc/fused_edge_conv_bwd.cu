@@ -67,22 +67,32 @@
 // Neither h3 nor dpre ([E, C]) reaches device memory.
 //
 // The SIMT form (compute_dtype=None, and bf16 shapes outside the tiles):
-// fp32 FMAs on the SIMT units, three kernels per call.
-//   dx_dh_kernel, one block per tile of 128 edges: for each 128-column
-//     tile, h3 = h2 @ Wl[:, tile] in an 8x8 register tile per thread,
-//     multiplied by g and summed per input channel through shared
-//     memory (a fixed order); then dh2 = dpre @ Wl^T, 128 columns of dh2
-//     at a time, with dpre generated on the fly as the A operand.
+// fp32 FMAs on the SIMT units, each product a kernel on a grid of its
+// own, so that a call with few edges (the multipole levels have 16 to
+// 3,066) still spreads over every SM.
+//   dx_kernel, block (edge tile, channel group): for each 128-column
+//     tile of the group's whole input channels, h3 = h2 @ Wl[:, tile] in
+//     an 8x8 register tile per thread, multiplied by g and summed per
+//     input channel through shared memory (a fixed order); each (edge,
+//     channel) has one writer.
+//   dh_kernel, block (edge tile, 128 columns of dh2, depth split): dh2 =
+//     dpre @ Wl^T split-K over the depth C, with dpre generated on the
+//     fly as the A operand; with several splits, reduce_kernel sums
+//     their partial slabs in order.
 //   dw_kernel: dWl = h2^T @ dpre as a split-K product. Block (kt, ct, s)
 //     owns a 128 x 128 tile of dWl and the s-th contiguous range of
 //     edges, and writes its partial slab; dbl_kernel does the same for
 //     dbl over shorter ranges. reduce_kernel sums the partial slabs in
 //     order, as above.
+// The caller picks the channel groups and depth splits
+// (ops/fused_edge_conv.py b1_bwd_simt_grid): enough blocks for two waves
+// of two blocks an SM where the tiles allow, one group and one split
+// where the edge tiles alone fill the card.
 // All operands are streamed through double-buffered 16-deep slabs in
 // shared memory, eight per thread per slab: as two float4 loads where kw
 // and out are multiples of 8 (the GKN shapes), else element by element
 // with bounds checks, so every shape the JAX gate admits (kw <= 2048, any
-// in/out) runs through the same code. Both product kernels are held to
+// in/out) runs through the same code. The product kernels are held to
 // 128 registers so that two blocks share an SM. ROUND_BF16 rounds as
 // above.
 
@@ -90,6 +100,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "sm90_tc.cuh"
@@ -101,6 +112,23 @@ constexpr int BN = 128;       // columns of a block's output tile
 constexpr int BK = 16;        // depth of one staged slab
 constexpr int THREADS = 256;
 constexpr int RED_LD = BN + 1;  // padded row of the dx staging buffer
+
+// Raises a kernel's dynamic shared memory bound to `bytes` once for each
+// device: `done` is the kernel's own set of devices already raised (bit
+// d for device ordinal d), so a launch makes no attribute call.
+cudaError_t smem_once(const void* kernel, int bytes,
+                      std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
 
 template <bool RB>
 __device__ __forceinline__ float rnd(float v) {
@@ -222,16 +250,20 @@ __device__ __forceinline__ void tile_gemm(int K, FA fa, FB fb,
   }
 }
 
-// dx_src and dh2 for one tile of TE edges (see the header). VEC: kw % 8
-// == 0 and out_ch % 8 == 0, so every 8-run of a row lies inside the
-// matrix (and inside one input channel) and is read as two float4s.
+// dx_src for one tile of TE edges and the input channels [i_lo, i_hi)
+// of group blockIdx.y (`per` channels a group): h3 = h2 @ Wl over the
+// group's columns, 128 at a time from column i_lo * out, times g, and
+// summed per channel through shared memory in a fixed order. Every
+// (edge, channel) has this block as its one writer: a channel's first
+// piece is stored, its second (a channel across two column tiles)
+// added, in tile order. VEC: kw % 8 == 0 and out_ch % 8 == 0, so every
+// 8-run of a row lies inside the matrix (and inside one input channel)
+// and is read as two float4s.
 template <bool RB, bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
-dx_dh_kernel(const float* __restrict__ h2, const float* __restrict__ x,
-             const int64_t* __restrict__ senders, const float* __restrict__ g,
-             const float* __restrict__ wl, float* __restrict__ dx_src,
-             float* __restrict__ dh2, int64_t M, int kw, int in_ch,
-             int out_ch) {
+dx_kernel(const float* __restrict__ h2, const float* __restrict__ g,
+          const float* __restrict__ wl, float* __restrict__ dx_src,
+          int64_t M, int kw, int in_ch, int out_ch, int per) {
   __shared__ __align__(16) float As[2 * BK * TE];
   __shared__ __align__(16) float Bs[2 * BK * BN];
   extern __shared__ float red[];   // [TE][RED_LD]: h3 * g of one tile
@@ -240,16 +272,17 @@ dx_dh_kernel(const float* __restrict__ h2, const float* __restrict__ x,
   const int ty = tid >> 4, tx = tid & 15;
   const int64_t m0 = (int64_t)blockIdx.x * TE;
   const int C = in_ch * out_ch;
+  const int i_lo = blockIdx.y * per;
+  const int i_hi = in_ch - i_lo < per ? in_ch : i_lo + per;
+  const int c_end = i_hi * out_ch;
 
   // the A row this thread stages (A_ALONG_K mapping: row tid >> 1)
   const int64_t my_e = m0 + (tid >> 1);
   const bool my_live = my_e < M;
   const float* my_h2 = h2 + (my_live ? my_e * kw : 0);
-  const float* my_x = x + (my_live ? senders[my_e] * in_ch : 0);
-  const float* my_g = g + (my_live ? my_e * out_ch : 0);
 
-  // 1. dx_src[e, i] = sum_o (h2 @ Wl)[e, i*out + o] * g[e, o]
-  for (int c0 = 0; c0 < C; c0 += BN) {
+  // dx_src[e, i] = sum_o (h2 @ Wl)[e, i*out + o] * g[e, o]
+  for (int c0 = i_lo * out_ch; c0 < c_end; c0 += BN) {
     float c[8][8];
     zero(c);
     auto fa = [&](int, int k, float (&v)[8]) {
@@ -267,11 +300,11 @@ dx_dh_kernel(const float* __restrict__ h2, const float* __restrict__ x,
       const int cc = c0 + col;
       const float* p = wl + (int64_t)k * C + cc;
       if (VEC) {
-        if (k < kw && cc < C) ld8<RB>(p, v); else zero8(v);
+        if (k < kw && cc < c_end) ld8<RB>(p, v); else zero8(v);
       } else {
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          v[q] = (k < kw && cc + q < C) ? rnd<RB>(__ldg(p + q)) : 0.f;
+          v[q] = (k < kw && cc + q < c_end) ? rnd<RB>(__ldg(p + q)) : 0.f;
         }
       }
     };
@@ -285,16 +318,14 @@ dx_dh_kernel(const float* __restrict__ h2, const float* __restrict__ x,
         const int row = tile_row(ty, r);
         const int64_t e = m0 + row;
         const float gv =
-            (e < M && c0 + col < C) ? __ldg(g + e * out_ch + o) : 0.f;
+            (e < M && c0 + col < c_end) ? __ldg(g + e * out_ch + o) : 0.f;
         red[row * RED_LD + col] = c[r][j] * gv;
       }
     }
     __syncthreads();
     // channels i0 .. i1 - 1 touch this tile; each (edge, channel) pair
-    // sums its columns in order and adds to dx_src (this block alone
-    // owns these rows; a channel split across two tiles is added twice,
-    // in tile order)
-    const int c1 = C < c0 + BN ? C : c0 + BN;
+    // sums its columns in order
+    const int c1 = c_end < c0 + BN ? c_end : c0 + BN;
     const int i0 = c0 / out_ch, i1 = (c1 - 1) / out_ch + 1;
     const int nseg = i1 - i0;
     for (int p = tid; p < TE * nseg; p += THREADS) {
@@ -306,65 +337,96 @@ dx_dh_kernel(const float* __restrict__ h2, const float* __restrict__ x,
       const int hi = (i + 1) * out_ch < c1 ? (i + 1) * out_ch : c1;
       float s = 0.f;
       for (int cc = lo; cc < hi; ++cc) s += red[row * RED_LD + (cc - c0)];
-      dx_src[e * in_ch + i] += s;
+      float* d = dx_src + e * in_ch + i;
+      if (lo == i * out_ch) *d = s; else *d += s;
     }
     __syncthreads();
   }
+}
 
-  // 2. dh2[e, k] = sum_c dpre[e, c] * Wl[k, c], 128 columns of dh2 at a time
-  for (int k0 = 0; k0 < kw; k0 += BN) {
-    float c[8][8];
-    zero(c);
-    auto fa = [&](int, int cc, float (&v)[8]) {   // dpre[e, cc + q]
-      if (VEC) {
-        if (my_live && cc < C) {
-          const int i = cc / out_ch;
-          const float xv = rnd<RB>(__ldg(my_x + i));
-          ld8<false>(my_g + (cc - i * out_ch), v);
+// dh2[e, k] = sum_c dpre[e, c] * Wl[k, c] for one tile of TE edges and
+// 128 columns k0 = 128 blockIdx.y, over the depth range [c_lo, c_hi) of
+// split blockIdx.z (`depth` a split, a multiple of BK when there are
+// several), dpre generated on the fly as the A operand. Writes split s
+// into out + s * M * kw: dh2 itself when there is one split, else the
+// partial slabs that reduce_kernel sums in order. VEC as for dx_kernel.
+template <bool RB, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+dh_kernel(const float* __restrict__ x, const int64_t* __restrict__ senders,
+          const float* __restrict__ g, const float* __restrict__ wl,
+          float* __restrict__ out, int64_t M, int kw, int in_ch, int out_ch,
+          int depth) {
+  __shared__ __align__(16) float As[2 * BK * TE];
+  __shared__ __align__(16) float Bs[2 * BK * BN];
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int64_t m0 = (int64_t)blockIdx.x * TE;
+  const int k0 = blockIdx.y * BN;
+  const int C = in_ch * out_ch;
+  const int c_lo = blockIdx.z * depth;
+  const int c_hi = C - c_lo < depth ? C : c_lo + depth;
+
+  const int64_t my_e = m0 + (tid >> 1);
+  const bool my_live = my_e < M;
+  const float* my_x = x + (my_live ? senders[my_e] * in_ch : 0);
+  const float* my_g = g + (my_live ? my_e * out_ch : 0);
+
+  float c[8][8];
+  zero(c);
+  auto fa = [&](int, int kk, float (&v)[8]) {   // dpre[e, c_lo + kk + q]
+    const int cc = c_lo + kk;
+    if (VEC) {
+      if (my_live && cc < c_hi) {
+        const int i = cc / out_ch;
+        const float xv = rnd<RB>(__ldg(my_x + i));
+        ld8<false>(my_g + (cc - i * out_ch), v);
 #pragma unroll
-          for (int q = 0; q < 8; ++q) v[q] = rnd<RB>(xv * v[q]);
-        } else {
-          zero8(v);
-        }
+        for (int q = 0; q < 8; ++q) v[q] = rnd<RB>(xv * v[q]);
       } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int cq = cc + q;
-          const int i = cq / out_ch;
-          v[q] = (my_live && cq < C)
-                     ? rnd<RB>(rnd<RB>(__ldg(my_x + i)) *
-                               __ldg(my_g + (cq - i * out_ch)))
-                     : 0.f;
-        }
+        zero8(v);
       }
-    };
-    auto fb = [&](int cc, int col, float (&v)[8]) {   // Wl[k0 + col, cc + q]
-      const float* p = wl + (int64_t)(k0 + col) * C + cc;
-      if (VEC) {
-        if (cc < C && k0 + col < kw) ld8<RB>(p, v); else zero8(v);
-      } else {
+    } else {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          v[q] = (cc + q < C && k0 + col < kw) ? rnd<RB>(__ldg(p + q)) : 0.f;
-        }
+      for (int q = 0; q < 8; ++q) {
+        const int cq = cc + q;
+        const int i = cq / out_ch;
+        v[q] = (my_live && cq < c_hi)
+                   ? rnd<RB>(rnd<RB>(__ldg(my_x + i)) *
+                             __ldg(my_g + (cq - i * out_ch)))
+                   : 0.f;
       }
-    };
-    tile_gemm<true, false>(C, fa, fb, As, Bs, c);
+    }
+  };
+  auto fb = [&](int kk, int col, float (&v)[8]) {   // Wl[k0 + col, cc + q]
+    const int cc = c_lo + kk;
+    const float* p = wl + (int64_t)(k0 + col) * C + cc;
+    if (VEC) {
+      if (cc < c_hi && k0 + col < kw) ld8<RB>(p, v); else zero8(v);
+    } else {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int64_t e = m0 + tile_row(ty, r);
-      if (e >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int k = k0 + tile_col(tx, j);
-        if (k < kw) dh2[e * kw + k] = c[r][j];
+      for (int q = 0; q < 8; ++q) {
+        v[q] = (cc + q < c_hi && k0 + col < kw) ? rnd<RB>(__ldg(p + q))
+                                                : 0.f;
       }
+    }
+  };
+  tile_gemm<true, false>(c_hi - c_lo, fa, fb, As, Bs, c);
+  float* dst = out + (int64_t)blockIdx.z * M * kw;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int64_t e = m0 + tile_row(ty, r);
+    if (e >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = k0 + tile_col(tx, j);
+      if (k < kw) dst[e * kw + k] = c[r][j];
     }
   }
 }
 
 // Partial dWl of edge range s: part[s][k][c] = sum_e h2[e, k] * dpre[e, c].
-// VEC as for dx_dh_kernel.
+// VEC as for dx_kernel.
 template <bool RB, bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
 dw_kernel(const float* __restrict__ h2, const float* __restrict__ x,
@@ -916,19 +978,37 @@ constexpr size_t kRedSmem = sizeof(float) * TE * RED_LD;
 template <bool RB, bool VEC>
 int launch(const float* h2, const float* x, const int64_t* senders,
            const float* g, const float* wl, float* dx_src, float* dh2,
-           float* dwl, float* dbl, float* part_w, float* part_b, int64_t M,
-           int kw, int in_ch, int out_ch, int splits, int dbl_splits,
+           float* dwl, float* dbl, float* part_w, float* part_b,
+           float* part_h, int64_t M, int kw, int in_ch, int out_ch,
+           int splits, int dbl_splits, int x_per, int h_depth,
            cudaStream_t stream) {
   const int C = in_ch * out_ch;
-  cudaError_t err = cudaFuncSetAttribute(
-      dx_dh_kernel<RB, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kRedSmem);
+  const unsigned et = (unsigned)((M + TE - 1) / TE);
+  static std::atomic<uint64_t> ready{0};
+  cudaError_t err = smem_once(
+      reinterpret_cast<const void*>(dx_kernel<RB, VEC>), (int)kRedSmem,
+      ready);
   if (err != cudaSuccess) return (int)err;
-  dx_dh_kernel<RB, VEC><<<(unsigned)((M + TE - 1) / TE), THREADS, kRedSmem,
-                     stream>>>(h2, x, senders, g, wl, dx_src, dh2, M, kw,
-                               in_ch, out_ch);
+  const int gx = (in_ch + x_per - 1) / x_per;
+  dx_kernel<RB, VEC><<<dim3(et, (unsigned)gx), THREADS, kRedSmem, stream>>>(
+      h2, g, wl, dx_src, M, kw, in_ch, out_ch, x_per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+
+  const int hs = (C + h_depth - 1) / h_depth;
+  const dim3 hgrid(et, (unsigned)((kw + BN - 1) / BN), (unsigned)hs);
+  dh_kernel<RB, VEC><<<hgrid, THREADS, 0, stream>>>(
+      x, senders, g, wl, hs > 1 ? part_h : dh2, M, kw, in_ch, out_ch,
+      h_depth);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (hs > 1) {
+    const int64_t nh = M * kw;
+    reduce_kernel<<<(unsigned)((nh + THREADS - 1) / THREADS), THREADS, 0,
+                    stream>>>(part_h, hs, nh, dh2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
 
   const int64_t per_split = (M + splits - 1) / splits;
   const dim3 wgrid((unsigned)((kw + TE - 1) / TE),
@@ -1001,31 +1081,40 @@ extern "C" {
 // Shape contract (checked by the Python wrapper): h2 [M, kw], x
 // [nodes, in_ch], senders [M] int64, g [M, out_ch], Wl [kw, in_ch *
 // out_ch], all fp32, contiguous and 16-byte aligned, C = in_ch * out_ch
-// < 2^31. dx_src
-// [M, in_ch] must be zeroed by the caller; dh2 [M, kw], dWl [kw, C] and
-// dbl [C] are written. part_w [splits, kw, C] and part_b [dbl_splits, C]
-// are scratch. Returns a
-// cudaError_t.
+// < 2^31. dx_src [M, in_ch], dh2 [M, kw], dWl [kw, C] and dbl [C] are
+// written (nothing needs zeroing). The dx kernel runs in ceil(in_ch /
+// x_per) groups of x_per input channels, the dh kernel in ceil(C /
+// h_depth) splits of the depth C (h_depth a multiple of 16, or >= C).
+// part_w [splits, kw, C], part_b [dbl_splits, C] and, with several dh
+// splits, part_h [splits of dh, M, kw] are scratch. Returns a
+// cudaError_t (cudaErrorInvalidValue for a grid off these rules).
 int gpde_edge_messages_bwd(const float* h2, const float* x,
                            const int64_t* senders, const float* g,
                            const float* wl, float* dx_src, float* dh2,
                            float* dwl, float* dbl, float* part_w,
-                           float* part_b, int64_t M, int kw, int in_ch,
-                           int out_ch, int splits, int dbl_splits,
+                           float* part_b, float* part_h, int64_t M, int kw,
+                           int in_ch, int out_ch, int splits,
+                           int dbl_splits, int x_per, int h_depth,
                            int round_bf16, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int C = in_ch * out_ch;
   if (M == 0) {
-    cudaError_t err = cudaMemsetAsync(
-        dwl, 0, sizeof(float) * (size_t)kw * in_ch * out_ch, s);
+    cudaError_t err = cudaMemsetAsync(dwl, 0, sizeof(float) * (size_t)kw * C,
+                                      s);
     if (err != cudaSuccess) return (int)err;
-    return (int)cudaMemsetAsync(dbl, 0,
-                                sizeof(float) * (size_t)in_ch * out_ch, s);
+    return (int)cudaMemsetAsync(dbl, 0, sizeof(float) * (size_t)C, s);
+  }
+  if (x_per < 1 || h_depth < 1 || (h_depth % BK != 0 && h_depth < C) ||
+      (in_ch + x_per - 1) / x_per > 65535 ||
+      (C + h_depth - 1) / h_depth > 65535 ||
+      (h_depth < C && part_h == nullptr)) {
+    return (int)cudaErrorInvalidValue;
   }
   const bool vec = kw % 8 == 0 && out_ch % 8 == 0;
   auto go = [&](auto rb, auto v) {
     return launch<decltype(rb)::value, decltype(v)::value>(
-        h2, x, senders, g, wl, dx_src, dh2, dwl, dbl, part_w, part_b, M, kw,
-        in_ch, out_ch, splits, dbl_splits, s);
+        h2, x, senders, g, wl, dx_src, dh2, dwl, dbl, part_w, part_b, part_h,
+        M, kw, in_ch, out_ch, splits, dbl_splits, x_per, h_depth, s);
   };
   using T = std::true_type;
   using F = std::false_type;

@@ -24,6 +24,9 @@ small layers with torch matmuls, and scatter-adds dx_src onto the
 senders. The same Function runs on both devices: CUDA tensors launch the
 kernels (or raise, never falling back), CPU tensors take the plain
 PyTorch versions ``edge_messages_plain`` and ``edge_messages_bwd_plain``.
+K1's general form and B1-bwd's SIMT form spread a call with few edges
+(the multipole levels) over every SM, on grids that ``k1_general_groups``
+and ``b1_bwd_simt_grid`` pick from the edge count and the card's SMs.
 
 ``compute_dtype='bfloat16'`` rounds as the JAX kernels do. Forward: GEMM
 operands are bf16 with fp32 accumulation, biases stay fp32, and each
@@ -48,6 +51,12 @@ C_CHUNK = 1024          # the JAX gate's column chunk
 _MAX_SHARED = 232448    # bytes of shared memory one block may use
 _PLAIN_CHUNK = 32768    # edges per step of the plain version
 _SCRATCH_ELEMS = 1 << 26  # floats per small-activation buffer, general form
+_PART_ELEMS = 1 << 24   # floats per partial-sum buffer (64 MiB), see _split
+_TILE = 128             # edges of a block tile; columns of a K tile
+_SLAB = 16              # depth of one staged slab of the SIMT kernels
+# resident blocks an SM of K1 general's last-layer kernel and B1-bwd's
+# SIMT product kernels (__launch_bounds__(256, 2), 128 registers)
+_RESIDENT = 2
 
 
 def fused_path_supported(kernel_params, in_channels: int,
@@ -164,7 +173,7 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _FAST_ARGS = [_P] * 10 + [_I64, _I, _I, _I, _I, _I, _P]
 _TC_FWD_ARGS = [_P] * 10 + [_I64, _I, _I, _I, _I, _P]
 _DENSE_ARGS = [_P, _I64, _I, _P, _P, _I, _P, _I, _P]
-_LAST_ARGS = [_P, _I64, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+_LAST_ARGS = [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 
 
 def _launch_fast(x, senders, edge_attr, weights, msg, dims, in_channels,
@@ -203,11 +212,50 @@ def k1_tc_occupancy(kw2: int, in_channels: int):
     return smem.value, blocks.value
 
 
+def _split(units: int, blocks: int, sms: int, cap: int):
+    """(per, groups): ``units`` (K tiles, channels, slabs) cut into
+    ``groups`` contiguous runs of ``per`` (the last may be shorter) for
+    a grid of ``blocks`` blocks a group. The fewest groups whose grid
+    reaches two waves of _RESIDENT blocks on each of ``sms`` SMs, at
+    most ``cap`` and ``units`` of them; one where ``blocks`` alone
+    reach it."""
+    want = -(-2 * _RESIDENT * sms // max(1, blocks))
+    most = max(1, min(cap, units))
+    g = min(want, most)
+    if g <= 1 or blocks == 0:
+        return units, 1
+    per = -(-units // g)
+    # equal runs can fall short of g groups: one less a run reaches
+    # `want` (per - 1 < units / (want - 1)), if the cap allows it
+    if per > 1 and -(-units // per) < want and -(-units // (per - 1)) <= most:
+        per -= 1
+    return per, -(-units // per)
+
+
+def k1_general_groups(e: int, in_ch: int, out_ch: int, sms: int):
+    """(G, per) of K1 general's last-layer kernel on ``e`` edges and a
+    card of ``sms`` SMs: G groups of ``per`` input channels, each group
+    whole K tiles (a tile holds 128 // ow channels, ow = out_ch rounded
+    up to a power of two, at most 128), so that the grid (edge tiles, G,
+    output tiles) reaches two waves where the tiles allow (``_split``).
+    The G partial messages take G * e * out_ch floats, at most
+    _PART_ELEMS; G = 1 writes the messages directly."""
+    ow = 1
+    while ow < out_ch and ow < _TILE:
+        ow *= 2
+    p = _TILE // ow
+    blocks = -(-e // _TILE) * -(-out_ch // _TILE)
+    per, groups = _split(-(-in_ch // p), blocks, sms,
+                         _PART_ELEMS // max(1, e * out_ch))
+    return groups, per * p
+
+
 def _launch_general(x, senders, edge_attr, weights, msg, in_channels,
                     out_channels, rb, stream) -> int:
     """Per chunk of edges: one dense_relu launch per small layer (the
     activations live in a scratch buffer), then the last layer and the
-    contraction in one launch."""
+    contraction in one launch over the channel groups that
+    ``k1_general_groups`` picks (and, with several, their sum)."""
     dense = kernels.fn("fused_edge_conv", "gpde_dense_relu", _DENSE_ARGS)
     last = kernels.fn("fused_edge_conv", "gpde_last_contract",
                       _LAST_ARGS)
@@ -215,6 +263,7 @@ def _launch_general(x, senders, edge_attr, weights, msg, in_channels,
              for j in range(len(weights) // 2 - 1)]
     wl, bl = weights[-2], weights[-1]
     e = senders.shape[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     widest = max([w.shape[1] for w, _ in small], default=1)
     chunk = max(128, _SCRATCH_ELEMS // widest // 128 * 128)
     for s0 in range(0, e, chunk):
@@ -228,10 +277,17 @@ def _launch_general(x, senders, edge_attr, weights, msg, in_channels,
             if err:
                 return err
             h = nxt
+        groups, per = k1_general_groups(s1 - s0, in_channels, out_channels,
+                                        sms)
+        part = None
+        if groups > 1:
+            part = torch.empty((groups, s1 - s0, out_channels),
+                               dtype=torch.float32, device=x.device)
         err = last(h.data_ptr(), s1 - s0, wl.shape[0], wl.data_ptr(),
                    bl.data_ptr(), x.data_ptr(), senders[s0:s1].data_ptr(),
-                   msg[s0:s1].data_ptr(), in_channels, out_channels, rb,
-                   stream)
+                   msg[s0:s1].data_ptr(),
+                   None if part is None else part.data_ptr(), in_channels,
+                   out_channels, per, rb, stream)
         if err:
             return err
     return 0
@@ -275,7 +331,7 @@ def _launch(x, senders, edge_attr, weights, in_channels,
     return msg
 
 
-_BWD_ARGS = [_P] * 11 + [_I64, _I, _I, _I, _I, _I, _I, _P]
+_BWD_ARGS = [_P] * 12 + [_I64] + [_I] * 8 + [_P]
 _BWD_TC_ARGS = [_P] * 12 + [_I64, _I, _I, _I, _I, _P]
 
 
@@ -288,6 +344,24 @@ def bwd_splits(e: int, kw: int, c: int, sms: int):
     tiles = -(-kw // 128) * -(-c // 128)
     splits = max(1, min(32, 8 * sms // tiles, -(-e // 1024)))
     return splits, max(1, -(-e // 4096))
+
+
+def b1_bwd_simt_grid(e: int, kw: int, in_ch: int, out_ch: int, sms: int):
+    """(Gx, x_per, S, depth) of B1-bwd's SIMT form on ``e`` edges and a
+    card of ``sms`` SMs, each grid chosen by ``_split``: the dx kernel's
+    Gx groups of ``x_per`` input channels (a multiple of 128 // out_ch,
+    or of one where out_ch > 128: whole 128-column tiles where out_ch
+    divides 128), over the edge tiles; the dh kernel's S splits of the
+    depth C = in_ch *
+    out_ch into runs of ``depth`` (whole 16-deep slabs), over the edge
+    tiles times the 128-column tiles of kw. The S partial slabs take S *
+    e * kw floats, at most _PART_ELEMS; S = 1 writes dh2 directly."""
+    et = -(-e // _TILE)
+    q = max(1, _TILE // out_ch)
+    per_x, gx = _split(-(-in_ch // q), et, sms, in_ch)
+    per_h, s = _split(-(-in_ch * out_ch // _SLAB), et * -(-kw // _TILE), sms,
+                      _PART_ELEMS // max(1, e * kw))
+    return gx, per_x * q, s, per_h * _SLAB
 
 
 # the tensor-core form's tile columns and in_channels bound (tc::BN and
@@ -337,9 +411,8 @@ def _launch_bwd(x, senders, h2, g, wl, in_channels, out_channels,
     splits, dbl_splits = bwd_splits(e, kw, c, sms)
     form = b1_bwd_form(kw, in_channels, out_channels, compute_dtype)
 
-    def new(*shape, zero=False):
-        fn = torch.zeros if zero else torch.empty
-        return fn(shape, dtype=torch.float32, device=dev)
+    def new(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
 
     dh2, dwl, dbl = new(e, kw), new(kw, c), new(c)
     part_w = new(splits, kw, c)
@@ -357,13 +430,17 @@ def _launch_bwd(x, senders, h2, g, wl, in_channels, out_channels,
                                               part_b)],
                      e, kw, in_channels, out_channels, splits, stream)
         else:
-            dx_src, part_b = new(e, in_channels, zero=True), new(dbl_splits, c)
+            gx, x_per, hs, depth = b1_bwd_simt_grid(e, kw, in_channels,
+                                                    out_channels, sms)
+            dx_src, part_b = new(e, in_channels), new(dbl_splits, c)
+            part_h = new(hs, e, kw) if hs > 1 else None
             fn = kernels.fn("fused_edge_conv_bwd", "gpde_edge_messages_bwd",
                             _BWD_ARGS)
             err = fn(*[t.data_ptr() for t in (h2, x, senders, g, wl, dx_src,
                                               dh2, dwl, dbl, part_w, part_b)],
-                     e, kw, in_channels, out_channels, splits, dbl_splits,
-                     int(_is_bf16(compute_dtype)), stream)
+                     None if part_h is None else part_h.data_ptr(), e, kw,
+                     in_channels, out_channels, splits, dbl_splits, x_per,
+                     depth, int(_is_bf16(compute_dtype)), stream)
     kernels.check(err, "edge-message backward kernel launch")
     fused_edge_messages_bwd.launches += 1
     attr = f"{form}_launches"
@@ -473,4 +550,5 @@ fused_edge_messages.general_launches = 0
 __all__ = ["fused_edge_messages", "edge_messages_plain",
            "fused_edge_messages_bwd", "edge_messages_bwd_plain",
            "fused_path_supported", "kernel_shape_supported", "bwd_splits",
-           "b1_bwd_form", "k1_form", "C_CHUNK"]
+           "b1_bwd_form", "b1_bwd_simt_grid", "k1_form", "k1_general_groups",
+           "C_CHUNK"]

@@ -25,11 +25,13 @@ from graph_pde_tpu_torch.ops.cached_contraction import (
     cached_contraction_plain, to_fp8)
 from graph_pde_tpu_torch.ops.dense import dense_apply, dense_init, layer_dims
 from graph_pde_tpu_torch.ops.fused_edge_conv import (b1_bwd_form,
+                                                     b1_bwd_simt_grid,
                                                      edge_messages_bwd_plain,
                                                      edge_messages_plain,
                                                      fused_edge_messages,
                                                      fused_edge_messages_bwd,
-                                                     k1_form)
+                                                     k1_form,
+                                                     k1_general_groups)
 from graph_pde_tpu_torch.ops.fused_iterate import (b2_bwd_form,
                                                    fused_iterate_bwd,
                                                    fused_iterate_bwd_plain,
@@ -279,6 +281,67 @@ def test_k1_b1_bwd_orthogonal_kappas(dev, dtype, tol, idx, layers):
     want = edge_messages_bwd_plain(x, s, h2, gg, kp[-1]["w"], **kw_args)
     for name, a_, b_ in zip(("dx_src", "dh2", "dWl", "dbl"), got, want):
         assert _rel(a_, b_) <= tol, name
+
+# (E, kappa layers, in, out) of K1's general form and B1-bwd's SIMT form
+# on both kinds of grid: the orthogonal kw-1024 level's edge count, where
+# K1 takes channel groups (G > 1) and B1-bwd channel groups and depth
+# splits (Gx, S > 1), and 131,072 edges, where the edge tiles fill the
+# card (G = Gx = S = 1); and the ragged shapes: out 16, kw 40 with out
+# 200 (> 128), an odd in (3) with out 100 and no small layer
+GRID_SHAPES = [(2048, (4, 1024, 1024, 64 * 64), 64, 64),
+               (131072, (4, 1024, 1024, 64 * 64), 64, 64),
+               (3000, (6, 16, 32, 16 * 16), 16, 16),
+               (131072, (6, 16, 32, 16 * 16), 16, 16),
+               (1000, (6, 40, 2 * 200), 2, 200),
+               (131072, (6, 40, 2 * 200), 2, 200),
+               (1000, (6, 3 * 100), 3, 100)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, 1e-4), ("bfloat16", 5e-3)])
+@pytest.mark.parametrize("e,layers,w_in,w_out", GRID_SHAPES)
+def test_k1_general_b1_simt_grids(dev, dtype, tol, e, layers, w_in, w_out):
+    """K1's general form, with its channel groups summed by a second
+    pass or written directly, and B1-bwd's SIMT form (where its shape
+    and dtype take it), with its dx channel groups and dh depth splits,
+    against their plain versions; a second launch bit-identical."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kw = layers[-2]
+    groups, _ = k1_general_groups(e, w_in, w_out, sms)
+    gx, _, hs, _ = b1_bwd_simt_grid(e, kw, w_in, w_out, sms)
+    if e >= 131072:
+        assert groups == gx == hs == 1
+    else:
+        assert groups > 1 and gx > 1 and hs > 1
+    g = torch.Generator().manual_seed(e + kw + w_out)
+    kp = dense_init(g, list(layers), device=dev)
+    x = torch.randn(300, w_in, generator=g).to(dev)
+    s = torch.randint(0, 300, (e,), generator=g).to(dev)
+    a = torch.rand(e, layers[0], generator=g).to(dev)
+    kw_args = dict(in_channels=w_in, out_channels=w_out, compute_dtype=dtype)
+    assert k1_form(layer_dims(kp), w_in, w_out, dtype) == "general"
+    before = fused_edge_messages.general_launches
+    got = fused_edge_messages(x, s, a, kp, **kw_args)
+    again = fused_edge_messages(x, s, a, kp, **kw_args)
+    torch.cuda.synchronize()
+    assert fused_edge_messages.general_launches == before + 2
+    assert torch.equal(got, again)
+    assert _rel(got, edge_messages_plain(x, s, a, kp, **kw_args)) <= tol
+    if b1_bwd_form(kw, w_in, w_out, dtype) != "simt":
+        return   # bf16 on the tensor-core tiles: not this form's shape
+    h2 = torch.relu(torch.randn(e, kw, generator=g)).to(dev)
+    gg = torch.randn(e, w_out, generator=g).to(dev)
+    wl = kp[-1]["w"]
+    before = fused_edge_messages_bwd.simt_launches
+    got = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
+    again = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
+    torch.cuda.synchronize()
+    assert fused_edge_messages_bwd.simt_launches == before + 2
+    want = edge_messages_bwd_plain(x, s, h2, gg, wl, **kw_args)
+    for name, a_, b_, c_ in zip(("dx_src", "dh2", "dWl", "dbl"), got, again,
+                                want):
+        assert torch.equal(a_, b_), name
+        assert _rel(a_, c_) <= tol, name
+
 
 # (kw, in, out): the GKN shape, the ker_width 1024 'nn' kappa, a narrow
 # kappa, no small layer (kw = attr width), out not a power of two, out > 128

@@ -28,11 +28,14 @@ from graph_pde_tpu_torch.ops import edge_conv as tconv
 from graph_pde_tpu_torch.ops import segment as tseg
 from graph_pde_tpu_torch.ops.cached_contraction import (apply_cached_kernel,
                                                         maybe_quantize_k)
+from graph_pde_tpu_torch.ops import fused_edge_conv as fe
 from graph_pde_tpu_torch.ops.fused_edge_conv import (b1_bwd_form,
+                                                     b1_bwd_simt_grid,
                                                      edge_messages_plain,
                                                      fused_edge_messages,
                                                      fused_path_supported,
                                                      k1_form,
+                                                     k1_general_groups,
                                                      kernel_shape_supported)
 from graph_pde_tpu_torch.ops.fused_iterate import (b2_bwd_form,
                                                    fused_iterate_supported,
@@ -275,6 +278,111 @@ def test_k1_forms():
                          ((6, 3 * 100), 3, 100)):
         for dt in (None, "bfloat16"):
             assert k1_form(dims(*layers), i, o, dt) == "general", layers
+
+
+# (E, kw, in, out) at which K1's general form and B1-bwd's SIMT form run:
+# the orthogonal MGKN's ten levels at s=1024 (one sample's edges, kappa
+# (4, kw, kw, 4096)), the MGKN-general kappas (ker_width 256: conv_mid
+# (6, kw, kw, 4096) at kw 256, 128, 64; conv_down/up (6, kw, 4096) at
+# kw 128, 64) at a small and a large edge count, the (6, 16, 32, 256)
+# kappa and kw 40 with out 200
+ORTHO_LEVELS = [(2048, 1024), (3066, 512), (1530, 256), (762, 128),
+                (378, 64), (186, 32), (90, 16), (42, 16), (18, 16), (16, 16)]
+GRID_SHAPES = ([(e, kw, 64, 64) for e, kw in ORTHO_LEVELS]
+               + [(e, kw, 64, 64) for e in (4000, 131072)
+                  for kw in (256, 128, 64)]
+               + [(e, 32, 16, 16) for e in (3000, 131072)]
+               + [(e, 40, 2, 200) for e in (1000, 131072)])
+SMS = 132   # an H100's SMs
+
+
+def _ranges(total, per, groups):
+    """The contiguous runs [g * per, min(total, (g + 1) * per)) that a
+    grid of ``groups`` blocks covers."""
+    return [(g * per, min(total, (g + 1) * per)) for g in range(groups)]
+
+
+def _covers_once(total, per, groups, unit):
+    """The runs cover 0 .. total - 1 exactly once, each non-empty and
+    starting on a multiple of ``unit``."""
+    runs = _ranges(total, per, groups)
+    assert [lo for lo, _ in runs[1:]] == [hi for _, hi in runs[:-1]]
+    assert runs[0][0] == 0 and runs[-1][1] == total
+    assert all(lo < hi and lo % unit == 0 for lo, hi in runs)
+
+
+@pytest.mark.parametrize("e,kw,i,o", GRID_SHAPES)
+def test_general_grids(e, kw, i, o):
+    """The grids of K1's general form (channel groups G) and B1-bwd's
+    SIMT form (dx channel groups Gx, dh depth splits S) on an H100's 132
+    SMs: the groups cover every input channel once, each starting on a
+    K tile's channels (K1: 128 // ow of them, ow = out rounded up to a
+    power of two; B1-bwd: 128 // out where out divides 128, else one),
+    the splits every column of the depth C once, each whole 16-deep
+    slabs; one group and one split where the edge tiles fill the card
+    (131,072 edges); else at least two waves of two resident blocks an
+    SM, or every tile its own group where that is fewer blocks; the
+    partial buffers within their stated bound."""
+    et = -(-e // 128)
+    two_waves = 2 * fe._RESIDENT * SMS
+    # K1
+    groups, per = k1_general_groups(e, i, o, SMS)
+    ow = 1
+    while ow < o and ow < 128:
+        ow *= 2
+    p = 128 // ow
+    assert groups == -(-i // per)
+    _covers_once(i, per, groups, p)
+    blocks = et * groups * -(-o // 128)
+    assert blocks >= two_waves or groups == -(-i // p)
+    assert groups == 1 or groups * e * o <= fe._PART_ELEMS
+    # B1-bwd: dx over channel groups, dh over depth splits
+    gx, x_per, hs, depth = b1_bwd_simt_grid(e, kw, i, o, SMS)
+    q = max(1, 128 // o)
+    assert gx == -(-i // x_per)
+    _covers_once(i, x_per, gx, q)
+    assert et * gx >= two_waves or gx == -(-i // q)
+    c = i * o
+    assert hs == -(-c // depth)
+    _covers_once(c, depth, hs, 16)
+    assert et * -(-kw // 128) * hs >= two_waves or hs == -(-c // 16)
+    assert hs == 1 or hs * e * kw <= fe._PART_ELEMS
+    if e >= 131072:
+        assert groups == gx == hs == 1
+    if (e, kw) == (2048, 1024):
+        # the widest orthogonal level: every K tile and every channel
+        # pair its own group (512 blocks: two waves of one block an SM),
+        # dh2 split five ways (640 blocks)
+        assert (groups, gx, hs) == (32, 32, 5)
+        assert blocks >= 2 * SMS and et * 8 * hs >= two_waves
+
+
+@pytest.mark.parametrize("layers,i,o", [((4, 32, 32, 32 * 8), 32, 8),
+                                        ((6, 16, 3 * 100), 3, 100),
+                                        ((6, 20, 2 * 200), 2, 200)])
+def test_k1_channel_groups_sum_to_the_whole(layers, i, o):
+    """K1's general form sums its channel groups' partial messages in
+    group order: the plain version run per group on the group's slices
+    of Wl, bl and x and summed so equals the whole plain output within
+    1e-6 of its max-abs (the same fp32 products, their sum over the
+    input channels taken in another order: a few float32 ulps)."""
+    rng = np.random.default_rng(5)
+    _, tp = _kparams(list(layers), 5)
+    e = 700
+    x = _t(rng.normal(size=(40, i)).astype(np.float32))
+    s = _t(rng.integers(0, 40, e)).long()
+    a = _t(rng.normal(size=(e, layers[0])).astype(np.float32))
+    whole = edge_messages_plain(x, s, a, tp, in_channels=i, out_channels=o)
+    groups, per = k1_general_groups(e, i, o, SMS)
+    assert groups > 1
+    total = torch.zeros_like(whole)
+    for lo, hi in _ranges(i, per, groups):
+        last = {"w": tp[-1]["w"][:, lo * o:hi * o],
+                "b": tp[-1]["b"][lo * o:hi * o]}
+        total += edge_messages_plain(x[:, lo:hi].contiguous(), s, a,
+                                     [*tp[:-1], last], in_channels=hi - lo,
+                                     out_channels=o)
+    _close(total.numpy(), whole.numpy(), 1e-6)
 
 
 def test_library_name_covers_included_headers(tmp_path, monkeypatch):
