@@ -10,6 +10,7 @@
     python3 chip_smoke.py --grad-locate   # only the e5m2 gradient
                                  # check's two paths against a float64
                                  # version, op by op (grad_locate)
+    python3 chip_smoke.py --mgkn  # only the build and phase 9
 
 Phases, each fatal on failure:
   1. card identity (nvidia-smi) and the build of every CUDA kernel;
@@ -103,7 +104,25 @@ Phases, each fatal on failure:
      `predict` on the kcached bundle against the
      plain predictor (impl='reference'; 1e-4); the full-width step-1
      gradients of impl='auto' against 'reference' (1e-4); `run
-     neurips5_gkn` (2 steps, split_random evaluation, no launch).
+     neurips5_gkn` (2 steps, split_random evaluation, no launch);
+  9. the general MGKN slice (phase_mgkn), from a temporary directory:
+     K1 and B1-bwd against their plain versions at each of the seven
+     conv shapes of mgkn_general_darcy2d at full width (mid levels 0-2,
+     kappa (6, kw, kw, 4096) with kw 256, 128, 64; down and up levels
+     0-1, one hidden layer, (6, kw, 4096) with kw 128, 64; fp32 and
+     bf16, every B1-bwd output, a second launch bit-identical), each
+     timed beside its bound and plain version, mid level 0's kernels
+     profiled; `run mgkn_general_darcy2d` (width 64, ker_width 256,
+     depth 5, points (400, 100, 25), s = 421 / 5 = 85; 2 steps, 1 test
+     sample, split_random evaluation) under `--set impl=auto` with
+     `--bundle` (each step K1 general 30, K1 simt 5, B1-bwd simt 35;
+     the evaluation's 19 windows one forward each) and under the
+     registry's impl='kcached' (no launch), a step of each profiled;
+     `predict` on the auto bundle with a fresh s=85 sample against the
+     plain predictor (impl='reference'; 1e-4); the full-width forward
+     and step-1 gradients of impl='auto' against 'reference' (1e-4) for
+     mgkn_general_darcy2d (mkgn), neurips1_mgkn (induced, five levels
+     at s=241) and neurips2_mgkn (single).
 
 Prints one JSON line of kernel records before the last line, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, with no result
@@ -154,6 +173,12 @@ S_GRAD1, R_GRAD1 = 31, 0.2
 S_ORTHO = 1024
 ORTHO_RUN = ("--set", f"ntrain={N_TRAIN}", "--set", "ntest=1", "--set",
              "epochs=1")
+# The general MGKN slice (graph_pde_tpu/experiments/registry.py:293-336):
+# mgkn_general_darcy2d at full width (width 64, ker_width 256, depth 5,
+# points (400, 100, 25), s = 421 / 5 = 85), N_TRAIN training samples and
+# one test sample; neurips1_mgkn and neurips2_mgkn at s=241, one graph.
+S_MGKN = 85
+MGKN_RUN = ORTHO_RUN
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 SIMT rate, bf16 tensor
 # core rate and HBM3 bandwidth.
@@ -451,7 +476,8 @@ def phase_general_forms(g, dev) -> dict:
     return errs
 
 
-def check_k1(name, x, s, a, kp, w_in, dt, tol, form, want=None) -> float:
+def check_k1(name, x, s, a, kp, w_in, dt, tol, form, want=None,
+             phase=2) -> float:
     """K1 against its plain version (out 64; ``want`` if given) in the
     form its shape takes, and a second launch bit-identical; returns the
     max-abs error."""
@@ -475,9 +501,9 @@ def check_k1(name, x, s, a, kp, w_in, dt, tol, form, want=None) -> float:
             f"{name}: took the {form} form ({counts})")
     same = bool(torch.equal(got, again))
     ab, rel = rel_err(got, want)
-    log(f"phase 2: {name} [{form}] E {s.shape[0]}: max-abs err {ab:.3e}, "
-        f"relative {rel:.3e} (tol {tol:g}); second launch bit-identical "
-        f"{same}")
+    log(f"phase {phase}: {name} [{form}] E {s.shape[0]}: max-abs err "
+        f"{ab:.3e}, relative {rel:.3e} (tol {tol:g}); second launch "
+        f"bit-identical {same}")
     require(rel <= tol and bool(torch.isfinite(got).all()), name)
     require(same, f"{name}: a second launch is bit-identical")
     return ab
@@ -545,7 +571,7 @@ def k1_simt(x, s, a, kp, w_in, dt):
     return msg
 
 
-def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol) -> float:
+def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol, phase=2) -> float:
     """B1-bwd against its plain version, all four outputs, in the form
     its shape takes (tensor cores in bf16, SIMT in float32, for every
     kappa checked here), and a second launch bit-identical; returns the
@@ -570,7 +596,7 @@ def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol) -> float:
     worst = 0.0
     for out, a, b in zip(("dx_src", "dh2", "dWl", "dbl"), got, want):
         ab, rel = rel_err(a, b)
-        log(f"phase 2: {name} [{form}] {out}: max-abs err {ab:.3e}, "
+        log(f"phase {phase}: {name} [{form}] {out}: max-abs err {ab:.3e}, "
             f"relative {rel:.3e} (tol {tol:g}); second launch bit-identical")
         require(rel <= tol and bool(torch.isfinite(a).all()),
                 f"{name} {out}")
@@ -1056,7 +1082,7 @@ def phase_training(name, cfg, arrays, graphs, loss, u_norm, gamma) -> dict:
                 losses=[st["loss"] for st in steps])
 
 
-def profile_step(name, task, params, graphs) -> None:
+def profile_step(name, task, params, graphs, phase=6) -> dict:
     """One more train step on the first graph under torch.profiler: the
     device time of each kernel, the device's busy time and its idle
     share of the step's wall time, the wall time taken in an unprofiled
@@ -1083,12 +1109,13 @@ def profile_step(name, task, params, graphs) -> None:
         torch.cuda.synchronize()
     rows = kernel_rows(prof)
     busy = sum(r[0] for r in rows)
-    log(f"phase 6: {name} step profile: wall {wall:.1f} ms (unprofiled), "
-        f"device busy {busy:.1f} ms, idle share "
-        f"{max(0.0, 1 - busy / wall):.3f}")
+    idle = max(0.0, 1 - busy / wall)
+    log(f"phase {phase}: {name} step profile: wall {wall:.1f} ms "
+        f"(unprofiled), device busy {busy:.1f} ms, idle share {idle:.3f}")
     for ms, count, key in rows[:8]:
-        log(f"phase 6: {name} step profile: {ms:9.3f} ms ({ms / busy:6.1%}) "
-            f"x {count:4d}  {key[:70]}")
+        log(f"phase {phase}: {name} step profile: {ms:9.3f} ms "
+            f"({ms / busy:6.1%}) x {count:4d}  {key[:70]}")
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=idle)
 
 
 @contextlib.contextmanager
@@ -2583,6 +2610,449 @@ def phase_ortho() -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 9
+
+def mgkn_config(name="mgkn_general_darcy2d", impl="auto"):
+    """The registry entry's model at full width (the runner's config)."""
+    from graph_pde_tpu_torch.experiments import get
+    from graph_pde_tpu_torch.models import MGKNGeneralConfig
+
+    c = get(name)
+    return MGKNGeneralConfig(width=c.width, ker_width=c.ker_width,
+                             depth=c.depth, points=tuple(c.points),
+                             variant=c.mgkn_variant, impl=impl)
+
+
+def mgkn_convs(cfg) -> list:
+    """(kind, level, kappa dims) of the convs one V-cycle of ``cfg``
+    runs: down, mid and up ('single': K_00 only)."""
+    from graph_pde_tpu_torch.models.mgkn_general import level_kernel_width
+
+    w2 = cfg.width ** 2
+
+    def dims(*widths):
+        return tuple(zip(widths[:-1], widths[1:]))
+
+    if cfg.variant == "single":
+        kw = level_kernel_width(cfg, 0)
+        return [("mid", 0, dims(cfg.ker_in, kw, kw, w2))]
+    out = []
+    for kind in ("down", "mid", "up"):
+        for l in range(cfg.level - (kind != "mid")):
+            kw = level_kernel_width(cfg, l + (kind != "mid"))
+            out.append((kind, l, dims(cfg.ker_in, kw, kw, w2) if kind == "mid"
+                        else dims(cfg.ker_in, kw, w2)))
+    return out
+
+
+def expected_mgkn(cfg, n_fwd: int, n_bwd: int) -> dict:
+    """The counts of n_fwd forwards and n_bwd backwards of the general
+    MGKN: under impl='auto' every conv of a V-cycle launches K1 `depth`
+    times a forward in the form its kappa takes, and B1-bwd `depth`
+    times a backward; the kcached path launches none."""
+    from graph_pde_tpu_torch.ops.fused_edge_conv import b1_bwd_form, k1_form
+
+    counts = dict.fromkeys(COUNTED, 0)
+    if cfg.impl == "kcached":
+        return counts
+    w = cfg.width
+    for _, _, dims in mgkn_convs(cfg):
+        form = k1_form(dims, w, w, cfg.compute_dtype)
+        bwd = b1_bwd_form(dims[-1][0], w, w, cfg.compute_dtype)
+        for key, n in (("K1", n_fwd), (f"K1 {form}", n_fwd),
+                       ("B1-bwd", n_bwd), (f"B1-bwd {bwd}", n_bwd)):
+            counts[key] += n * cfg.depth
+    return counts
+
+
+def mgkn_graphs(name, n):
+    """The first n synthetic Darcy samples of ``name``'s registry data
+    (the runner's source grid, stride and seeds), its normalizers, and
+    their stacked host multilevel graphs."""
+    from graph_pde_tpu_torch.data import (darcy_mgkn_graphs,
+                                          load_or_generate_darcy,
+                                          prepare_darcy)
+    from graph_pde_tpu_torch.experiments import get
+
+    c = get(name)
+    fields = load_or_generate_darcy(n, c.source_res, seed=c.data_seed)
+    arrays, norms = prepare_darcy(fields, n=n, r=c.downsample,
+                                  u_norm=c.u_norm)
+    graphs, _ = darcy_mgkn_graphs(arrays, points=c.points,
+                                  radius_inner=c.radius_inner,
+                                  radius_inter=c.radius_inter, seed=c.seed)
+    return arrays, norms, graphs
+
+
+def mgkn_conv_inputs(graphs, cfg, params, kind, l, gen):
+    """One conv's operands on the card from sample 0 of ``graphs``: its
+    senders and attrs (padded edges included, as the model runs them),
+    its kappa, x [nodes, 64] and a cotangent g [E, 64] from ``gen``."""
+    import torch
+
+    dev = params["fc_in"]["w"].device
+    r0, r1 = getattr(graphs, f"{kind}_ranges")[l]
+    s = torch.as_tensor(getattr(graphs, f"{kind}_senders")[0, r0:r1]) \
+        .long().to(dev)
+    a = torch.as_tensor(getattr(graphs, f"{kind}_attr")[0, r0:r1]).to(dev)
+    offs = cfg.offsets()
+    n = offs[l + 1] - offs[l] if kind == "mid" else offs[-1]
+    kp = params[f"conv_{kind}"][l]["kernel"]
+    x = torch.randn(n, cfg.width, generator=gen).to(dev)
+    g = torch.randn(s.shape[0], cfg.width, generator=gen).to(dev)
+    return s, a, kp, x, g, n
+
+
+def phase_mgkn_kernels(graphs, params, cfg) -> dict:
+    """K1 and B1-bwd against their plain versions at each of the general
+    MGKN's seven conv shapes (mid levels 0-2, down and up levels 0-1) on
+    one s=85 training graph at full width: fp32 (K1 general or SIMT,
+    B1-bwd SIMT) within F32_TOL, bf16 within BF16_TOL; the forward and
+    all four B1-bwd outputs, each in the form its shape takes, a second
+    launch bit-identical. Returns the largest max-abs errors by form."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.dense import dense_apply, layer_dims
+    from graph_pde_tpu_torch.ops.fused_edge_conv import k1_form
+
+    gen = torch.Generator().manual_seed(SEED + 15)
+    errs = {}
+    with torch.inference_mode():
+        for kind, l, dims in mgkn_convs(cfg):
+            s, a, kp, x, g, _ = mgkn_conv_inputs(graphs, cfg, params, kind,
+                                                 l, gen)
+            require(layer_dims(kp) == dims, f"{kind} {l} kappa {dims}")
+            h2 = dense_apply(kp[:-1], a, out_nonlinearity=torch.relu)
+            layers = (dims[0][0],) + tuple(d[1] for d in dims)
+            for dt, tol in ((None, F32_TOL), ("bfloat16", BF16_TOL)):
+                form = k1_form(dims, 64, 64, dt)
+                name = f"mgkn {kind} l={l} kappa {layers}"
+                ab = check_k1(f"K1 {name} {dt or 'float32'}", x, s, a, kp,
+                              64, dt, tol, form, phase=9)
+                key = f"K1 {form} mgkn {dt or 'float32'}"
+                errs[key] = max(errs.get(key, 0.0), ab)
+                ab = check_b1_bwd(f"B1-bwd {name} {dt or 'float32'}", x, s,
+                                  h2, g, kp[-1]["w"], 64, dt, tol, phase=9)
+                key = f"B1-bwd mgkn {dt or 'float32'}"
+                errs[key] = max(errs.get(key, 0.0), ab)
+    return errs
+
+
+def mgkn_times(graphs, params, cfg) -> dict:
+    """K1 (general form, SIMT at mid level 1) and B1-bwd (SIMT form) in
+    fp32, the auto path's, at each of the seven conv shapes of one s=85
+    training graph: kernel and plain times (CUDA events) and bounds, and
+    what a training step's launches (depth of each) cost beyond their
+    bounds. Mid level 0 and 1 go into the kernels line with their grids;
+    at mid level 0 each kernel of the two calls is profiled."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.dense import dense_apply
+    from graph_pde_tpu_torch.ops.fused_edge_conv import (
+        edge_messages_bwd_plain, edge_messages_plain, fused_edge_messages,
+        fused_edge_messages_bwd, k1_form)
+
+    dev = params["fc_in"]["w"].device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator().manual_seed(SEED + 16)
+    rec, rows = {}, []
+    kw_args = dict(in_channels=64, out_channels=64)
+    with torch.inference_mode():
+        for kind, l, dims in mgkn_convs(cfg):
+            s, a, kp, x, g, n = mgkn_conv_inputs(graphs, cfg, params, kind,
+                                                 l, gen)
+            e, kw = s.shape[0], dims[-1][0]
+            form = k1_form(dims, 64, 64, None)
+            k1 = lambda: fused_edge_messages(x, s, a, kp, **kw_args)
+            k1p = lambda: edge_messages_plain(x, s, a, kp, **kw_args)
+            layers = (dims[0][0],) + tuple(d[1] for d in dims)
+            shape = f"{kind} l={l}: E={e}, kappa {layers}, float32"
+            fwd = dict(ms=time_ms(k1, 10), plain_ms=time_ms(k1p, 10),
+                       library_ms=None, shape=shape, **k1_cost(kp, e, n))
+            wl = kp[-1]["w"]
+            c = wl.shape[1]
+            h2 = dense_apply(kp[:-1], a, out_nonlinearity=torch.relu)
+            b1 = lambda: fused_edge_messages_bwd(x, s, h2, g, wl, **kw_args)
+            b1p = lambda: edge_messages_bwd_plain(x, s, h2, g, wl, **kw_args)
+            # as backward_times counts B1-bwd: three products, dpre, the
+            # dx fold and dbl; each input read once, each output written
+            bwd = dict(ms=time_ms(b1, 10), plain_ms=time_ms(b1p, 10),
+                       library_ms=None, shape=shape,
+                       flops=6.0 * e * kw * c + 3.0 * e * c,
+                       bytes=(4 * (e * kw + n * 64 + e * 64 + kw * c)
+                              + 8 * e + 4 * (e * 64 + e * kw + kw * c + c)))
+            for r in (fwd, bwd):
+                set_bound(r)
+            rows.append((kind, l, form, fwd, bwd))
+            if (kind, l) == ("mid", 0):
+                profile_kernels("mgkn_mid0_K1", k1, phase=9)
+                profile_kernels("mgkn_mid0_B1-bwd", b1, phase=9)
+            if kind == "mid" and l < 2:
+                fwd["grid"] = (k1_general_grid(e, 64, sms)
+                               if form == "general" else "one block a tile")
+                bwd["grid"] = b1_simt_grid(e, kw, 64, sms)
+                rec[f"K1 {form} mgkn mid{l}"] = fwd
+                rec[f"B1-bwd simt mgkn mid{l}"] = bwd
+    for key, r in rec.items():
+        log(f"phase 9: {key}: grid {r['grid']}")
+    log("phase 9: conv | E | kappa | K1 form | K1 ms | plain | bound | "
+        "B1-bwd ms | plain | bound")
+    excess = {"K1 general": 0.0, "K1 simt": 0.0, "B1-bwd simt": 0.0}
+    for kind, l, form, fwd, bwd in rows:
+        log(f"phase 9: {fwd['shape']} | {form} | {fwd['ms']:.3f} | "
+            f"{fwd['plain_ms']:.3f} | {fwd['bound_ms']:.3f} | "
+            f"{bwd['ms']:.3f} | {bwd['plain_ms']:.3f} | "
+            f"{bwd['bound_ms']:.3f}")
+        excess[f"K1 {form}"] += cfg.depth * (fwd["ms"] - fwd["bound_ms"])
+        excess["B1-bwd simt"] += cfg.depth * (bwd["ms"] - bwd["bound_ms"])
+    kern = sum(cfg.depth * (f["ms"] + b["ms"]) for *_, f, b in rows)
+    plain = sum(cfg.depth * (f["plain_ms"] + b["plain_ms"])
+                for *_, f, b in rows)
+    bound = sum(cfg.depth * (f["bound_ms"] + b["bound_ms"])
+                for *_, f, b in rows)
+    log(f"phase 9: a step's launches x (time - bound), ms: "
+        f"{ {k: round(v, 3) for k, v in excess.items()} }; kernels "
+        f"{kern:.1f} ms a step, their bounds {bound:.1f} ms, their plain "
+        f"versions {plain:.1f} ms")
+    rec["K1 general mgkn mid0"]["step_excess_ms"] = excess["K1 general"]
+    rec["K1 simt mgkn mid1"]["step_excess_ms"] = excess["K1 simt"]
+    rec["B1-bwd simt mgkn mid0"]["step_excess_ms"] = excess["B1-bwd simt"]
+    rec["mgkn shapes"] = [dict(conv=f"{kind} l={l}", form=form,
+                          **{f"{p}_{f}": r[f] for p, r in
+                             (("K1", fw), ("B1-bwd", bw))
+                             for f in ("ms", "plain_ms", "bound_ms")})
+                     for kind, l, form, fw, bw in rows]
+    return rec
+
+
+def mgkn_run(name, args, cfg, n_windows) -> dict:
+    """One `cli run mgkn_general_darcy2d` (MGKN_RUN's size) with its
+    steps and evaluation counted: each step launches expected_mgkn(cfg,
+    1, 1), the test evaluation expected_mgkn(cfg, 1, 0), and the
+    split_random evaluation one forward a splitter window. Logs step
+    times, the rel-L2s and the peak device memory."""
+    import numpy as np
+    import torch
+
+    steps, evals = [], []
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with counted_steps(steps, evals):
+        lines = cli_call(["run", "mgkn_general_darcy2d", *MGKN_RUN, *args],
+                         phase=9)
+    torch.cuda.synchronize()
+    # the counters still hold the last counted evaluation's launches,
+    # then those of the runner's split_random evaluation
+    rest = {k: v - evals[-1]["launches"][k] if evals else v
+            for k, v in read_counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(len(steps) == N_TRAIN and len(evals) == 1,
+            f"{name}: {len(steps)} steps, {len(evals)} evaluations")
+    for st in steps:
+        require(st["launches"] == expected_mgkn(cfg, 1, 1),
+                f"{name} step launches {st['launches']}")
+        require(bool(np.isfinite(st["loss"])), f"{name} loss finite")
+    require(evals[0]["launches"] == expected_mgkn(cfg, 1, 0),
+            f"{name} evaluation launches {evals[0]['launches']}")
+    require(rest == expected_mgkn(cfg, n_windows, 0),
+            f"{name} split_random evaluation launches {rest} "
+            f"({n_windows} windows)")
+    summary = json.loads(lines[-1])
+    require(np.isfinite(summary["final_test_l2"])
+            and np.isfinite(summary["full_field_l2"]),
+            f"{name} rel-L2s {summary}")
+    warm = steps[-1]["ms"]
+    log(f"phase 9: {name}: step times (ms) "
+        f"{[round(st['ms'], 1) for st in steps]}, warm step {warm:.1f} ms, "
+        f"evaluation {evals[0]['ms']:.1f} ms, test rel-L2 "
+        f"{summary['final_test_l2']:.6g}, split_random full-field rel-L2 "
+        f"{summary['full_field_l2']:.6g}, peak device memory {peak:.2f} GiB "
+        f"(max_memory_allocated over the run); launches a step "
+        f"{ {k: v for k, v in steps[0]['launches'].items() if v} }")
+    return dict(steps=steps, evals=evals, warm_step_ms=warm, peak_gib=peak,
+                test_l2=summary["final_test_l2"],
+                full_field_l2=summary["full_field_l2"],
+                launches={k: sum(r["launches"][k] for r in steps + evals)
+                          + rest[k] for k in COUNTED})
+
+
+def mgkn_grads(name, params, cfg, arrays, graphs) -> dict:
+    """One forward and the step-1 gradients (decoded rel-L2 loss) of a
+    full-width general MGKN on one graph at impl='auto' (K1, B1-bwd)
+    against impl='reference' (plain torch, no launch) from the same
+    parameters: the outputs and each gradient leaf within F32_TOL of
+    their max-abs, each path's launches counted. Returns the auto
+    gradient's launches."""
+    import torch
+
+    from graph_pde_tpu_torch.data.datasets import map_arrays
+    from graph_pde_tpu_torch.models import mgkn_general_apply_batched
+    from graph_pde_tpu_torch.train import MGKNGeneralTask, make_loss_fn
+    from graph_pde_tpu_torch.train.trainer import param_leaves, trainable
+
+    batch = map_arrays(lambda a: a[:1], graphs.to())
+
+    def forward(c):
+        zero_counts()
+        with torch.inference_mode():
+            out = mgkn_general_apply_batched(params, c, batch)
+        torch.cuda.synchronize()
+        return out, read_counts()
+
+    def grads(c):
+        task = MGKNGeneralTask(c, u_normalizer=arrays.u_normalizer)
+        p = trainable(params)
+        zero_counts()
+        lv, _ = make_loss_fn(task, "rel2")(p, batch)
+        lv.backward()
+        torch.cuda.synchronize()
+        return float(lv.detach()), [t.grad for t in param_leaves(p)], \
+            read_counts()
+
+    ref = dataclasses.replace(cfg, impl="reference")
+    (ok, ck), (op, cp) = forward(cfg), forward(ref)
+    require(ck == expected_mgkn(cfg, 1, 0), f"{name} forward launches {ck}")
+    require(not any(cp.values()), f"{name} reference launches {cp}")
+    _, rel = rel_err(ok, op)
+    require(rel <= F32_TOL and bool(torch.isfinite(ok).all()),
+            f"{name} forward auto vs reference {rel:.3e}")
+    lk, gk, ck = grads(cfg)
+    lp, gp, cp = grads(ref)
+    require(ck == expected_mgkn(cfg, 1, 1), f"{name} gradient launches {ck}")
+    require(not any(cp.values()), f"{name} reference launches {cp}")
+    worst, unused = 0.0, 0
+    for j, (a, b) in enumerate(zip(gk, gp)):
+        if a is None or b is None:
+            # 'single' never runs the convs other than K_00
+            require(a is None and b is None,
+                    f"{name} gradient {j}: reached on one path only")
+            unused += 1
+            continue
+        r = rel_err(a, b)[1]
+        require(r <= F32_TOL and bool(torch.isfinite(a).all()),
+                f"{name} gradient {j}: relative {r:.3e}")
+        worst = max(worst, r)
+    log(f"phase 9: {name} ({cfg.variant}, points {cfg.points}, depth "
+        f"{cfg.depth}): forward auto vs reference relative max-abs "
+        f"{rel:.3e}; step-1 gradients loss {lk:.6g} vs {lp:.6g}, worst "
+        f"parameter relative max-abs err {worst:.3e} (tol {F32_TOL:g}) over "
+        f"{len(gk) - unused} parameters ({unused} that the forward never "
+        f"reaches); launches a step {({k: v for k, v in ck.items() if v})}")
+    return ck
+
+
+def phase_mgkn() -> dict:
+    """Phase 9: the general MGKN slice at full width, through the command
+    line in this process from a temporary directory (its data cache and
+    bundles go there). Holds K1 and B1-bwd at the seven conv shapes and
+    times them; runs mgkn_general_darcy2d under `--set impl=auto` (K1
+    general 30, K1 simt 5, B1-bwd simt 35 a step) with a bundle and
+    under the registry's impl='kcached' (no launch), profiling a step of
+    each; serves the auto bundle with `cli predict` against the plain
+    predictor; holds the full-width forward and step-1 gradients of
+    impl='auto' against 'reference' for mgkn_general_darcy2d (mkgn),
+    neurips1_mgkn (induced) and neurips2_mgkn (single). Returns each
+    path's launches, the kernel errors and times."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graph_pde_tpu_torch.data import load_or_generate_darcy
+    from graph_pde_tpu_torch.inference import MGKNGeneralPredictor
+    from graph_pde_tpu_torch.models import mgkn_general_init
+    from graph_pde_tpu_torch.train import MGKNGeneralTask, load_bundle
+    from graph_pde_tpu_torch.utils.matio import MatReader
+
+    here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_mgkn_")
+    os.chdir(tmp)
+    out = dict(launches={})
+    try:
+        cfg = mgkn_config()
+        counts = expected_mgkn(cfg, 1, 1)
+        require(counts["K1 general"] == 30 and counts["K1 simt"] == 5
+                and counts["B1-bwd simt"] == 35 == counts["K1"],
+                f"general MGKN fp32 forms a step {counts}")
+        arrays, _, graphs = mgkn_graphs("mgkn_general_darcy2d", N_TRAIN)
+        log(f"phase 9: s={arrays.s} graphs: points {cfg.points}, mid "
+            f"ranges {graphs.mid_ranges}, down {graphs.down_ranges}, up "
+            f"{graphs.up_ranges}")
+        params = mgkn_general_init(torch.Generator().manual_seed(SEED), cfg)
+        out["errs"] = phase_mgkn_kernels(graphs, params, cfg)
+        out["times"] = mgkn_times(graphs, params, cfg)
+
+        n_windows = -(-S_MGKN ** 2 // cfg.points[0])
+        au = mgkn_run("mgkn_general auto", ["--set", "impl=auto", "--bundle",
+                                            "mgkn_b"], cfg, n_windows)
+        kc_cfg = mgkn_config(impl="kcached")
+        kc = mgkn_run("mgkn_general kcached", [], kc_cfg, n_windows)
+        out["launches"]["cli run mgkn_general auto"] = au["launches"]
+        out["launches"]["cli run mgkn_general kcached"] = kc["launches"]
+        out["steps"] = {k: {f: r[f] for f in ("warm_step_ms", "peak_gib",
+                                              "test_l2", "full_field_l2")}
+                        for k, r in (("auto", au), ("kcached", kc))}
+        log(f"phase 9: warm step, auto {au['warm_step_ms']:.1f} ms against "
+            f"kcached {kc['warm_step_ms']:.1f} ms")
+        for run, c in ((au, cfg), (kc, kc_cfg)):
+            out["steps"][c.impl]["profile"] = profile_step(
+                f"mgkn_general_{c.impl}",
+                MGKNGeneralTask(c, u_normalizer=arrays.u_normalizer),
+                run["steps"][-1]["params"], graphs, phase=9)
+
+        zero_counts()
+        lines = cli_call(["predict", "mgkn_b", "--synthetic", "1", "--res",
+                          str(S_MGKN), "--output", "mgkn_pred.mat"], phase=9)
+        torch.cuda.synchronize()
+        got = read_counts()
+        require(got == expected_mgkn(cfg, n_windows, 0),
+                f"mgkn predict launches {got} ({n_windows} windows)")
+        summary = json.loads(lines[-1])
+        require(summary["s"] == S_MGKN and np.isfinite(summary["rel_l2"]),
+                f"mgkn predict summary {summary}")
+        pred = MatReader("mgkn_pred.mat").read_field("pred")
+        bp, mcfg, norms, extra = load_bundle("mgkn_b")
+        require(mcfg == cfg, f"bundle config {mcfg}")
+        f = load_or_generate_darcy(1, S_MGKN)
+        t0 = time.perf_counter()
+        plain = MGKNGeneralPredictor(
+            bp, dataclasses.replace(mcfg, impl="reference"),
+            input_normalizers={k: norms[k] for k in
+                               ("a", "a_smooth", "a_gradx", "a_grady")},
+            u_normalizer=norms["u"],
+            radius_inner=tuple(extra["radius_inner"]),
+            radius_inter=tuple(extra["radius_inter"])).predict(
+                f["coeff"], f["Kcoeff"], f["Kcoeff_x"], f["Kcoeff_y"])
+        plain_s = time.perf_counter() - t0
+        _, rel = rel_err(torch.from_numpy(pred.reshape(1, -1)),
+                         torch.from_numpy(plain))
+        require(pred.shape == (1, S_MGKN, S_MGKN) and rel <= F32_TOL,
+                f"mgkn predict vs plain predictor {rel:.3e}")
+        log(f"phase 9: predict s={S_MGKN} ({n_windows} splitter windows) on "
+            f"the auto bundle: {summary['wall_time_s']} s a request "
+            f"(predictor wall time), plain predictor (impl='reference') "
+            f"{plain_s:.3f} s; rel-L2 {summary['rel_l2']}, against the plain "
+            f"predictor {rel:.3e} relative max-abs (tol {F32_TOL:g}); "
+            f"launches {({k: v for k, v in got.items() if v})}")
+        out["predict"] = dict(latency_s=summary["wall_time_s"],
+                              plain_latency_s=plain_s, windows=n_windows)
+        out["launches"]["cli predict mgkn_general"] = got
+
+        out["launches"]["grad mgkn_general"] = mgkn_grads(
+            "mgkn_general_darcy2d", params, cfg, arrays, graphs)
+        for name in ("neurips1_mgkn", "neurips2_mgkn"):
+            c = mgkn_config(name)
+            # two samples: a unit u-normalizer needs a spread
+            arr, _, gr = mgkn_graphs(name, 2)
+            p = mgkn_general_init(torch.Generator().manual_seed(SEED), c)
+            out["launches"][f"grad {name}"] = mgkn_grads(name, p, c, arr, gr)
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -2602,6 +3072,15 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--grad-locate"]:
         grad_locate()
+        log(ident)
+        return 0
+    if argv[:1] == ["--mgkn"]:
+        from graph_pde_tpu_torch.ops import kernels
+
+        kernels.build()
+        mgkn = phase_mgkn()
+        log("phase 9: general MGKN slice " + json.dumps(
+            dict(mgkn["steps"], predict=mgkn["predict"])))
         log(ident)
         return 0
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2712,6 +3191,12 @@ def main(argv) -> int:
     lap("phase 8 wall time")
     log("phase 8: orthogonal slice " + json.dumps(
         dict(ortho["steps"], neurips5=ortho["neurips5"])))
+    mgkn = phase_mgkn()
+    errs.update(mgkn["errs"])
+    times.update(mgkn["times"])
+    lap("phase 9 wall time")
+    log("phase 9: general MGKN slice " + json.dumps(
+        dict(mgkn["steps"], predict=mgkn["predict"])))
 
     by_path = {f"serving {k}": v for k, v in launches.items()}
     by_path.update({k: v["launches"] for k, v in trained.items()})
@@ -2719,6 +3204,7 @@ def main(argv) -> int:
     by_path.update(b3_launches)
     by_path.update(cli_paths["launches"])
     by_path.update(ortho["launches"])
+    by_path.update(mgkn["launches"])
 
     def count(key, counts):
         """A form's launches in one path's counts: K2 and B2-bwd count
@@ -2804,6 +3290,28 @@ def main(argv) -> int:
             ("B1-bwd fused_edge_messages_bwd, fp32 SIMT form",
              "B1-bwd simt", "fused_edge_conv_bwd.cu",
              "pallas_edge_conv.py:347", "B1-bwd"))]
+    # the general MGKN path's fp32 forms at its dominant conv (mid level
+    # 0, the general form) and its SIMT conv (mid level 1), with every
+    # conv shape's times beside them; launches are that path's
+    mgkn_paths = [k for k in mgkn["launches"] if "kcached" not in k]
+    shapes = times["mgkn shapes"]
+    records += [
+        record(name, key, source, replaces, err, counter=counter,
+               paths=mgkn_paths, form=counter.split()[-1],
+               grid=times[key]["grid"],
+               mgkn_step_excess_ms=times[key]["step_excess_ms"],
+               mgkn_shapes=shapes)
+        for name, key, counter, source, replaces, err in (
+            ("K1 fused_edge_messages, general form, general MGKN",
+             "K1 general mgkn mid0", "K1 general", "fused_edge_conv.cu",
+             "pallas_edge_conv.py:279", "K1 general mgkn float32"),
+            ("K1 fused_edge_messages, fp32 SIMT form, general MGKN",
+             "K1 simt mgkn mid1", "K1 simt", "fused_edge_conv.cu",
+             "pallas_edge_conv.py:279", "K1 simt mgkn float32"),
+            ("B1-bwd fused_edge_messages_bwd, fp32 SIMT form, general MGKN",
+             "B1-bwd simt mgkn mid0", "B1-bwd simt",
+             "fused_edge_conv_bwd.cu", "pallas_edge_conv.py:347",
+             "B1-bwd mgkn float32"))]
     require(all(r["launches"] > 0 for r in records),
             "every kernel form launched on its main path")
     log(json.dumps({"kernels": records}))

@@ -15,8 +15,10 @@ Usage:
 One entry point over the experiment registry. ``run --bundle`` exports
 a serving bundle (train/export.py) and ``predict`` serves it: a GKN
 bundle on new Darcy coefficient fields at any grid resolution
-(GKNPredictor), an orthogonal-MGKN bundle on Burgers initial conditions
-'a' at its training resolution (MGKNOrthogonalPredictor). Every
+(GKNPredictor), a general-MGKN bundle on Darcy fields through the
+reference's split-assemble protocol (MGKNGeneralPredictor), an
+orthogonal-MGKN bundle on Burgers initial conditions 'a' at its
+training resolution (MGKNOrthogonalPredictor). Every
 command runs on CUDA unless ``--device cpu`` asks for the CPU; without
 a GPU it raises. The JSON summary lines are the JAX CLI's.
 """
@@ -65,21 +67,35 @@ def _read_darcy_input(args):
 
 
 def _predict_darcy(args, params, mcfg, norms, extra, device):
-    """GKN serving on Darcy: coefficient fields in, decoded solution
-    fields out, at any resolution."""
-    from .inference import GKNPredictor
+    """Darcy serving: coefficient fields in, decoded solution fields out,
+    at any resolution; GKN on one graph or shards, the general MGKN
+    through the split-assemble protocol (MGKN_general_darcy2d.py:
+    306-333)."""
+    from .inference import GKNPredictor, MGKNGeneralPredictor
 
+    general = extra.get("family") == "mgkn_general"
+    if args.res is None:
+        # a general-MGKN bundle's unit u-normalizer serves only its
+        # training grid
+        args.res = int(extra.get("train_s", 61)) if general else 61
     coeff, kcoeff, kx, ky, truth = _read_darcy_input(args)
     if args.n:
         coeff, kcoeff, kx, ky, truth = (
             None if a is None else a[: args.n]
             for a in (coeff, kcoeff, kx, ky, truth))
-    predictor = GKNPredictor(
-        params, mcfg,
-        input_normalizers={k: norms[k] for k in
-                           ("a", "a_smooth", "a_gradx", "a_grady")},
-        u_normalizer=norms["u"], radius=float(extra.get("radius", 0.2)),
-        device=device)
+    input_norms = {k: norms[k] for k in
+                   ("a", "a_smooth", "a_gradx", "a_grady")}
+    if general:
+        predictor = MGKNGeneralPredictor(
+            params, mcfg, input_normalizers=input_norms,
+            u_normalizer=norms["u"],
+            radius_inner=tuple(extra["radius_inner"]),
+            radius_inter=tuple(extra["radius_inter"]), device=device)
+    else:
+        predictor = GKNPredictor(
+            params, mcfg, input_normalizers=input_norms,
+            u_normalizer=norms["u"], radius=float(extra.get("radius", 0.2)),
+            device=device)
     t0 = time.perf_counter()
     pred = predictor.predict(coeff, kcoeff, kx, ky)
     dt = time.perf_counter() - t0
@@ -151,9 +167,9 @@ def _predict_burgers_orthogonal(args, params, mcfg, norms, extra, device):
 
 
 def _predict(args, device):
-    """Serves a trained bundle on new input fields: GKN on Darcy, the
-    orthogonal MGKN on Burgers. MGKN-general bundles exit 2 until that
-    model is ported."""
+    """Serves a trained bundle on new input fields: GKN and the general
+    MGKN on Darcy, the orthogonal MGKN on Burgers. Bundles of a model
+    the port does not have yet (GCN) exit 2."""
     from .train import load_bundle
 
     if not args.input and not args.synthetic:
@@ -169,7 +185,7 @@ def _predict(args, device):
     if family == "mgkn_orthogonal":
         return _predict_burgers_orthogonal(args, params, mcfg, norms, extra,
                                            device)
-    if family == "gkn" and dataset == "darcy":
+    if family in ("gkn", "mgkn_general") and dataset == "darcy":
         return _predict_darcy(args, params, mcfg, norms, extra, device)
     print(f"error: no serving path for family={family!r} "
           f"dataset={dataset!r}", file=sys.stderr)
@@ -338,9 +354,10 @@ def _parser() -> argparse.ArgumentParser:
                        help="generate N synthetic fields (Darcy, or "
                             "Burgers for an orthogonal-MGKN bundle) "
                             "instead of --input")
-    predp.add_argument("--res", type=int, default=61,
+    predp.add_argument("--res", type=int, default=None,
                        help="grid resolution for --synthetic Darcy "
-                            "fields (Burgers: the bundle's s)")
+                            "fields (default 61; a general-MGKN bundle: "
+                            "its training s; Burgers: the bundle's s)")
     predp.add_argument("--n", type=int, default=None,
                        help="predict only the first N samples")
     predp.add_argument("--output", default=None,

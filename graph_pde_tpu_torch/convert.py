@@ -8,7 +8,10 @@ function from the same numbers.
 
 ``mgkn_orthogonal_params_from_numpy`` does the same for the orthogonal
 MGKN's tree ``{"fc1", "conv": [{"kernel", "root", "bias"}, ...], "fc2",
-"fc3"}``, keeping "conv" a list of one entry per level.
+"fc3"}``, keeping "conv" a list of one entry per level, and
+``mgkn_general_params_from_numpy`` for the general MGKN's tree ``{"fc_in",
+"conv_down", "conv_mid", "conv_up", "fc_out1", "fc_out2"}``, each conv
+list a list.
 
 ``normalizer_from_state`` rebuilds a normalizer from the state dict the
 JAX package's bundle export writes (train/export.py): ``{"kind": "unit"
@@ -47,6 +50,16 @@ def mgkn_orthogonal_params_from_numpy(tree, device: DeviceLike = None):
     float32 tensors on ``device`` (None -> CUDA), "conv" a list."""
     params = gkn_params_from_numpy(tree, device)
     params["conv"] = list(params["conv"])
+    return params
+
+
+def mgkn_general_params_from_numpy(tree, device: DeviceLike = None):
+    """The general MGKN's numpy parameter tree -> the same tree of
+    float32 tensors on ``device`` (None -> CUDA), the conv lists
+    lists."""
+    params = gkn_params_from_numpy(tree, device)
+    for kind in ("conv_down", "conv_mid", "conv_up"):
+        params[kind] = list(params[kind])
     return params
 
 
@@ -91,4 +104,5 @@ def normalizer_state(norm) -> dict:
 
 
 __all__ = ["gkn_params_from_numpy", "mgkn_orthogonal_params_from_numpy",
+           "mgkn_general_params_from_numpy",
            "normalizer_from_state", "normalizer_state"]

@@ -22,14 +22,15 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..graph.graph import (_ARRAY_FIELDS, Graph, build_graph, round_up,
-                           stack_graphs)
-from ..graph.mesh import RandomMeshGenerator, SquareMeshGenerator
+from ..graph.graph import (_ARRAY_FIELDS, Graph, build_graph,
+                           build_multilevel_graph, round_up, stack_graphs)
+from ..graph.mesh import (RandomMeshGenerator, RandomMultiMeshGenerator,
+                          SquareMeshGenerator)
 from ..graph.multipole import get_edge_attr, multi_pole_grid1d
 from ..utils.normalizers import GaussianNormalizer, UnitGaussianNormalizer
 
@@ -202,6 +203,71 @@ class BurgersArrays:
     s: int
 
 
+def darcy_mgkn_graphs(
+    arrays: DarcyArrays,
+    *,
+    points: Sequence[int],
+    radius_inner: Sequence[float],
+    radius_inter: Sequence[float],
+    k: int = 1,
+    seed: int = 0,
+    edge_multiple: int = 256,
+    caps: Optional[tuple] = None,
+):
+    """Stacked host multilevel graphs of the general MGKN, k draws per
+    sample from one RandomMultiMeshGenerator (MGKN_general_darcy2d.py:
+    226-257), and their (mid, down, up) edge capacities. ``caps`` are
+    minimums: random radius graphs have sample-dependent edge counts, so
+    another sample set (test, evaluation) may need more, and grows
+    them."""
+    s = arrays.s
+    n = arrays.a.shape[0]
+    level = len(points)
+    gen = RandomMultiMeshGenerator([[0, 1], [0, 1]], [s, s], level=level,
+                                   sample_sizes=list(points), seed=seed)
+    raw = []
+    for j in range(n):
+        for _ in range(k):
+            idx, idx_all = gen.sample()
+            gen.ball_connectivity(radius_inner, radius_inter)
+            attr, attr_down, attr_up = gen.attributes(theta=arrays.a[j])
+            rng_mid, rng_down, rng_up = gen.get_edge_index_range()
+            mid_attrs = [attr[rng_mid[l, 0]:rng_mid[l, 1]]
+                         for l in range(level)]
+            down_attrs = [attr_down[rng_down[l, 0]:rng_down[l, 1]]
+                          for l in range(level - 1)]
+            up_attrs = [attr_up[rng_up[l, 0]:rng_up[l, 1]]
+                        for l in range(level - 1)]
+            _, grid_all = gen.get_grid()
+            x = _darcy_node_features(grid_all, arrays, j, idx_all)
+            y = arrays.u[j][idx[0]]
+            raw.append((x, [e.copy() for e in gen.edge_index], mid_attrs,
+                        [e.copy() for e in gen.edge_index_down], down_attrs,
+                        [e.copy() for e in gen.edge_index_up], up_attrs,
+                        y, idx[0]))
+
+    need_mid = tuple(
+        round_up(max(r[1][l].shape[1] for r in raw), edge_multiple)
+        for l in range(level))
+    need_down = tuple(
+        round_up(max(r[3][l].shape[1] for r in raw), edge_multiple)
+        for l in range(level - 1))
+    if caps is None:
+        mid_caps, down_caps, up_caps = need_mid, need_down, need_down
+    else:
+        mid_caps = tuple(max(a, b) for a, b in zip(caps[0], need_mid))
+        down_caps = tuple(max(a, b) for a, b in zip(caps[1], need_down))
+        up_caps = tuple(max(a, b) for a, b in zip(caps[2], need_down))
+    graphs = [
+        build_multilevel_graph(
+            x, points, mid_e, mid_a, down_e, down_a, up_e, up_a,
+            y=y, sample_idx=si,
+            mid_caps=mid_caps, down_caps=down_caps, up_caps=up_caps)
+        for (x, mid_e, mid_a, down_e, down_a, up_e, up_a, y, si) in raw
+    ]
+    return stack_graphs(graphs), (mid_caps, down_caps, up_caps)
+
+
 def prepare_burgers(fields: Dict[str, np.ndarray], n: int, r: int = 1,
                     a_normalizer=None, u_normalizer=None,
                     encode_u: bool = True) -> BurgersArrays:
@@ -336,6 +402,7 @@ def batch_iterator(stacked, batch_size: int,
 
 __all__ = ["load_or_generate_darcy", "load_or_generate_burgers",
            "DarcyArrays", "prepare_darcy", "darcy_gkn_graphs",
-           "BurgersArrays", "prepare_burgers", "burgers_gkn_graphs",
+           "darcy_mgkn_graphs", "BurgersArrays", "prepare_burgers",
+           "burgers_gkn_graphs",
            "burgers_multipole_data", "batch_iterator", "map_arrays",
            "leading_size"]

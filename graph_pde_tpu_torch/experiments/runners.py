@@ -1,13 +1,14 @@
 """One runner for the registered experiments (counterpart of
-graph_pde_tpu/experiments/runners.py; GKN on Darcy and Burgers, and the
-orthogonal MGKN on Burgers).
+graph_pde_tpu/experiments/runners.py; GKN on Darcy and Burgers, the
+general MGKN on Darcy and the orthogonal MGKN on Burgers).
 
 data -> graphs -> fit -> evaluation protocol, returning per-epoch
 histories and decoded rel-L2 metrics. The protocols are the reference's:
 'fixed' (the test set of the training graphs), 'multires' (the same
 weights at other resolutions), 'split_random' and 'split_downsample'
 (full-field evaluation through split/assemble; on Burgers the 1-d
-split_random cover), and per-m test graphs (``eval_m``). Shard training
+split_random cover; for the general MGKN the RandomMultiMeshSplitter
+windows), and per-m test graphs (``eval_m``). Shard training
 (``train_split``) trains on DownsampleGridSplitter shards. Runs on CUDA
 unless the caller passes ``device='cpu'``. The other families raise
 NotImplementedError, naming the ROADMAP item that ports them; the run
@@ -22,24 +23,27 @@ import numpy as np
 import torch
 
 from ..data import (burgers_gkn_graphs, burgers_multipole_data,
-                    darcy_gkn_graphs, load_or_generate_burgers,
-                    load_or_generate_darcy, prepare_burgers, prepare_darcy)
+                    darcy_gkn_graphs, darcy_mgkn_graphs,
+                    load_or_generate_burgers, load_or_generate_darcy,
+                    prepare_burgers, prepare_darcy)
 from ..device import DeviceLike, resolve_device
 from ..graph import (DownsampleGridSplitter, RandomGridSplitter,
-                     make_box_grid, repad_edges, stack_graphs)
+                     RandomMultiMeshSplitter, make_box_grid, repad_edges,
+                     stack_graphs)
 from ..inference import _largest_divisor_leq as _divisor_near
-from ..inference import _np
+from ..inference import _np, mgkn_split_predict
 from ..models.gkn import GKNConfig, gkn_apply, gkn_init
+from ..models.mgkn_general import MGKNGeneralConfig, mgkn_general_init
 from ..models.mgkn_orthogonal import (MGKNOrthogonalConfig,
                                       mgkn_orthogonal_init, multipole_batch)
-from ..train import GKNTask, MGKNOrthogonalTask, TrainConfig, evaluate, fit
+from ..train import (GKNTask, MGKNGeneralTask, MGKNOrthogonalTask,
+                     TrainConfig, evaluate, fit)
 from ..utils.losses import LpLoss
 from ..utils.matio import MatReader
 from .registry import ExperimentConfig
 
 # families and datasets of the registry that are not ported yet
 _NOT_PORTED = {
-    "mgkn_general": "MGKN general",
     "gcn": "GCN",
     "torus_t": "torus time series",
 }
@@ -87,7 +91,8 @@ def run_experiment(cfg: ExperimentConfig, smoke: bool = False,
             raise NotImplementedError(
                 f"{cfg.name}: {part!r} is not ported yet (ROADMAP queue "
                 f"A: {_NOT_PORTED[part]})")
-    runners = {"gkn": _run_gkn, "mgkn_orthogonal": _run_mgkn_orthogonal}
+    runners = {"gkn": _run_gkn, "mgkn_general": _run_mgkn_general,
+               "mgkn_orthogonal": _run_mgkn_orthogonal}
     if cfg.family not in runners or cfg.dataset not in ("darcy", "burgers"):
         raise ValueError(f"unknown family/dataset {cfg.family!r}/"
                          f"{cfg.dataset!r}")
@@ -291,6 +296,107 @@ def _run_mgkn_orthogonal(cfg: ExperimentConfig, progress,
                                   "train_s": int(arrays.s)}}}
 
 
+def _run_mgkn_general(cfg: ExperimentConfig, progress,
+                      dev: torch.device) -> Dict:
+    """The general MGKN on Darcy (MGKN_general_darcy2d.py and the
+    neurips{1,2,3}_MGKN scripts): multilevel graphs of the training and
+    test samples (the test capacities at least the training ones),
+    trained on the decoded rel-L2; then the configured full-field
+    protocol."""
+    arrays, norms, test_arrays = _darcy_data(cfg)
+    graph_kw = dict(points=cfg.points, radius_inner=cfg.radius_inner,
+                    radius_inter=cfg.radius_inter)
+    train_g, caps = darcy_mgkn_graphs(arrays, k=cfg.graphs_per_sample,
+                                      seed=cfg.seed, **graph_kw)
+    test_g, _ = darcy_mgkn_graphs(test_arrays, seed=cfg.seed + 1,
+                                  caps=caps, **graph_kw)
+    mcfg = MGKNGeneralConfig(
+        width=cfg.width, ker_width=cfg.ker_width, depth=cfg.depth,
+        ker_in=6, in_width=6, points=tuple(cfg.points),
+        variant=cfg.mgkn_variant, impl=cfg.impl,
+        compute_dtype=cfg.compute_dtype, k_storage=cfg.k_storage)
+    params = mgkn_general_init(torch.Generator().manual_seed(cfg.seed), mcfg,
+                               device=dev)
+    task = MGKNGeneralTask(mcfg, u_normalizer=arrays.u_normalizer,
+                           loss_type=cfg.loss)
+    tc = TrainConfig(epochs=cfg.epochs, batch_size=cfg.batch_size,
+                     learning_rate=cfg.learning_rate,
+                     weight_decay=cfg.weight_decay,
+                     scheduler_step=cfg.scheduler_step,
+                     scheduler_gamma=cfg.scheduler_gamma, loss=cfg.loss,
+                     seed=cfg.seed)
+    res = fit(task, params, train_g, tc, test_data=test_g,
+              callback=progress, device=dev)
+    result = {"config": cfg.name, "train_l2": res.train_l2,
+              "test_l2": res.test_l2, "test_epochs": res.test_epochs,
+              "epoch_times": res.epoch_times,
+              "final_test_l2": res.test_l2[-1] if res.test_l2 else None,
+              "params": res.params,
+              "_bundle": {"model_cfg": mcfg,
+                          "normalizers": dict(norms, u=arrays.u_normalizer),
+                          "extra": {"family": "mgkn_general",
+                                    "experiment": cfg.name,
+                                    "dataset": cfg.dataset,
+                                    "radius_inner": list(cfg.radius_inner),
+                                    "radius_inter": list(cfg.radius_inter),
+                                    "train_s": int(arrays.s)}}}
+    if cfg.eval_protocol == "split_random":
+        result["full_field_l2"] = _eval_mgkn_split(cfg, mcfg, res.params,
+                                                   arrays, norms, dev)
+    elif cfg.eval_protocol == "multires":
+        result["multires"], result["multires_fresh_fields"] = \
+            _eval_mgkn_multires(cfg, task, res.params, arrays, norms, dev)
+    return result
+
+
+def _eval_mgkn_multires(cfg, task, params, arrays, norms, dev):
+    """Zero-shot resolution generalization (neurips3_MGKN.py:357-387):
+    the same weights on multilevel graphs sampled from other grids (the
+    level node counts stay; the pool they are drawn from changes).
+    Returns ({s: rel-L2}, [resolutions evaluated on freshly generated
+    fields])."""
+    out, fresh = {}, []
+    for s_eval in cfg.eval_resolutions:
+        fields, r = _multires_fields(cfg, s_eval, fresh)
+        test_arrays, _ = prepare_darcy(
+            fields, n=cfg.ntest, r=r, normalizers=norms,
+            u_normalizer=arrays.u_normalizer)
+        test_arrays.u = _np(arrays.u_normalizer.encode(test_arrays.u))
+        g, _ = darcy_mgkn_graphs(
+            test_arrays, points=cfg.points, radius_inner=cfg.radius_inner,
+            radius_inter=cfg.radius_inter, seed=cfg.seed + 3)
+        out[int(test_arrays.s)] = evaluate(task, params, g,
+                                           batch_size=cfg.batch_size,
+                                           device=dev)
+    return out, fresh
+
+
+def _eval_mgkn_split(cfg, mcfg, params, arrays, norms, dev) -> float:
+    """Full-field rel-L2 through RandomMultiMeshSplitter windows
+    (MGKN_general_darcy2d.py:306-332), over at most 5 test samples: each
+    window decoded with its own points' stats, then assembled."""
+    s = arrays.s
+    n_eval = min(cfg.ntest, 5)
+    fields = _load_darcy_fields(cfg, n_eval, cfg.test_data_path,
+                                cfg.data_seed + 2)
+    test_arrays, _ = prepare_darcy(fields, n=n_eval, r=cfg.downsample,
+                                   normalizers=norms,
+                                   u_normalizer=arrays.u_normalizer)
+    sp = RandomMultiMeshSplitter([[0, 1], [0, 1]], [s, s],
+                                 level=len(cfg.points),
+                                 sample_sizes=list(cfg.points),
+                                 seed=cfg.seed)
+    lp = LpLoss(size_average=False)
+    total = 0.0
+    split_caps = None
+    for j in range(n_eval):
+        full, split_caps = mgkn_split_predict(
+            params, mcfg, sp, cfg.radius_inner, cfg.radius_inter,
+            _theta(test_arrays, j), split_caps, arrays.u_normalizer, dev)
+        total += float(lp.rel(full[None], test_arrays.u[j][None]))
+    return total / n_eval
+
+
 def _eval_gkn_by_m(cfg, task, params, test_arrays, radius_test, dev):
     """Test-side node-count generalization (UAI5_sample_generalize.py):
     the same weights on test graphs subsampled at each m of eval_m."""
@@ -308,22 +414,7 @@ def _eval_gkn_multires(cfg, mcfg, params, arrays, norms, radius_test,
     out, fresh = {}, []
     task = _task(cfg, mcfg, arrays)
     for s_eval in cfg.eval_resolutions:
-        if (cfg.source_res >= s_eval
-                and (cfg.source_res - 1) % (s_eval - 1) == 0):
-            # stride-downsample the same test fields: the reference
-            # evaluates identical samples at every resolution
-            fields = _load_darcy_fields(cfg, cfg.ntest, cfg.test_data_path,
-                                        cfg.data_seed + 2)
-            r = (cfg.source_res - 1) // (s_eval - 1)
-        else:
-            warnings.warn(
-                f"multires eval at s={s_eval}: source grid "
-                f"{cfg.source_res} cannot derive it; using freshly "
-                "generated fields (flagged in multires_fresh_fields)")
-            fresh.append(int(s_eval))
-            fields = load_or_generate_darcy(cfg.ntest, s_eval,
-                                            seed=cfg.data_seed + 2)
-            r = 1
+        fields, r = _multires_fields(cfg, s_eval, fresh)
         test_arrays, _ = prepare_darcy(
             fields, n=cfg.ntest, r=r, normalizers=norms,
             u_normalizer=arrays.u_normalizer)
@@ -334,6 +425,25 @@ def _eval_gkn_multires(cfg, mcfg, params, arrays, norms, radius_test,
                                            batch_size=cfg.batch_size,
                                            device=dev)
     return out, fresh
+
+
+def _multires_fields(cfg, s_eval: int, fresh: list):
+    """(test fields, stride) of a multires evaluation at ``s_eval``: the
+    same test fields stride-downsampled where the source grid derives
+    s_eval (the reference evaluates identical samples at every
+    resolution), else freshly generated fields at s_eval, noted in
+    ``fresh``."""
+    if cfg.source_res >= s_eval and (cfg.source_res - 1) % (s_eval - 1) == 0:
+        fields = _load_darcy_fields(cfg, cfg.ntest, cfg.test_data_path,
+                                    cfg.data_seed + 2)
+        return fields, (cfg.source_res - 1) // (s_eval - 1)
+    warnings.warn(
+        f"multires eval at s={s_eval}: source grid {cfg.source_res} cannot "
+        "derive it; using freshly generated fields (flagged in "
+        "multires_fresh_fields)")
+    fresh.append(int(s_eval))
+    return load_or_generate_darcy(cfg.ntest, s_eval,
+                                  seed=cfg.data_seed + 2), 1
 
 
 def _predict_shards(mcfg, params, graphs, dev) -> list:

@@ -1,13 +1,19 @@
-from .graph import (Graph, build_graph, stack_graphs, flatten_stacked,
-                    repad_edges, round_up)
+from .graph import (Graph, MultiLevelGraph, build_graph,
+                    build_multilevel_graph, pad_capacities, stack_graphs,
+                    flatten_stacked, repad_edges, round_up)
 from .build import radius_connectivity, forward_filter, edge_attributes
-from .mesh import make_box_grid, SquareMeshGenerator, RandomMeshGenerator
-from .splitters import RandomGridSplitter, DownsampleGridSplitter
+from .mesh import (make_box_grid, SquareMeshGenerator, RandomMeshGenerator,
+                   RandomTwoMeshGenerator, RandomMultiMeshGenerator)
+from .splitters import (RandomGridSplitter, RandomMultiMeshSplitter,
+                        DownsampleGridSplitter)
 
 __all__ = [
-    "Graph", "build_graph", "stack_graphs", "flatten_stacked", "repad_edges",
+    "Graph", "MultiLevelGraph", "build_graph", "build_multilevel_graph",
+    "pad_capacities", "stack_graphs", "flatten_stacked", "repad_edges",
     "round_up",
     "radius_connectivity", "forward_filter", "edge_attributes",
     "make_box_grid", "SquareMeshGenerator", "RandomMeshGenerator",
-    "RandomGridSplitter", "DownsampleGridSplitter",
+    "RandomTwoMeshGenerator", "RandomMultiMeshGenerator",
+    "RandomGridSplitter", "RandomMultiMeshSplitter",
+    "DownsampleGridSplitter",
 ]

@@ -12,6 +12,10 @@ raises when there is none.
 Batching is a leading axis of same-capacity graphs (``stack_graphs``).
 ``flatten_stacked`` turns such a stack into one disjoint-union graph,
 which is how the port runs a batch.
+
+``MultiLevelGraph`` is the general MGKN's input: L levels of nodes in
+one array, per-level edge sets concatenated at static capacities
+(``build_multilevel_graph``), stacked by ``stack_graphs`` as well.
 """
 from __future__ import annotations
 
@@ -266,27 +270,36 @@ def _pad_sample_idx(sample_idx, n_pad):
     return sip
 
 
-def stack_graphs(graphs) -> Graph:
-    """Stacks same-capacity host graphs along a new leading batch axis.
-    The span bounds hold for the batch only if they hold for every
+def stack_graphs(graphs):
+    """Stacks same-capacity host graphs (``Graph`` or
+    ``MultiLevelGraph``) along a new leading batch axis. The span bounds
+    of a ``Graph`` hold for the batch only if they hold for every
     member, so the stack keeps their minimum."""
     graphs = list(graphs)
+    if isinstance(graphs[0], MultiLevelGraph):
+        return _stack_multilevel(graphs)
     span = min(g.sorted_span for g in graphs)
     sspan = min(g.sender_span for g in graphs)
-    first = graphs[0]
+    fields = _stack_arrays(graphs, [f for f in _ARRAY_FIELDS
+                                    if f != "sender_perm" or sspan])
+    fields.setdefault("sender_perm", None)
+    return Graph(**fields, node_block=graphs[0].node_block,
+                 sorted_span=span, sender_span=sspan)
+
+
+def _stack_arrays(graphs, names) -> dict:
+    """name -> the graphs' arrays stacked on a new leading axis (None
+    where no graph has the field)."""
     fields = {}
-    for f in _ARRAY_FIELDS:
+    for f in names:
         vals = [getattr(g, f) for g in graphs]
-        if f == "sender_perm" and not sspan:
-            vals = [None] * len(graphs)
         if any(v is None for v in vals):
             if not all(v is None for v in vals):
                 raise ValueError(f"field {f!r} is set on only some graphs")
             fields[f] = None
         else:
             fields[f] = np.stack([np.asarray(v) for v in vals])
-    return Graph(**fields, node_block=first.node_block, sorted_span=span,
-                 sender_span=sspan)
+    return fields
 
 
 def flatten_stacked(g: Graph) -> Graph:
@@ -360,9 +373,207 @@ def repad_edges(g: Graph, e_pad: int) -> Graph:
         sender_perm=sperm, sender_span=sspan)
 
 
+def pad_capacities(graphs) -> tuple:
+    """Max (node, edge) capacity over a list of pre-pad (n, e) tuples."""
+    n_max = max(g[0] for g in graphs)
+    e_max = max(g[1] for g in graphs)
+    return n_max, e_max
+
+
+# ---------------------------------------------------------- multilevel
+
+_MULTILEVEL_ARRAYS = ("x", "mid_senders", "mid_receivers", "mid_attr",
+                      "mid_mask", "down_senders", "down_receivers",
+                      "down_attr", "down_mask", "up_senders",
+                      "up_receivers", "up_attr", "up_mask", "y",
+                      "sample_idx")
+_MULTILEVEL_STATIC = ("points", "mid_ranges", "down_ranges", "up_ranges")
+
+
+@dataclasses.dataclass
+class MultiLevelGraph:
+    """An L-level multipole graph in one node array (the JAX package's
+    MultiLevelGraph), one sample or a stack of them.
+
+    Level l holds rows [points[l], points[l + 1]); level sizes are fixed
+    by the generator, so nodes carry no padding. Edge sets are
+    concatenated with static per-level capacity ranges:
+
+    - mid edges (K_ll): indices local to the level's slice;
+    - down edges (K_{l,l+1}) and up edges (K_{l+1,l}): global indices
+      over the whole node array.
+
+    ``points`` and the ``*_ranges`` are plain tuples. Host graphs hold
+    numpy arrays (int32 indices, as JAX's); ``to(device)`` gives torch
+    tensors (float32 features, int64 indices, bool masks).
+    """
+
+    x: object
+    mid_senders: object
+    mid_receivers: object
+    mid_attr: object
+    mid_mask: object
+    down_senders: object
+    down_receivers: object
+    down_attr: object
+    down_mask: object
+    up_senders: object
+    up_receivers: object
+    up_attr: object
+    up_mask: object
+    y: object = None
+    sample_idx: object = None
+    points: tuple = ()
+    mid_ranges: tuple = ()
+    down_ranges: tuple = ()
+    up_ranges: tuple = ()
+
+    @property
+    def level(self) -> int:
+        return len(self.points) - 1
+
+    def to(self, device: DeviceLike = None) -> "MultiLevelGraph":
+        """This graph as torch tensors on ``device`` (None -> CUDA)."""
+        dev = resolve_device(device)
+        return dataclasses.replace(
+            self, **{f: _to_tensor(getattr(self, f), dev)
+                     for f in _MULTILEVEL_ARRAYS})
+
+
+def _stack_multilevel(graphs) -> MultiLevelGraph:
+    first = graphs[0]
+    for g in graphs[1:]:
+        if any(getattr(g, f) != getattr(first, f)
+               for f in _MULTILEVEL_STATIC):
+            raise ValueError("stacked multilevel graphs need one set of "
+                             "points and edge capacities")
+    return MultiLevelGraph(**_stack_arrays(graphs, _MULTILEVEL_ARRAYS),
+                           **{f: getattr(first, f)
+                              for f in _MULTILEVEL_STATIC})
+
+
+def _pad_edge_segments(edge_list, attr_list, caps, local_sizes,
+                       edge_multiple):
+    """Pads per-level (senders, receivers, attr) to static capacities and
+    concatenates. ``local_sizes[l]`` is the padding receiver parking index
+    for level l. Returns arrays + the static range tuple + capacities."""
+    n_levels = len(edge_list)
+    if caps is None:
+        caps = tuple(round_up(max(e.shape[1], 1), edge_multiple)
+                     for e in edge_list)
+    a_dim = attr_list[0].shape[1]
+    s_out, r_out, a_out, m_out, ranges = [], [], [], [], []
+    start = 0
+    for l in range(n_levels):
+        e = edge_list[l].shape[1]
+        cap = caps[l]
+        if cap < e:
+            raise ValueError(f"edge capacity {cap} < {e} at level {l}")
+        src = np.asarray(edge_list[l][0], np.int64)
+        dst = np.asarray(edge_list[l][1], np.int64)
+        attr = np.asarray(attr_list[l], np.float32)
+        order = np.lexsort((src, dst))
+        src, dst, attr = src[order], dst[order], attr[order]
+        sp = np.zeros(cap, np.int32)
+        sp[:e] = src
+        rp = np.full(cap, local_sizes[l] - 1, np.int32)
+        rp[:e] = dst
+        ap = np.zeros((cap, a_dim), np.float32)
+        ap[:e] = attr
+        mp = np.zeros(cap, bool)
+        mp[:e] = True
+        s_out.append(sp)
+        r_out.append(rp)
+        a_out.append(ap)
+        m_out.append(mp)
+        ranges.append((start, start + cap))
+        start += cap
+    return (np.concatenate(s_out), np.concatenate(r_out),
+            np.concatenate(a_out), np.concatenate(m_out),
+            tuple(ranges), tuple(caps))
+
+
+def build_multilevel_graph(
+    x: np.ndarray,
+    level_sizes,
+    mid_edges, mid_attrs,
+    down_edges, down_attrs,
+    up_edges, up_attrs,
+    *,
+    y: Optional[np.ndarray] = None,
+    sample_idx: Optional[np.ndarray] = None,
+    mid_caps=None, down_caps=None, up_caps=None,
+    edge_multiple: int = 256,
+) -> MultiLevelGraph:
+    """Builds a host MultiLevelGraph from per-level edge lists, with the
+    JAX package's arrays.
+
+    ``mid_edges[l]`` use GLOBAL indices (as RandomMultiMeshGenerator
+    makes them) and are made local to the level's slice here; down and
+    up edges stay global. Each level's edges are sorted by (receiver,
+    sender) and padded to its capacity (default: the count rounded up to
+    ``edge_multiple``), padding parked at receiver ``level_sizes[l] - 1``
+    (mid) or ``n_tot - 1`` (down, up). A single-level graph gets
+    zero-size down and up placeholders."""
+    level_sizes = tuple(int(m) for m in level_sizes)
+    points = (0,) + tuple(np.cumsum(level_sizes).tolist())
+    n_tot = points[-1]
+    x = np.asarray(x, np.float32)
+    if x.shape[0] != n_tot:
+        raise ValueError(f"x has {x.shape[0]} rows, the levels {n_tot}")
+
+    mid_local = []
+    for l, ei in enumerate(mid_edges):
+        ei = np.asarray(ei) - points[l]
+        if ei.size and (ei.min() < 0 or ei.max() >= level_sizes[l]):
+            raise ValueError(f"mid edges of level {l} leave its slice")
+        mid_local.append(ei)
+
+    mid = _pad_edge_segments(mid_local, mid_attrs, mid_caps, level_sizes,
+                             edge_multiple)
+    if len(down_edges) == 0:
+        # single-level graphs (the neurips2_MGKN ablation) have no
+        # inter-level edges; keep zero-size placeholders
+        a_dim = mid[2].shape[1]
+        empty = (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                 np.zeros((0, a_dim), np.float32), np.zeros(0, bool),
+                 (), ())
+        down = up = empty
+    else:
+        glob_sizes = [n_tot] * len(down_edges)
+        down = _pad_edge_segments(down_edges, down_attrs, down_caps,
+                                  glob_sizes, edge_multiple)
+        up = _pad_edge_segments(up_edges, up_attrs, up_caps, glob_sizes,
+                                edge_multiple)
+
+    yp = None
+    if y is not None:
+        yp = np.asarray(y, np.float32)
+        if yp.ndim == 1:
+            yp = yp[:, None]
+    sip = None
+    if sample_idx is not None:
+        sip = np.asarray(sample_idx, np.int32).reshape(-1)
+
+    return MultiLevelGraph(
+        x=x,
+        mid_senders=mid[0], mid_receivers=mid[1], mid_attr=mid[2],
+        mid_mask=mid[3],
+        down_senders=down[0], down_receivers=down[1], down_attr=down[2],
+        down_mask=down[3],
+        up_senders=up[0], up_receivers=up[1], up_attr=up[2], up_mask=up[3],
+        y=yp, sample_idx=sip,
+        points=points, mid_ranges=mid[4], down_ranges=down[4],
+        up_ranges=up[4],
+    )
+
+
 __all__ = [
     "Graph",
+    "MultiLevelGraph",
     "build_graph",
+    "build_multilevel_graph",
+    "pad_capacities",
     "stack_graphs",
     "flatten_stacked",
     "repad_edges",

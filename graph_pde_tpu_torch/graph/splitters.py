@@ -8,6 +8,10 @@ graph_pde_tpu/graph/splitters.py).
 - ``DownsampleGridSplitter`` covers it with the r^2 strided (x::r, y::r)
   shards, each filled with random extra nodes up to m; ``assemble``
   re-interleaves the shards and Gaussian-smooths the field.
+- ``RandomMultiMeshSplitter`` walks one fixed permutation in circular
+  windows, so that the finest levels of its splits tile every node once,
+  and builds the full multilevel graph of each split; ``assembler``
+  scatters the splits' predictions back onto the grid.
 """
 from __future__ import annotations
 
@@ -17,7 +21,9 @@ import numpy as np
 
 from ..utils.filters import gaussian_filter
 from . import build
-from .graph import Graph, build_graph, round_up
+from .graph import (Graph, MultiLevelGraph, build_graph,
+                    build_multilevel_graph, round_up)
+from .mesh import make_box_grid
 
 
 class RandomGridSplitter:
@@ -72,6 +78,132 @@ class RandomGridSplitter:
         for p, idx in zip(preds, split_idx):
             out[np.asarray(idx).reshape(-1)] += np.asarray(p).reshape(-1)
         return (out / self.l).astype(np.float32)
+
+
+class RandomMultiMeshSplitter:
+    """Multilevel splits covering an s x s grid (reference: multipole-
+    graph-neural-operator/utilities.py:786-1007)."""
+
+    def __init__(self, real_space, mesh_size, level: int,
+                 sample_sizes: Sequence[int], seed: Optional[int] = None):
+        if len(sample_sizes) != level:
+            raise ValueError("one sample size per level")
+        self.d = len(real_space)
+        self.ms = list(sample_sizes)
+        self.m = sample_sizes[0]
+        self.level = level
+        self.grid = make_box_grid(real_space, mesh_size)
+        self.n = self.grid.shape[0]
+        self.rng = np.random.default_rng(seed)
+        self.splits = -(-self.n // self.m)
+        self.perm = None
+
+    def _ring_window(self, start: int, count: int) -> np.ndarray:
+        """``count`` consecutive entries of the cached permutation read
+        circularly from offset ``start``. A positive multiple of n gives
+        the whole (rotated) permutation: the reference's wraparound
+        comparison does so when a window's two ends coincide."""
+        if count % self.n == 0 and count > 0:
+            count = self.n
+        else:
+            count %= self.n
+        lo = start % self.n
+        hi = lo + count
+        if hi <= self.n:
+            return self.perm[lo:hi]
+        return np.concatenate([self.perm[lo:], self.perm[:hi - self.n]])
+
+    def sample(self, new_sample: bool = True, index0: int = 0):
+        """One split's per-level node draws: consecutive circular windows
+        of one fixed permutation, sized ms[l], from ``index0`` (successive
+        splits advance it by m, so their finest levels tile the grid).
+        Returns (per-level id arrays, their union window)."""
+        if new_sample or self.perm is None:
+            self.perm = self.rng.permutation(self.n)
+        per_level = []
+        cursor = index0
+        for size in self.ms:
+            per_level.append(self._ring_window(cursor, size))
+            cursor += size
+        union = self._ring_window(index0, cursor - index0)
+        return per_level, union
+
+    def splitter(self, radius_inner, radius_inter, theta_a: np.ndarray,
+                 theta_all: np.ndarray, caps: Optional[tuple] = None,
+                 edge_multiple: int = 256
+                 ) -> Tuple[List[MultiLevelGraph], tuple]:
+        """One test sample -> (host MultiLevelGraphs covering the grid,
+        their (mid, down, up) capacities). theta_a: [n] field of the
+        edge attributes; theta_all: [n, k] node features appended to the
+        coordinates. ``caps`` are minimums: a split whose edges exceed
+        them grows them."""
+        theta_a = np.asarray(theta_a).reshape(self.n)
+        theta_all = np.asarray(theta_all).reshape(self.n, -1)
+        raw = []
+        index = 0
+        for i in range(self.splits):
+            idx, idx_all = self.sample(new_sample=(i == 0), index0=index)
+            index = (index + self.m) % self.n
+            grids = [self.grid[ids] for ids in idx]
+            grid_all = self.grid[idx_all]
+            th = theta_a[idx_all]
+
+            mid_e, mid_a = [], []
+            off = 0
+            for l in range(self.level):
+                ei = build.radius_connectivity(grids[l], radius_inner[l])
+                mid_e.append(ei + off)
+                mid_a.append(build.edge_attributes(grid_all, ei + off,
+                                                   theta=th))
+                off += grids[l].shape[0]
+            down_e, down_a, up_e, up_a = [], [], [], []
+            off = 0
+            for l in range(self.level - 1):
+                ei = build.radius_connectivity(
+                    grids[l], radius_inter[l], points_b=grids[l + 1])
+                ei = ei + off
+                ei[1] += grids[l].shape[0]
+                down_e.append(ei)
+                up_e.append(ei[[1, 0]])
+                down_a.append(build.edge_attributes(grid_all, ei, theta=th))
+                up_a.append(build.edge_attributes(grid_all, ei[[1, 0]],
+                                                  theta=th))
+                off += grids[l].shape[0]
+
+            x = np.concatenate([grid_all, theta_all[idx_all]], axis=1)
+            raw.append((x, mid_e, mid_a, down_e, down_a, up_e, up_a,
+                        idx[0]))
+
+        need_mid = tuple(
+            round_up(max(r[1][l].shape[1] for r in raw), edge_multiple)
+            for l in range(self.level))
+        need_down = tuple(
+            round_up(max(r[3][l].shape[1] for r in raw), edge_multiple)
+            for l in range(self.level - 1))
+        if caps is None:
+            caps = (need_mid, need_down, need_down)
+        else:
+            caps = (tuple(max(a, b) for a, b in zip(caps[0], need_mid)),
+                    tuple(max(a, b) for a, b in zip(caps[1], need_down)),
+                    tuple(max(a, b) for a, b in zip(caps[2], need_down)))
+        graphs = [
+            build_multilevel_graph(
+                x, self.ms, mid_e, mid_a, down_e, down_a, up_e, up_a,
+                sample_idx=si, mid_caps=caps[0], down_caps=caps[1],
+                up_caps=caps[2])
+            for (x, mid_e, mid_a, down_e, down_a, up_e, up_a, si) in raw
+        ]
+        return graphs, caps
+
+    def assembler(self, out_list: Sequence[np.ndarray],
+                  sample_idx_list: Sequence[np.ndarray]) -> np.ndarray:
+        """Scatters the splits' predictions onto the full grid."""
+        if not len(out_list) == len(sample_idx_list) == self.splits:
+            raise ValueError("one prediction and one index set per split")
+        pred = np.zeros(self.n, np.float32)
+        for out, idx in zip(out_list, sample_idx_list):
+            pred[np.asarray(idx).reshape(-1)] = np.asarray(out).reshape(-1)
+        return pred
 
 
 class DownsampleGridSplitter:
@@ -165,4 +297,5 @@ class DownsampleGridSplitter:
         return gaussian_filter(out, sigma=sigma, mode="constant").reshape(-1)
 
 
-__all__ = ["RandomGridSplitter", "DownsampleGridSplitter"]
+__all__ = ["RandomGridSplitter", "RandomMultiMeshSplitter",
+           "DownsampleGridSplitter"]

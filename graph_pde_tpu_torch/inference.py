@@ -1,5 +1,5 @@
 """Serving API (counterpart of graph_pde_tpu/inference.py; GKN and the
-orthogonal MGKN).
+general and orthogonal MGKN).
 
 ``GKNPredictor`` maps raw Darcy coefficient fields to decoded solution
 fields at any grid resolution:
@@ -11,6 +11,12 @@ fields at any grid resolution:
 
 Graphs are built on the host as in the JAX package, moved to the
 predictor's device once per batch, and run by ``gkn_apply_batched``.
+
+``MGKNGeneralPredictor`` maps raw Darcy coefficient fields to decoded
+solution fields through the reference's full-field protocol: windows of
+``RandomMultiMeshSplitter`` cover every grid node, each window's
+multilevel graph runs forward on its own, and the assembler stitches the
+finest levels' predictions back.
 
 ``MGKNOrthogonalPredictor`` maps raw Burgers initial conditions a [n, s]
 to decoded solutions at the training resolution ``cfg.s`` (the level
@@ -27,9 +33,11 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .graph import (RandomGridSplitter, SquareMeshGenerator, build_graph,
-                    edge_attributes, make_box_grid, round_up, stack_graphs)
+from .graph import (RandomGridSplitter, RandomMultiMeshSplitter,
+                    SquareMeshGenerator, build_graph, edge_attributes,
+                    make_box_grid, round_up, stack_graphs)
 from .models.gkn import GKNConfig, gkn_apply_batched, params_to
+from .models.mgkn_general import MGKNGeneralConfig, mgkn_general_apply
 from .models.mgkn_orthogonal import (MGKNOrthogonalConfig,
                                      mgkn_orthogonal_apply_batched,
                                      multipole_batch)
@@ -39,6 +47,43 @@ def _np(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         return t.detach().cpu().numpy()
     return np.asarray(t)
+
+
+def _check_unit_norm_resolution(u_normalizer, s_nodes: int, family: str):
+    """A unit u-normalizer carries per-node stats of the training grid:
+    decoding another resolution with positional sample_idx would read
+    the wrong rows, so it is refused."""
+    u_stats = _np(getattr(u_normalizer, "mean", 0.0))
+    if u_stats.ndim >= 1 and u_stats.size > 1 and u_stats.size != s_nodes:
+        raise ValueError(
+            f"bundle's unit u-normalizer has per-node stats for "
+            f"{u_stats.size} training-grid nodes but input has "
+            f"{s_nodes} nodes; serve {family} at the training "
+            f"resolution, or train/export with u_norm='gaussian' for "
+            f"resolution-free serving")
+
+
+def _encode_darcy(norms, coeff, kcoeff, kx, ky) -> dict:
+    """The four input fields, flattened [n, s*s] and encoded."""
+    n = coeff.shape[0]
+    return {key: _np(norms[key].encode(np.asarray(a).reshape(n, -1)))
+            for key, a in (("a", coeff), ("a_smooth", kcoeff),
+                           ("a_gradx", kx), ("a_grady", ky))}
+
+
+def _decode(u_normalizer, values, idx) -> np.ndarray:
+    """Decodes on the host, with the stats gathered at ``idx`` where the
+    normalizer takes it (falls back as the JAX predictors do)."""
+    try:
+        return _np(u_normalizer.decode(values, sample_idx=idx))
+    except (TypeError, IndexError):
+        return _np(u_normalizer.decode(values))
+
+
+def _decode_rows(u_normalizer, values, idx) -> np.ndarray:
+    """One window's decoded predictions, with the stats of its grid
+    points ``idx``."""
+    return _decode(u_normalizer, values[None], idx[None])[0]
 
 
 def derive_aux_fields(coeff, kcoeff, kx, ky, s):
@@ -86,16 +131,6 @@ class GKNPredictor:
             cols.append(np.asarray(v).reshape(-1, 1))
         return np.concatenate(cols, axis=1)
 
-    def _encode_fields(self, coeff, kcoeff, kx, ky):
-        n = coeff.shape[0]
-
-        def enc(key, a):
-            norm = self.input_normalizers[key]
-            return _np(norm.encode(np.asarray(a).reshape(n, -1)))
-
-        return {"a": enc("a", coeff), "a_smooth": enc("a_smooth", kcoeff),
-                "a_gradx": enc("a_gradx", kx), "a_grady": enc("a_grady", ky)}
-
     def _fwd(self, batch) -> np.ndarray:
         with torch.inference_mode():
             out = gkn_apply_batched(self.params, self.cfg,
@@ -110,18 +145,10 @@ class GKNPredictor:
         [n, s*s]."""
         coeff = np.asarray(coeff)
         n, s = coeff.shape[0], coeff.shape[1]
-        # Per-node stats of a unit u-normalizer belong to the training
-        # grid: decoding another resolution would read the wrong rows.
-        u_stats = _np(getattr(self.u_normalizer, "mean", 0.0))
-        if u_stats.ndim >= 1 and u_stats.size > 1 \
-                and u_stats.size != s * s:
-            raise ValueError(
-                f"unit u-normalizer has per-node stats for {u_stats.size} "
-                f"training-grid nodes but input is s={s} ({s * s} nodes); "
-                f"serve at the training resolution, or use a gaussian "
-                f"u-normalizer for resolution-free serving")
+        _check_unit_norm_resolution(self.u_normalizer, s * s, "gkn")
         kcoeff, kx, ky = derive_aux_fields(coeff, kcoeff, kx, ky, s)
-        fields = self._encode_fields(coeff, kcoeff, kx, ky)
+        fields = _encode_darcy(self.input_normalizers, coeff, kcoeff, kx,
+                               ky)
         if s * s > self.split_threshold:
             return self._predict_split(fields, s)
         return self._predict_full(fields, s)
@@ -169,12 +196,79 @@ class GKNPredictor:
         return out
 
     def _decode(self, values, idx) -> np.ndarray:
-        """Decodes on the host, with the stats gathered at ``idx`` where
-        the normalizer takes it (falls back as the JAX predictor does)."""
-        try:
-            return _np(self.u_normalizer.decode(values, sample_idx=idx))
-        except (TypeError, IndexError):
-            return _np(self.u_normalizer.decode(values))
+        return _decode(self.u_normalizer, values, idx)
+
+
+@dataclasses.dataclass
+class MGKNGeneralPredictor:
+    """Serves a general-MGKN bundle on raw Darcy coefficient fields
+    through the reference's full-field protocol (MGKN_general_darcy2d.py:
+    306-333): RandomMultiMeshSplitter windows covering every grid node,
+    each window's multilevel forward, the assembler's stitch. The graph
+    always subsamples to cfg.points, so this is the serving path at any
+    grid size."""
+
+    params: object
+    cfg: MGKNGeneralConfig
+    input_normalizers: dict          # 'a', 'a_smooth', 'a_gradx', 'a_grady'
+    u_normalizer: object
+    radius_inner: tuple
+    radius_inter: tuple
+    seed: int = 0
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.params = params_to(self.params, self.device)
+        self._splitters: Dict[int, RandomMultiMeshSplitter] = {}
+
+    def predict(self, coeff, kcoeff=None, kx=None, ky=None) -> np.ndarray:
+        """coeff (+ optional smoothed/gradient fields): [n, s, s]. Missing
+        auxiliary fields are derived. Returns decoded solutions
+        [n, s*s]."""
+        coeff = np.asarray(coeff)
+        n, s = coeff.shape[0], coeff.shape[1]
+        _check_unit_norm_resolution(self.u_normalizer, s * s,
+                                    "mgkn_general")
+        kcoeff, kx, ky = derive_aux_fields(coeff, kcoeff, kx, ky, s)
+        enc = _encode_darcy(self.input_normalizers, coeff, kcoeff, kx, ky)
+        if s not in self._splitters:
+            self._splitters[s] = RandomMultiMeshSplitter(
+                [[0, 1], [0, 1]], [s, s], level=len(self.cfg.points),
+                sample_sizes=list(self.cfg.points), seed=self.seed)
+        sp = self._splitters[s]
+        out = np.zeros((n, s * s), np.float32)
+        caps = None
+        for j in range(n):
+            theta_all = np.stack([enc["a"][j], enc["a_smooth"][j],
+                                  enc["a_gradx"][j], enc["a_grady"][j]],
+                                 axis=1)
+            out[j], caps = mgkn_split_predict(
+                self.params, self.cfg, sp, self.radius_inner,
+                self.radius_inter, theta_all, caps, self.u_normalizer,
+                self.device)
+        return out
+
+
+def mgkn_split_predict(params, cfg: MGKNGeneralConfig,
+                       sp: RandomMultiMeshSplitter, radius_inner,
+                       radius_inter, theta_all, caps, u_normalizer,
+                       device) -> tuple:
+    """One sample through the splitter's windows: theta_all [n, 4] its
+    encoded fields (a first, the edge attributes' field). Each window's
+    forward runs on ``device``, is decoded with its own points' stats
+    and scattered back (MGKN_general_darcy2d.py:306-332). Returns (the
+    decoded field [n], the window capacities, at least ``caps``)."""
+    shards, caps = sp.splitter(list(radius_inner), list(radius_inter),
+                               theta_all[:, 0], theta_all, caps=caps)
+    outs, idxs = [], []
+    with torch.inference_mode():
+        for g in shards:
+            pred = _np(mgkn_general_apply(params, cfg, g.to(device))[:, 0])
+            idx = np.asarray(g.sample_idx)
+            outs.append(_decode_rows(u_normalizer, pred, idx))
+            idxs.append(idx)
+    return sp.assembler(outs, idxs), caps
 
 
 @dataclasses.dataclass
@@ -229,4 +323,5 @@ def _largest_divisor_leq(n: int, m: int) -> int:
     return best
 
 
-__all__ = ["GKNPredictor", "MGKNOrthogonalPredictor", "derive_aux_fields"]
+__all__ = ["GKNPredictor", "MGKNGeneralPredictor", "MGKNOrthogonalPredictor",
+           "derive_aux_fields", "mgkn_split_predict"]

@@ -1,0 +1,289 @@
+"""MGKN (general, non-nested multilevel): the multipole graph kernel
+network (counterpart of graph_pde_tpu/models/mgkn_general.py).
+
+Three variants of the reference:
+
+- ``mkgn`` (MGKN_general_darcy2d.py:21-94), the flagship: each V-cycle
+  runs the downward residual K_{l,l+1} convs with ReLU; upward, K_ll
+  replaces the level's node slice (no ReLU, root weight) and is followed
+  by the residual K_{l+1,l} conv with ReLU; the finest level is decoded.
+- ``induced`` (neurips1_MGKN.py:20-89): K_ll is a residual on the
+  level's slice with ReLU; no conv has a root weight or a bias.
+- ``single`` (neurips2_MGKN.py:74-78): only the finest level's K_00 runs
+  (residual + ReLU) each depth step; the other convs keep their
+  parameters and never run.
+
+Kernel widths halve per level (``ker_width // 2**l``); mid kappas have
+two hidden layers, down and up kappas one (MGKN_general_darcy2d.py:
+43-62). The reference's in-place slice update is a new tensor here (the
+level's slice concatenated between the untouched rows), so autograd
+never sees a saved tensor written to.
+
+``impl='kcached'`` evaluates every conv's kappa once per forward
+(optionally in bf16, then ``k_storage``'s fp8 behind the straight-through
+estimator) and runs the convs through the plain gather,
+``apply_cached_kernel`` and masked mean, as the JAX package does. Every
+other impl goes through ``edge_kernel_conv``: on CUDA, 'auto' takes the
+K1 kernel (ops/fused_edge_conv.py) at every conv the JAX gate admits,
+and B1-bwd in the backward.
+
+A batch runs as one flattened graph per edge list: sample b's mid edges
+offset by b * n_l (local indices on the level's slice), its down and up
+edges by b * N_tot; each level's slice is taken on the [B, N_tot, w]
+view. The impl gate sees one sample's edge count.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..device import DeviceLike
+from ..graph.graph import MultiLevelGraph
+from ..ops.cached_contraction import apply_cached_kernel, maybe_quantize_k
+from ..ops.dense import (dense_apply, dense_init, linear_init,
+                         pyg_uniform_init)
+from ..ops.edge_conv import _cast_params, _resolve_dtype, edge_kernel_conv
+from ..ops.segment import gather_rows, masked_segment_mean
+from .gkn import params_to
+
+VARIANTS = ("mkgn", "induced", "single")
+
+
+@dataclasses.dataclass(frozen=True)
+class MGKNGeneralConfig:
+    width: int = 64
+    ker_width: int = 256
+    depth: int = 5
+    ker_in: int = 6
+    in_width: int = 6
+    out_width: int = 1
+    points: Tuple[int, ...] = (400, 100, 25)  # per-level node counts
+    variant: str = "mkgn"  # 'mkgn' (flagship) | 'induced' (neurips1) |
+    #                        'single' (neurips2 level ablation)
+    impl: str = "auto"
+    compute_dtype: Optional[str] = None
+    # kcached only: fp8 straight-through storage of the cached kernel
+    # matrices ('float8_e4m3' / 'float8_e5m2')
+    k_storage: Optional[str] = None
+
+    @property
+    def level(self) -> int:
+        return len(self.points)
+
+    def offsets(self) -> Tuple[int, ...]:
+        out = [0]
+        for p in self.points:
+            out.append(out[-1] + p)
+        return tuple(out)
+
+
+def level_kernel_width(cfg: MGKNGeneralConfig, l: int) -> int:
+    """The kappa width of level l's convs: ker_width halved per level."""
+    return cfg.ker_width // (2 ** l)
+
+
+def mgkn_general_init(gen: torch.Generator, cfg: MGKNGeneralConfig, *,
+                      device: DeviceLike = None):
+    """Parameters drawn from ``gen`` with the JAX package's
+    distributions, in its layout and order, on ``device`` (None: CUDA,
+    or an error without a GPU)."""
+    if cfg.variant not in VARIANTS:
+        raise ValueError(f"unknown variant {cfg.variant!r}")
+    w2 = cfg.width ** 2
+    params = {"fc_in": linear_init(gen, cfg.in_width, cfg.width,
+                                   device=device),
+              "conv_down": [], "conv_mid": [], "conv_up": []}
+    for l in range(1, cfg.level):
+        kw = level_kernel_width(cfg, l)
+        params["conv_down"].append({"kernel": dense_init(
+            gen, (cfg.ker_in, kw, w2), device=device)})
+    for l in range(cfg.level):
+        kw = level_kernel_width(cfg, l)
+        conv = {"kernel": dense_init(gen, (cfg.ker_in, kw, kw, w2),
+                                     device=device)}
+        if cfg.variant == "mkgn":   # root_weight=True on K_ll
+            conv["root"] = pyg_uniform_init(gen, cfg.width,
+                                            (cfg.width, cfg.width),
+                                            device=device)
+        params["conv_mid"].append(conv)
+    for l in range(1, cfg.level):
+        kw = level_kernel_width(cfg, l)
+        params["conv_up"].append({"kernel": dense_init(
+            gen, (cfg.ker_in, kw, w2), device=device)})
+    params["fc_out1"] = linear_init(gen, cfg.width, cfg.ker_width,
+                                    device=device)
+    params["fc_out2"] = linear_init(gen, cfg.ker_width, cfg.out_width,
+                                    device=device)
+    return params
+
+
+@dataclasses.dataclass
+class _Edges:
+    """One conv's edge list of a flattened batch."""
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    attr: torch.Tensor
+    mask: torch.Tensor
+    per_graph: int      # one sample's edge count, for the impl gate
+
+
+def _edges(g: MultiLevelGraph, kind: str, l: int, stride: int) -> _Edges:
+    """Level l's range of edge list ``kind`` ('mid', 'down', 'up'), sample
+    b's node indices offset by b * stride."""
+    r0, r1 = getattr(g, f"{kind}_ranges")[l]
+    se = getattr(g, f"{kind}_senders")[:, r0:r1]
+    b = se.shape[0]
+    off = (torch.arange(b, device=se.device) * stride)[:, None]
+    attr = getattr(g, f"{kind}_attr")[:, r0:r1]
+    return _Edges(senders=(se + off).reshape(-1),
+                  receivers=(getattr(g, f"{kind}_receivers")[:, r0:r1]
+                             + off).reshape(-1),
+                  attr=attr.reshape(-1, attr.shape[-1]),
+                  mask=getattr(g, f"{kind}_mask")[:, r0:r1].reshape(-1),
+                  per_graph=r1 - r0)
+
+
+def _conv(x, ed: _Edges, conv_params, cfg, dtype, kk=None):
+    """One edge-kernel conv (mean aggregation, the conv's root weight
+    where it has one, no bias) on a flattened node array."""
+    if kk is not None:
+        msg = apply_cached_kernel(gather_rows(x, ed.senders), kk, cfg.width,
+                                  cfg.width)
+        out = masked_segment_mean(msg, ed.receivers, ed.mask, x.shape[0])
+        if "root" in conv_params:
+            out = out + x @ conv_params["root"]
+        return out
+    return edge_kernel_conv(
+        x, ed.senders, ed.receivers, ed.attr, ed.mask, conv_params["kernel"],
+        in_channels=cfg.width, out_channels=cfg.width, aggr="mean",
+        root=conv_params.get("root"), bias=None, impl=cfg.impl,
+        compute_dtype=dtype, gate_edges=ed.per_graph)
+
+
+def _precompute_kernels(params, cfg, edges, dtype) -> dict:
+    """impl='kcached': every conv's K = kappa(attr) [E, width^2],
+    evaluated once per forward (bf16 kappa and K where compute_dtype
+    asks, then fp8 storage). 'single' caches only K_00, the one conv it
+    runs."""
+    k_dtype = torch.float32 if dtype is None else dtype
+
+    def kap(conv_params, ed):
+        kp, a = conv_params["kernel"], ed.attr
+        if dtype is not None:
+            kp, a = _cast_params(kp, dtype), a.to(dtype)
+        return maybe_quantize_k(dense_apply(kp, a).to(k_dtype),
+                                cfg.k_storage)
+
+    if cfg.variant == "single":
+        return {"down": [], "up": [],
+                "mid": [kap(params["conv_mid"][0], edges["mid"][0])]}
+    return {kind: [kap(params[f"conv_{kind}"][l], ed)
+                   for l, ed in enumerate(edges[kind])]
+            for kind in ("down", "mid", "up")}
+
+
+def _set_rows(x3, p0, p1, rows):
+    """x3 [B, N, w] with rows p0:p1 replaced by ``rows``, as a new
+    tensor."""
+    return torch.cat([x3[:, :p0], rows, x3[:, p1:]], dim=1)
+
+
+def _forward(params, cfg: MGKNGeneralConfig, g: MultiLevelGraph):
+    if cfg.variant not in VARIANTS:
+        raise ValueError(f"unknown variant {cfg.variant!r}")
+    offs = cfg.offsets()
+    b, n_tot, w = g.x.shape[0], offs[-1], cfg.width
+    dtype = _resolve_dtype(cfg.compute_dtype)
+    single = cfg.variant == "single"
+    levels = 1 if single else cfg.level
+    edges = {
+        "mid": [_edges(g, "mid", l, offs[l + 1] - offs[l])
+                for l in range(levels)],
+        "down": [] if single else [_edges(g, "down", l, n_tot)
+                                   for l in range(cfg.level - 1)],
+        "up": [] if single else [_edges(g, "up", l, n_tot)
+                                 for l in range(cfg.level - 1)],
+    }
+    kks = (_precompute_kernels(params, cfg, edges, dtype)
+           if cfg.impl == "kcached" else None)
+
+    def conv(x, kind, l):
+        return _conv(x, edges[kind][l], params[f"conv_{kind}"][l], cfg,
+                     dtype, None if kks is None else kks[kind][l])
+
+    def mid(x3, l):
+        """K_ll on level l's slice of every sample: [B, n_l, w]."""
+        p0, p1 = offs[l], offs[l + 1]
+        out = conv(x3[:, p0:p1].reshape(b * (p1 - p0), w), "mid", l)
+        return out.view(b, p1 - p0, w)
+
+    def residual(x3, kind, l):
+        x = x3.reshape(b * n_tot, w)
+        return torch.relu(x + conv(x, kind, l)).view(b, n_tot, w)
+
+    x3 = (g.x @ params["fc_in"]["w"] + params["fc_in"]["b"])
+    for _ in range(cfg.depth):
+        if single:
+            # neurips2_MGKN.py:74-78: residual K_00 on the finest
+            # level's slice + ReLU on the full array; no down/up pass
+            x3 = torch.relu(_set_rows(x3, 0, offs[1],
+                                      x3[:, :offs[1]] + mid(x3, 0)))
+            continue
+        for l in range(cfg.level - 1):
+            x3 = residual(x3, "down", l)
+        for l in reversed(range(cfg.level)):
+            p0, p1 = offs[l], offs[l + 1]
+            if cfg.variant == "mkgn":
+                # K_ll replaces the slice, no ReLU
+                # (MGKN_general_darcy2d.py:84-86)
+                x3 = _set_rows(x3, p0, p1, mid(x3, l))
+            else:
+                # residual K_ll on the slice + ReLU (neurips1_MGKN.py:79-81)
+                x3 = torch.relu(_set_rows(x3, p0, p1,
+                                          x3[:, p0:p1] + mid(x3, l)))
+            if l > 0:
+                x3 = residual(x3, "up", l - 1)
+
+    x0 = x3[:, :offs[1]]
+    x0 = torch.relu(x0 @ params["fc_out1"]["w"] + params["fc_out1"]["b"])
+    return x0 @ params["fc_out2"]["w"] + params["fc_out2"]["b"]
+
+
+def _as_tensors(g: MultiLevelGraph) -> MultiLevelGraph:
+    """A host graph moves to the default device (CUDA, or an error)."""
+    return g if isinstance(g.x, torch.Tensor) else g.to()
+
+
+def mgkn_general_apply(params, cfg: MGKNGeneralConfig,
+                       g: MultiLevelGraph) -> torch.Tensor:
+    """Forward on one multilevel graph -> [points[0], out_width] (the
+    finest level's nodes) on the graph's device."""
+    g = _as_tensors(g)
+    batch = dataclasses.replace(g, **{
+        f.name: getattr(g, f.name)[None]
+        for f in dataclasses.fields(g)
+        if isinstance(getattr(g, f.name), torch.Tensor)})
+    return mgkn_general_apply_batched(params, cfg, batch)[0]
+
+
+def mgkn_general_apply_batched(params, cfg: MGKNGeneralConfig,
+                               graphs: MultiLevelGraph) -> torch.Tensor:
+    """Forward on a stacked batch -> [B, points[0], out_width], run as one
+    flattened graph per edge list."""
+    graphs = _as_tensors(graphs)
+    if tuple(graphs.points) != cfg.offsets():
+        raise ValueError(f"graph levels {graphs.points} are not the "
+                         f"config's {cfg.offsets()}")
+    params = params_to(params, graphs.x.device)
+    return _forward(params, cfg, graphs)
+
+
+__all__ = [
+    "MGKNGeneralConfig",
+    "mgkn_general_init",
+    "mgkn_general_apply",
+    "mgkn_general_apply_batched",
+    "level_kernel_width",
+]

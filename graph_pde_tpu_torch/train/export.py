@@ -6,7 +6,7 @@ parameter tree, through ``torch.save``) and ``bundle.json`` with the JAX
 package's schema: ``model_config_class``, ``model_config`` (the config
 dataclass as a dict), ``normalizers`` (name -> ``convert.
 normalizer_state``) and ``extra`` (family, dataset, radius or train_s,
-experiment). GKN and orthogonal MGKN bundles load.
+experiment). GKN, general MGKN and orthogonal MGKN bundles load.
 A JAX bundle's params are an orbax checkpoint, which only the JAX
 package reads; its ``bundle.json`` loads here as it is.
 """
@@ -20,14 +20,15 @@ from typing import Any, Dict, Optional
 from ..convert import normalizer_from_state, normalizer_state
 from ..data.datasets import map_arrays
 from ..models.gkn import GKNConfig
+from ..models.mgkn_general import MGKNGeneralConfig
 from ..models.mgkn_orthogonal import MGKNOrthogonalConfig
 from .checkpoint import restore_checkpoint, save_checkpoint
 
 _MODEL_CONFIGS = {"GKNConfig": GKNConfig,
+                  "MGKNGeneralConfig": MGKNGeneralConfig,
                   "MGKNOrthogonalConfig": MGKNOrthogonalConfig}
 # model config classes of the JAX package whose models are not ported yet
-_NOT_PORTED = {"MGKNGeneralConfig": "ROADMAP queue A: MGKN general",
-               "GCNConfig": "ROADMAP queue A: GCN"}
+_NOT_PORTED = {"GCNConfig": "ROADMAP queue A: GCN"}
 _META = "bundle.json"
 
 

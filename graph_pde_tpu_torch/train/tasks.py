@@ -1,11 +1,13 @@
 """Task adapters binding a model family to the trainer (counterpart of
-graph_pde_tpu/train/tasks.py; GKN and orthogonal MGKN, the MGKN-general
-and GCN tasks come with their models)."""
+graph_pde_tpu/train/tasks.py; GKN, general and orthogonal MGKN, the GCN
+task comes with its model)."""
 from __future__ import annotations
 
 import torch
 
 from ..models.gkn import GKNConfig, gkn_apply_batched
+from ..models.mgkn_general import (MGKNGeneralConfig,
+                                   mgkn_general_apply_batched)
 from ..models.mgkn_orthogonal import (MGKNOrthogonalConfig,
                                       mgkn_orthogonal_apply_batched)
 from .trainer import Task
@@ -48,6 +50,26 @@ class GKNTask(_NormalizerDecodeMixin, Task):
         return _node_mask_batched(batch)
 
 
+class MGKNGeneralTask(_NormalizerDecodeMixin, Task):
+    """Predictions and targets live on the finest level (no node
+    padding)."""
+
+    def __init__(self, cfg: MGKNGeneralConfig, u_normalizer=None,
+                 loss_type="rel2", use_sample_idx=True):
+        self.cfg = cfg
+        self.u_normalizer = u_normalizer
+        self.loss_type = loss_type
+        self.use_sample_idx = use_sample_idx
+
+    def forward(self, params, batch):
+        return mgkn_general_apply_batched(params, self.cfg, batch)
+
+    def mask(self, batch):
+        b = batch.y.shape[0]
+        return torch.ones((b, self.cfg.points[0]), dtype=torch.float32,
+                          device=batch.y.device)
+
+
 class MGKNOrthogonalTask(_NormalizerDecodeMixin, Task):
     def __init__(self, cfg: MGKNOrthogonalConfig, u_normalizer=None,
                  loss_type="rel2"):
@@ -65,4 +87,4 @@ class MGKNOrthogonalTask(_NormalizerDecodeMixin, Task):
                           device=batch.x.device)
 
 
-__all__ = ["GKNTask", "MGKNOrthogonalTask"]
+__all__ = ["GKNTask", "MGKNGeneralTask", "MGKNOrthogonalTask"]

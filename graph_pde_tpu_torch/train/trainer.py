@@ -32,7 +32,7 @@ import torch
 
 from ..data.datasets import batch_iterator, leading_size, map_arrays
 from ..device import DeviceLike, resolve_device
-from ..graph.graph import Graph
+from ..graph.graph import Graph, MultiLevelGraph
 from ..utils.losses import LpLoss
 from .optim import adam_steplr
 
@@ -162,8 +162,9 @@ def _cpu_copy(params):
 
 
 def to_device(data, device: torch.device):
-    """A stacked host dataset (Graph or tree of arrays) on ``device``."""
-    if isinstance(data, Graph):
+    """A stacked host dataset (Graph, MultiLevelGraph or tree of arrays)
+    on ``device``."""
+    if isinstance(data, (Graph, MultiLevelGraph)):
         return data.to(device)
     return map_arrays(lambda a: torch.as_tensor(a).to(device), data)
 

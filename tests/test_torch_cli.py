@@ -6,8 +6,11 @@ serving a JAX bundle with the port.
 there) must write what the port's GKNPredictor gives on the loaded
 bundle. A bundle written by the JAX package, restored there and carried
 over as numpy, must serve the same fields as JAX's GKNPredictor within
-1e-5 of the output's max-abs.
+1e-5 of the output's max-abs, and a JAX general-MGKN bundle the same
+fields as JAX's MGKNGeneralPredictor within 1e-4 (float32 sums through
+two V-cycles in another order).
 """
+import dataclasses
 import json
 import os
 
@@ -20,6 +23,7 @@ from graph_pde_tpu import inference as jinf
 from graph_pde_tpu.data import datasets as jdata
 from graph_pde_tpu.data import synthetic as jsyn
 from graph_pde_tpu.models import gkn as jgkn
+from graph_pde_tpu.models import mgkn_general as jmg
 from graph_pde_tpu.models import mgkn_orthogonal as jmo
 from graph_pde_tpu.train import export as jexport
 from graph_pde_tpu.utils import normalizers as jnorm
@@ -27,16 +31,19 @@ from graph_pde_tpu.utils import normalizers as jnorm
 from graph_pde_tpu_torch import cli
 from graph_pde_tpu_torch import train as ttrain
 from graph_pde_tpu_torch.convert import (gkn_params_from_numpy,
+                                         mgkn_general_params_from_numpy,
                                          mgkn_orthogonal_params_from_numpy)
 from graph_pde_tpu_torch.data import (load_or_generate_burgers,
                                       load_or_generate_darcy)
 from graph_pde_tpu_torch.experiments import names
 from graph_pde_tpu_torch.inference import (GKNPredictor,
+                                           MGKNGeneralPredictor,
                                            MGKNOrthogonalPredictor)
 from graph_pde_tpu_torch.train import load_bundle, load_meta
 from graph_pde_tpu_torch.utils.matio import MatReader
 
 SERVE_TOL = 1e-5
+MGKN_SERVE_TOL = 1e-4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -127,12 +134,11 @@ def test_predict_needs_an_input(trained):
 
 
 def test_predict_mgkn_bundle_exits_2(tmp_path, capsys):
-    d = tmp_path / "mgkn"
+    d = tmp_path / "gcn"
     d.mkdir()
     (d / "bundle.json").write_text(json.dumps({
-        "model_config_class": "MGKNGeneralConfig", "model_config": {},
-        "normalizers": {}, "extra": {"family": "mgkn_general",
-                                     "dataset": "darcy"}}))
+        "model_config_class": "GCNConfig", "model_config": {},
+        "normalizers": {}, "extra": {"family": "gcn", "dataset": "darcy"}}))
     rc = cli.main(["predict", str(d), "--synthetic", "1", "--res", "9",
                    "--device", "cpu"])
     assert rc == 2
@@ -146,6 +152,7 @@ def test_list_prints_the_registry(capsys):
 
 @pytest.mark.parametrize("args", [
     ["run", "neurips1_gkn", "--smoke"],
+    ["run", "mgkn_general_darcy2d", "--smoke"],
     ["sweep", "neurips1_gkn", "--smoke"],
     ["predict", "missing_bundle", "--synthetic", "1"],
 ])
@@ -191,6 +198,46 @@ def test_jax_bundle_served_by_the_port(tmp_path):
     err = np.abs(got - want).max() / np.abs(want).max()
     assert err <= SERVE_TOL, err
     assert os.path.isdir(os.path.join(d, "params"))
+
+
+def test_jax_mgkn_general_bundle_served_by_the_port(tmp_path):
+    """A JAX general-MGKN bundle (width 8, ker_width 16, depth 2, three
+    levels): the port reads its bundle.json, takes the params JAX
+    restores as numpy, and serves the fields JAX's MGKNGeneralPredictor
+    serves, through the same splitter windows."""
+    jcfg = jmg.MGKNGeneralConfig(width=8, ker_width=16, depth=2,
+                                 points=(40, 12, 6), impl="kcached")
+    f = load_or_generate_darcy(4, 17, seed=4)
+    flat = {k: v.reshape(4, -1) for k, v in f.items()}
+    norms = {"a": jnorm.GaussianNormalizer(flat["coeff"]),
+             "a_smooth": jnorm.GaussianNormalizer(flat["Kcoeff"]),
+             "a_gradx": jnorm.GaussianNormalizer(flat["Kcoeff_x"]),
+             "a_grady": jnorm.GaussianNormalizer(flat["Kcoeff_y"]),
+             "u": jnorm.UnitGaussianNormalizer(flat["sol"])}
+    d = str(tmp_path / "jax_mgkn")
+    jexport.save_bundle(
+        d, jmg.mgkn_general_init(jax.random.PRNGKey(2), jcfg), jcfg,
+        normalizers=norms,
+        extra={"family": "mgkn_general", "dataset": "darcy",
+               "radius_inner": [0.25, 0.5, 1.0],
+               "radius_inter": [0.125, 0.25], "train_s": 17})
+    jp, jc, jn, jx = jexport.load_bundle(d)
+    inputs = {k: jn[k] for k in jn if k != "u"}
+    want = np.asarray(jinf.MGKNGeneralPredictor(
+        jp, jc, input_normalizers=inputs, u_normalizer=jn["u"],
+        radius_inner=tuple(jx["radius_inner"]),
+        radius_inter=tuple(jx["radius_inter"])).predict(f["coeff"][:2]))
+    tcfg, tn, tx = load_meta(d)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jc)
+    got = MGKNGeneralPredictor(
+        mgkn_general_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"),
+        tcfg, input_normalizers={k: tn[k] for k in tn if k != "u"},
+        u_normalizer=tn["u"], radius_inner=tuple(tx["radius_inner"]),
+        radius_inter=tuple(tx["radius_inter"]),
+        device="cpu").predict(f["coeff"][:2])
+    assert got.shape == want.shape == (2, 17 * 17)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= MGKN_SERVE_TOL, err
 
 
 # a seconds-scale orthogonal MGKN run: s=16 (three levels), one epoch

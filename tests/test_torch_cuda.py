@@ -282,6 +282,55 @@ def test_k1_b1_bwd_orthogonal_kappas(dev, dtype, tol, idx, layers):
     for name, a_, b_ in zip(("dx_src", "dh2", "dWl", "dbl"), got, want):
         assert _rel(a_, b_) <= tol, name
 
+# (E, kappa layers, nodes, fp32 K1 form) of the general MGKN's convs at
+# the full width of mgkn_general_darcy2d (points (400, 100, 25), edge
+# counts padded from one seed-0 draw at s=85): the mid convs of levels
+# 0-2 (two hidden layers; level 0's tile does not fit the SIMT form's
+# shared memory, level 2's kw 64 is no multiple of 128) and the down/up
+# convs of levels 0-1 (one hidden layer) on the whole node array
+MGKN_GENERAL_SHAPES = [(25856, (6, 256, 256, 64 * 64), 400, "general"),
+                       (4864, (6, 128, 128, 64 * 64), 100, "simt"),
+                       (768, (6, 64, 64, 64 * 64), 25, "general"),
+                       (1792, (6, 128, 64 * 64), 525, "general"),
+                       (512, (6, 64, 64 * 64), 525, "general")]
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, 1e-4), ("bfloat16", 5e-3)])
+@pytest.mark.parametrize("e,layers,n,form32", MGKN_GENERAL_SHAPES)
+def test_k1_b1_bwd_mgkn_general_kappas(dev, dtype, tol, e, layers, n,
+                                       form32):
+    """K1 and B1-bwd at the general MGKN's conv shapes, the one-hidden-
+    layer down/up kappas among them: the forward and all four B1-bwd
+    outputs against the plain versions, in the forms k1_form and
+    b1_bwd_form pick (fp32: the table's K1 form, B1-bwd SIMT)."""
+    g = torch.Generator().manual_seed(e)
+    kp = dense_init(g, list(layers), device=dev)
+    x = torch.randn(n, 64, generator=g).to(dev)
+    s = torch.randint(0, n, (e,), generator=g).to(dev)
+    a = torch.rand(e, 6, generator=g).to(dev)
+    kw_args = dict(in_channels=64, out_channels=64, compute_dtype=dtype)
+    form = k1_form(layer_dims(kp), 64, 64, dtype)
+    if dtype is None:
+        assert form == form32
+    before = getattr(fused_edge_messages, f"{form}_launches")
+    got = fused_edge_messages(x, s, a, kp, **kw_args)
+    torch.cuda.synchronize()
+    assert getattr(fused_edge_messages, f"{form}_launches") == before + 1
+    assert _rel(got, edge_messages_plain(x, s, a, kp, **kw_args)) <= tol
+    h2 = dense_apply(kp[:-1], a, out_nonlinearity=torch.relu)
+    gg = torch.randn(e, 64, generator=g).to(dev)
+    bform = b1_bwd_form(layers[-2], 64, 64, dtype)
+    assert bform == ("tc" if dtype else "simt")
+    before = getattr(fused_edge_messages_bwd, f"{bform}_launches")
+    got = fused_edge_messages_bwd(x, s, h2, gg, kp[-1]["w"], **kw_args)
+    torch.cuda.synchronize()
+    assert getattr(fused_edge_messages_bwd, f"{bform}_launches") == \
+        before + 1
+    want = edge_messages_bwd_plain(x, s, h2, gg, kp[-1]["w"], **kw_args)
+    for name, a_, b_ in zip(("dx_src", "dh2", "dWl", "dbl"), got, want):
+        assert _rel(a_, b_) <= tol, name
+
+
 # (E, kappa layers, in, out) of K1's general form and B1-bwd's SIMT form
 # on both kinds of grid: the orthogonal kw-1024 level's edge count, where
 # K1 takes channel groups (G > 1) and B1-bwd channel groups and depth

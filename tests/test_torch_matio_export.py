@@ -145,9 +145,9 @@ def test_load_bundle_refuses_unported_models(tmp_path):
     d = tmp_path / "b"
     d.mkdir()
     (d / "bundle.json").write_text(json.dumps({
-        "model_config_class": "MGKNGeneralConfig", "model_config": {},
-        "normalizers": {}, "extra": {"family": "mgkn_general"}}))
-    with pytest.raises(NotImplementedError, match="MGKN general"):
+        "model_config_class": "GCNConfig", "model_config": {},
+        "normalizers": {}, "extra": {"family": "gcn"}}))
+    with pytest.raises(NotImplementedError, match="GCN"):
         texport.load_bundle(str(d))
 
 
