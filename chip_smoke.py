@@ -11,6 +11,8 @@
                                  # check's two paths against a float64
                                  # version, op by op (grad_locate)
     python3 chip_smoke.py --mgkn  # only the build and phase 9
+    python3 chip_smoke.py --k1-simt  # only K1's build and its SIMT form
+                                 # alone (k1_simt_probe)
 
 Phases, each fatal on failure:
   1. card identity (nvidia-smi) and the build of every CUDA kernel;
@@ -50,7 +52,8 @@ Phases, each fatal on failure:
      forward and backward through autograd at the uai1 full-graph shape
      (fp32 and bf16 K), one launch of B3-fwd and B3-bwd each;
   4. per-kernel times at the s=61 shapes (CUDA events), bounds, plain
-     and library times, and the latency of each request;
+     and library times, and the latency of each request; K1's SIMT grid
+     there (one block a tile) timed in turns with G = 1 forced;
   5. training: fit() takes TRAIN_EPOCHS epochs of N_TRAIN steps (batch
      1) at full width on uai4_full_grid_241 (impl='auto', bf16,
      node_block=512, s=241, MSE: K1 + B1-bwd), uai1_full_resolution
@@ -95,7 +98,9 @@ Phases, each fatal on failure:
      each of the ten level shapes of the full-width model (kappa (4, kw,
      kw, 4096), kw 1024 ... 16, fp32 and bf16, every B1-bwd output); K1
      general and B1-bwd SIMT timed at every level, their grids logged at
-     kw 1024 and 512 and each of their kernels profiled at kw 1024; `run
+     kw 1024 and 512 and each of their kernels profiled at kw 1024; K1
+     SIMT at kw 128 (its cluster grid logged, its bf16 rounding checked,
+     timed in turns with the single-block design, G = 1 forced); `run
      mgkn_orthogonal_burgers1d` (width 64, ker_width 1024, depth 4,
      s=1024, 2 steps, 1 test sample) under the registry's
      impl='kcached' with `--bundle` (no launch) and under `--set
@@ -112,7 +117,7 @@ Phases, each fatal on failure:
      0-1, one hidden layer, (6, kw, 4096) with kw 128, 64; fp32 and
      bf16, every B1-bwd output, a second launch bit-identical), each
      timed beside its bound and plain version, mid level 0's kernels
-     profiled; `run mgkn_general_darcy2d` (width 64, ker_width 256,
+     profiled, mid level 1's K1 SIMT as at phase 8's kw 128; `run mgkn_general_darcy2d` (width 64, ker_width 256,
      depth 5, points (400, 100, 25), s = 421 / 5 = 85; 2 steps, 1 test
      sample, split_random evaluation) under `--set impl=auto` with
      `--bundle` (each step K1 general 30, K1 simt 5, B1-bwd simt 35;
@@ -185,6 +190,7 @@ MGKN_RUN = ORTHO_RUN
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+SLEEP_CYCLES = 200_000_000  # ~0.1 s of device sleep while device_ms queues
 # bf16 step-1 gradients, kernels against the plain versions on the card:
 # the CPU test suite measures how far one float32 ulp on every parameter
 # moves a depth-3 model's bf16 gradients (tests/test_torch_gkn.py), and
@@ -518,7 +524,8 @@ def phase_k1_tc_vs_plain(g4, kp4) -> dict:
     import torch
 
     from graph_pde_tpu_torch.ops.dense import dense_init
-    from graph_pde_tpu_torch.ops.fused_edge_conv import edge_messages_plain
+    from graph_pde_tpu_torch.ops.fused_edge_conv import (edge_messages_plain,
+                                                         simt_edge_messages)
 
     dev = g4.x.device
     gen = torch.Generator().manual_seed(SEED + 11)
@@ -539,7 +546,8 @@ def phase_k1_tc_vs_plain(g4, kp4) -> dict:
                  BF16_TOL, "tc")
         # the SIMT form on the same full-graph inputs (timed beside the
         # tensor-core form in phase 6)
-        got = k1_simt(x, s, a, kp4, 64, "bfloat16")
+        got = simt_edge_messages(x, s, a, kp4, in_channels=64,
+                                 compute_dtype="bfloat16")
         torch.cuda.synchronize()
         ab, rel = rel_err(got, want)
         log(f"phase 2: K1 bf16 SIMT form (uai4 s={S_UAI4}): max-abs err "
@@ -549,26 +557,57 @@ def phase_k1_tc_vs_plain(g4, kp4) -> dict:
     return errs
 
 
-def k1_simt(x, s, a, kp, w_in, dt):
-    """K1's SIMT form on a single-launch shape in any compute dtype,
-    launched past the wrapper's choice of form: the design the bf16
-    tensor-core form replaced on the uai4 path, checked and timed beside
-    it."""
+def check_k1_simt_bf16(name, x, s, a, kp, phase) -> float:
+    """K1's SIMT form with bf16 rounding (launched past the wrapper, which
+    takes the tensor-core form in bf16 at kw1 <= 128) on its grid
+    against the plain version within BF16_TOL, a second launch
+    bit-identical; returns the max-abs error."""
     import torch
 
-    from graph_pde_tpu_torch.ops import fused_edge_conv as fe
-    from graph_pde_tpu_torch.ops import kernels
-    from graph_pde_tpu_torch.ops.dense import flatten_params, layer_dims
+    from graph_pde_tpu_torch.ops.fused_edge_conv import (edge_messages_plain,
+                                                         simt_edge_messages)
 
-    dims = layer_dims(kp)
-    msg = torch.empty((s.shape[0], 64), dtype=torch.float32, device=x.device)
-    fn = kernels.fn("fused_edge_conv", "gpde_edge_messages", fe._FAST_ARGS)
-    stream = torch.cuda.current_stream().cuda_stream
-    kernels.check(fn(*[t.data_ptr() for t in (x, s, a, *flatten_params(kp),
-                                              msg)],
-                     s.shape[0], w_in, dims[0][0], dims[0][1], dims[1][1],
-                     int(dt == "bfloat16"), stream), "K1 SIMT form")
-    return msg
+    got = simt_edge_messages(x, s, a, kp, in_channels=64,
+                             compute_dtype="bfloat16")
+    again = simt_edge_messages(x, s, a, kp, in_channels=64,
+                               compute_dtype="bfloat16")
+    want = edge_messages_plain(x, s, a, kp, in_channels=64, out_channels=64,
+                               compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, again))
+    ab, rel = rel_err(got, want)
+    grid = k1_simt_grid(s.shape[0], kp, 64, "bfloat16", x.device)
+    log(f"phase {phase}: {name} [simt, bf16 rounding, G {grid['G']}]: "
+        f"max-abs err {ab:.3e}, relative {rel:.3e} (tol {BF16_TOL:g}); "
+        f"second launch bit-identical {same}")
+    require(rel <= BF16_TOL and bool(torch.isfinite(got).all()), name)
+    require(same, f"{name}: a second launch is bit-identical")
+    return ab
+
+
+def k1_simt_grid(e, kp, w_in, dt, dev) -> dict:
+    """K1 SIMT's grid on e edges: the clusters of G blocks that
+    k1_simt_groups picks, each block's channel pairs, the blocks, the
+    resident clusters of G the card reports, the largest G it keeps
+    resident and the fewest G whose grid reaches two waves (the rule
+    takes at most that many)."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.dense import layer_dims
+    from graph_pde_tpu_torch.ops.fused_edge_conv import (k1_simt_clusters,
+                                                         k1_simt_groups)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clusters = k1_simt_clusters(layer_dims(kp), w_in, int(dt == "bfloat16"),
+                                dev)
+    groups, per = k1_simt_groups(e, w_in, sms, clusters)
+    tiles = -(-e // 128)
+    fits = [g for g, n in clusters.items() if n >= 1]
+    return dict(G=groups, pairs_a_block=per, blocks=tiles * groups,
+                resident_clusters=clusters[groups],
+                largest_resident=max(fits),
+                two_waves_at=next((g for g in fits
+                                   if tiles >= 2 * clusters[g]), None))
 
 
 def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol, phase=2) -> float:
@@ -824,7 +863,7 @@ def phase_times(g, h, params) -> dict:
     from graph_pde_tpu_torch.models.gkn import _cached_kernel
     from graph_pde_tpu_torch.ops.dense import dense_init, layer_dims
     from graph_pde_tpu_torch.ops.fused_edge_conv import (
-        edge_messages_plain, fused_edge_messages)
+        edge_messages_plain, fused_edge_messages, simt_edge_messages)
     from graph_pde_tpu_torch.ops.fused_iterate import (
         fused_iterate_total, fused_iterate_total_plain, sorted_iterate_setup)
 
@@ -846,6 +885,18 @@ def phase_times(g, h, params) -> dict:
     rec = {}
     with torch.inference_mode():
         rec["K1"] = k1_record(kp, g.senders, g.edge_attr, 3)
+        # the single-block design (G = 1 forced) on the same inputs, in
+        # turns with the rule's grid (new, old, old, new)
+        old = lambda: simt_edge_messages(h, g.senders, g.edge_attr, kp,
+                                         in_channels=64, groups=1)
+        t_old = [time_ms(old, 3), time_ms(old, 3)]
+        turns = [rec["K1"]["ms"], *t_old,
+                 time_ms(lambda: fused_edge_messages(
+                     h, g.senders, g.edge_attr, kp, in_channels=64,
+                     out_channels=64), 3)]
+        rec["K1"].update(ms=(turns[0] + turns[3]) / 2, ms_turns=turns,
+                         previous_form_ms=sum(t_old) / 2,
+                         grid=k1_simt_grid(e, kp, 64, None, h.device))
         # K1's general form, off the serving path: the ker_width=1024
         # 'nn' kappa on the first GENERAL_TIME_SLICE edges
         wide = dense_init(torch.Generator().manual_seed(SEED + 4),
@@ -874,6 +925,9 @@ def phase_times(g, h, params) -> dict:
     for r in rec.values():
         set_bound(r)
     log(f"phase 4: s={S_FULL} shapes: E={e} ({e_valid} valid), N={n}")
+    log(f"phase 4: K1 simt grid {rec['K1']['grid']}; single-block design "
+        f"(G = 1 forced) {rec['K1']['previous_form_ms']:.3f} ms, turns "
+        f"{rec['K1']['ms_turns']}")
     for name, r in rec.items():
         log(f"phase 4: {name}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
             f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
@@ -1904,7 +1958,7 @@ def backward_times(g4, kp4, g1, kp1) -> dict:
     from graph_pde_tpu_torch.ops.dense import dense_apply
     from graph_pde_tpu_torch.ops.fused_edge_conv import (
         edge_messages_bwd_plain, edge_messages_plain, fused_edge_messages,
-        fused_edge_messages_bwd)
+        fused_edge_messages_bwd, simt_edge_messages)
     from graph_pde_tpu_torch.ops.fused_iterate import (
         fused_iterate_bwd, fused_iterate_bwd_plain, sorted_iterate_setup)
 
@@ -1920,7 +1974,8 @@ def backward_times(g4, kp4, g1, kp1) -> dict:
         kw_args = dict(in_channels=64, out_channels=64,
                        compute_dtype="bfloat16")
         k1 = lambda: fused_edge_messages(x, s, a, kp4, **kw_args)
-        old = lambda: k1_simt(x, s, a, kp4, 64, "bfloat16")
+        old = lambda: simt_edge_messages(x, s, a, kp4, in_channels=64,
+                                         compute_dtype="bfloat16")
         # in turns (new, old, old, new)
         turns = [time_ms(k1, 3), time_ms(old, 1), time_ms(old, 1),
                  time_ms(k1, 3)]
@@ -2335,11 +2390,51 @@ def phase_ortho_kernels(graphs, params) -> dict:
                               64, dt, tol, form)
                 key = f"K1 {form} ortho {dt or 'float32'}"
                 errs[key] = max(errs.get(key, 0.0), ab)
+                if form == "simt":
+                    errs["K1 simt ortho bf16 rounding"] = (
+                        check_k1_simt_bf16(f"K1 {name}", x, s, a, kp, 8))
                 ab = check_b1_bwd(f"B1-bwd {name} {dt or 'float32'}", x, s,
                                   h2, g, kp[-1]["w"], 64, dt, tol)
                 key = f"B1-bwd ortho {dt or 'float32'}"
                 errs[key] = max(errs.get(key, 0.0), ab)
     return errs
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` a call over ``reps`` calls after one
+    warm-up, by CUDA events around calls that the host queued while the
+    device slept (torch.cuda._sleep): the kernels back to back, without
+    the gaps the host leaves between calls where a call's dispatch
+    outlasts its kernels (time_ms then measures the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def simt_turns(k1, x, s, a, kp, ms, reps) -> dict:
+    """K1's SIMT call ``k1`` (already timed at ``ms``) in turns with the
+    single-block design it replaced (G = 1 forced) on the same fp32
+    inputs, (new, old, old, new), and each one's kernel time alone
+    (device_ms)."""
+    from graph_pde_tpu_torch.ops.fused_edge_conv import simt_edge_messages
+
+    old = lambda: simt_edge_messages(x, s, a, kp, in_channels=64, groups=1)
+    t_old = [time_ms(old, reps), time_ms(old, reps)]
+    turns = [ms, *t_old, time_ms(k1, reps)]
+    return dict(ms=(turns[0] + turns[3]) / 2, ms_turns=turns,
+                previous_form_ms=sum(t_old) / 2,
+                device_ms=device_ms(k1, reps),
+                previous_form_device_ms=device_ms(old, reps))
 
 
 def ortho_times(graphs, params) -> dict:
@@ -2392,6 +2487,10 @@ def ortho_times(graphs, params) -> dict:
             for r in (fwd, bwd):
                 set_bound(r)
             levels.append((idx, form, fwd, bwd))
+            if form == "simt":   # beside the single-block design, in turns
+                fwd.update(simt_turns(k1, x, s, a, kp, fwd["ms"], 10))
+                fwd["grid"] = k1_simt_grid(e, kp, 64, None, dev)
+                rec[f"K1 simt ortho kw{kw}"] = fwd
             if kw == 1024:   # each kernel of the two calls, by device time
                 profile_kernels("ortho_kw1024_K1", k1, phase=8)
                 profile_kernels("ortho_kw1024_B1-bwd", b1, phase=8)
@@ -2401,7 +2500,10 @@ def ortho_times(graphs, params) -> dict:
                 rec[f"K1 general ortho kw{kw}"] = fwd
                 rec[f"B1-bwd simt ortho kw{kw}"] = bwd
     for key, r in rec.items():
-        log(f"phase 8: {key}: grid {r['grid']}")
+        log(f"phase 8: {key}: grid {r['grid']}; previous form "
+            f"{r.get('previous_form_ms')} ms, turns {r.get('ms_turns')}, "
+            f"kernel alone {r.get('device_ms')} ms (previous form "
+            f"{r.get('previous_form_device_ms')})")
     log("phase 8: level | kw | E | K1 form | K1 ms | plain | bound | "
         "B1-bwd ms | plain | bound")
     excess = {"K1 general": 0.0, "K1 simt": 0.0, "B1-bwd simt": 0.0}
@@ -2419,6 +2521,7 @@ def ortho_times(graphs, params) -> dict:
         f"{sum(depth * (f['plain_ms'] + b['plain_ms']) for _, _, f, b in levels):.1f} ms")
     for key in ("K1 general", "B1-bwd simt"):
         rec[f"{key} ortho kw1024"]["step_excess_ms"] = excess[key]
+    rec["K1 simt ortho kw128"]["step_excess_ms"] = excess["K1 simt"]
     return rec
 
 
@@ -2731,6 +2834,9 @@ def phase_mgkn_kernels(graphs, params, cfg) -> dict:
                               64, dt, tol, form, phase=9)
                 key = f"K1 {form} mgkn {dt or 'float32'}"
                 errs[key] = max(errs.get(key, 0.0), ab)
+                if form == "simt":
+                    errs["K1 simt mgkn bf16 rounding"] = check_k1_simt_bf16(
+                        f"K1 {name}", x, s, a, kp, 9)
                 ab = check_b1_bwd(f"B1-bwd {name} {dt or 'float32'}", x, s,
                                   h2, g, kp[-1]["w"], 64, dt, tol, phase=9)
                 key = f"B1-bwd mgkn {dt or 'float32'}"
@@ -2787,14 +2893,20 @@ def mgkn_times(graphs, params, cfg) -> dict:
             if (kind, l) == ("mid", 0):
                 profile_kernels("mgkn_mid0_K1", k1, phase=9)
                 profile_kernels("mgkn_mid0_B1-bwd", b1, phase=9)
+            if form == "simt":   # beside the single-block design, in turns
+                fwd.update(simt_turns(k1, x, s, a, kp, fwd["ms"], 10))
             if kind == "mid" and l < 2:
                 fwd["grid"] = (k1_general_grid(e, 64, sms)
-                               if form == "general" else "one block a tile")
+                               if form == "general"
+                               else k1_simt_grid(e, kp, 64, None, dev))
                 bwd["grid"] = b1_simt_grid(e, kw, 64, sms)
                 rec[f"K1 {form} mgkn mid{l}"] = fwd
                 rec[f"B1-bwd simt mgkn mid{l}"] = bwd
     for key, r in rec.items():
-        log(f"phase 9: {key}: grid {r['grid']}")
+        log(f"phase 9: {key}: grid {r['grid']}; previous form "
+            f"{r.get('previous_form_ms')} ms, turns {r.get('ms_turns')}, "
+            f"kernel alone {r.get('device_ms')} ms (previous form "
+            f"{r.get('previous_form_device_ms')})")
     log("phase 9: conv | E | kappa | K1 form | K1 ms | plain | bound | "
         "B1-bwd ms | plain | bound")
     excess = {"K1 general": 0.0, "K1 simt": 0.0, "B1-bwd simt": 0.0}
@@ -3053,6 +3165,108 @@ def phase_mgkn() -> dict:
     return out
 
 
+# (name, kappa, E, nodes) of K1 SIMT's main-path shapes: the general
+# MGKN's mid level 1 (one s=85 graph), the orthogonal kw-128 level (one
+# s=1024 sample) and the s=61 serving graph (E_pad)
+SIMT_SHAPES = (("mgkn mid l=1", (6, 128, 128, 4096), 4864, 100),
+               ("ortho kw128", (4, 128, 128, 4096), 762, 128),
+               ("s=61 serving", (6, 128, 256, 4096), 1378816, 3721))
+SIMT_CHECK_E = (1, 127, 129, 762, 4864)
+
+
+def k1_simt_probe() -> None:
+    """--k1-simt: K1's SIMT form alone on seeded inputs. The resident
+    clusters the card reports at each SIMT_SHAPES kappa; the form against
+    its plain version at SIMT_CHECK_E edges of the mid l=1 kappa with
+    the rule's G and with G forced to 1, 2, 4, 8 and 16 (fp32 within
+    F32_TOL, bf16 rounding within BF16_TOL, a second launch
+    bit-identical); at each SIMT_SHAPES shape the rule's grid in turns
+    with the single-block design (G = 1 forced), the plain version, the
+    bound, and at the two small ones every G that splits the pairs."""
+    import torch
+
+    from graph_pde_tpu_torch.ops.dense import dense_init
+    from graph_pde_tpu_torch.ops.fused_edge_conv import (
+        edge_messages_plain, fused_edge_messages, k1_simt_clusters,
+        simt_edge_messages)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 17)
+
+    def inputs(layers, e, n):
+        kp = dense_init(gen, layers, device=dev)
+        x = torch.randn(n, 64, generator=gen).to(dev)
+        s = torch.randint(0, n, (e,), generator=gen).to(dev)
+        a = torch.rand(e, layers[0], generator=gen).to(dev)
+        return kp, x, s, a
+
+    with torch.inference_mode():
+        for name, layers, e, n in SIMT_SHAPES:
+            dims = list(zip(layers, layers[1:]))
+            for rb in (0, 1):
+                log(f"k1-simt: {name} kappa {layers} rb {rb}: resident "
+                    f"clusters by G {k1_simt_clusters(dims, 64, rb, dev)}")
+        for e in SIMT_CHECK_E:
+            kp, x, s, a = inputs((6, 128, 128, 4096), e, 100)
+            for dt, tol in ((None, F32_TOL), ("bfloat16", BF16_TOL)):
+                want = edge_messages_plain(x, s, a, kp, in_channels=64,
+                                           out_channels=64,
+                                           compute_dtype=dt)
+                for groups in (None, 1, 2, 4, 8, 16):
+                    kw = dict(in_channels=64, compute_dtype=dt,
+                              groups=groups)
+                    got = simt_edge_messages(x, s, a, kp, **kw)
+                    again = simt_edge_messages(x, s, a, kp, **kw)
+                    torch.cuda.synchronize()
+                    ab, rel = rel_err(got, want)
+                    same = bool(torch.equal(got, again))
+                    g = (k1_simt_grid(e, kp, 64, dt, dev)["G"]
+                         if groups is None else groups)
+                    log(f"k1-simt: E {e} {dt or 'float32'} G {g}"
+                        f"{' (rule)' if groups is None else ''}: max-abs "
+                        f"err {ab:.3e}, relative {rel:.3e} (tol {tol:g}); "
+                        f"second launch bit-identical {same}")
+                    require(rel <= tol and same
+                            and bool(torch.isfinite(got).all()),
+                            f"K1 SIMT E {e} {dt} G {g}")
+        for name, layers, e, n in SIMT_SHAPES:
+            kp, x, s, a = inputs(layers, e, n)
+            reps = 3 if e > 100000 else 20
+            k1 = lambda: fused_edge_messages(x, s, a, kp, in_channels=64,
+                                             out_channels=64)
+            r = dict(ms=time_ms(k1, reps), **k1_cost(kp, e, n))
+            r.update(simt_turns(k1, x, s, a, kp, r["ms"], reps))
+            r["plain_ms"] = time_ms(lambda: edge_messages_plain(
+                x, s, a, kp, in_channels=64, out_channels=64), 2)
+            set_bound(r)
+            r["grid"] = k1_simt_grid(e, kp, 64, None, dev)
+            if e < 100000:
+                r["by_G"] = {g: round(time_ms(
+                    lambda: simt_edge_messages(x, s, a, kp, in_channels=64,
+                                               groups=g), reps), 4)
+                    for g in range(1, 17) if -(-32 // -(-32 // g)) == g}
+            log(f"k1-simt: {name} E {e} kappa {layers}: "
+                + json.dumps({k: v for k, v in r.items()
+                              if k not in ("flops", "bytes")}))
+
+
+def log_ptxas(logs, phase=1) -> None:
+    """Each built kernel's registers, spills and wgmma serialization
+    notes from its compiler log (``-Xptxas -v``)."""
+    for name, text in logs.items():
+        entry = "?"
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                # the kernel's (mangled) name, as ptxas names it, without
+                # its file's anonymous namespace
+                entry = line.split("'")[1] if "'" in line else line
+                entry = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                               entry)
+            elif "registers" in line or "spill" in line or "C75" in line:
+                log(f"phase {phase}: {name}: {entry[:90]}: "
+                    f"{line.strip()[:200]}")
+
+
 def main(argv) -> int:
     import torch
 
@@ -3074,6 +3288,13 @@ def main(argv) -> int:
         grad_locate()
         log(ident)
         return 0
+    if argv[:1] == ["--k1-simt"]:
+        from graph_pde_tpu_torch.ops import kernels
+
+        log_ptxas(kernels.build(["fused_edge_conv"]), "k1-simt")
+        k1_simt_probe()
+        log(ident)
+        return 0
     if argv[:1] == ["--mgkn"]:
         from graph_pde_tpu_torch.ops import kernels
 
@@ -3089,18 +3310,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     logs = kernels.build()
     log(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        entry = "?"
-        for line in text.splitlines():
-            if "Compiling entry function" in line:
-                # the kernel's (mangled) name, as ptxas names it, without
-                # its file's anonymous namespace
-                entry = line.split("'")[1] if "'" in line else line
-                entry = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
-                               entry)
-            elif "registers" in line or "spill" in line or "C75" in line:
-                # registers, spills, wgmma serialization notes
-                log(f"phase 1: {name}: {entry[:90]}: {line.strip()[:200]}")
+    log_ptxas(logs)
     from graph_pde_tpu_torch.ops.fused_edge_conv import k1_tc_occupancy
 
     smem, blocks = k1_tc_occupancy(256, 64)
@@ -3233,8 +3443,10 @@ def main(argv) -> int:
         if form:   # the kernel form, and where it was redesigned, the
             # replaced design's time on the same inputs in this run
             rec["form"] = form
-            if "previous_form_ms" in t:
-                rec["previous_form_ms"] = t["previous_form_ms"]
+            for f in ("previous_form_ms", "device_ms",
+                      "previous_form_device_ms"):
+                if f in t:
+                    rec[f] = t[f]
         rec.update(extra)
         return rec
 
@@ -3245,7 +3457,7 @@ def main(argv) -> int:
     records = [
         record("K1 fused_edge_messages", "K1", "fused_edge_conv.cu",
                "pallas_edge_conv.py:279", "K1 float32", counter="K1 simt",
-               form="simt"),
+               form="simt", grid=times["K1"]["grid"]),
         record("K1 fused_edge_messages, bf16", "K1 bf16",
                "fused_edge_conv.cu", "pallas_edge_conv.py:279", "K1 tc",
                counter="K1 tc", form="tc"),
@@ -3312,6 +3524,16 @@ def main(argv) -> int:
              "B1-bwd simt mgkn mid0", "B1-bwd simt",
              "fused_edge_conv_bwd.cu", "pallas_edge_conv.py:347",
              "B1-bwd mgkn float32"))]
+    # K1 SIMT's other small-E shape, the orthogonal kw-128 level, beside
+    # its general-MGKN record
+    for r in records:
+        if r["name"] == ("K1 fused_edge_messages, fp32 SIMT form, "
+                         "general MGKN"):
+            r["at_ortho_kw128"] = {
+                f: times["K1 simt ortho kw128"][f]
+                for f in ("ms", "plain_ms", "bound_ms", "previous_form_ms",
+                          "device_ms", "previous_form_device_ms", "grid",
+                          "step_excess_ms")}
     require(all(r["launches"] > 0 for r in records),
             "every kernel form launched on its main path")
     log(json.dumps({"kernels": records}))

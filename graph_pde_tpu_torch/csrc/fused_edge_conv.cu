@@ -26,17 +26,33 @@
 // <= 128) runs the two large products on wgmma; see its note below.
 //
 // The SIMT form ('simt': float32, and bf16 single-launch shapes the tc
-// form does not take): one block of 256 threads owns a tile of 128
-// edges. Its h2 tile stays in shared memory (k-major, 128 KB) for the
-// whole block, so every K column tile is a [128 x 256] x [256 x 128]
-// product whose A operand never leaves the SM. Wl is streamed from L2 in
-// [16 x 128] slabs, double-buffered through shared memory with the next
-// slab fetched into registers while the current one is consumed. Each
-// thread keeps an 8x8 register tile of K (64 FMAs per 4 shared-memory
-// vector loads) and folds it straight into its 8x4 message accumulators:
-// a 128-column tile is exactly the columns of two input channels i, i+1.
-// It takes two small layers with kw2 % 128 == 0, out_channels == 64 and
-// an h2 tile that fits shared memory (the neurips1/UAI GKN shapes).
+// form does not take): a cluster of G blocks of 256 threads owns a tile
+// of 128 edges, rank r of it the input-channel pairs [r * per, min(in /
+// 2, (r + 1) * per)). Each block computes the whole h2 tile, which stays
+// in its shared memory (k-major, up to 128 KB), so every K column tile
+// is a [128 x kw2] x [kw2 x 128] product whose A operand never leaves
+// the SM. Wl is streamed from L2 in [16 x 128] slabs, double-buffered
+// through shared memory with the next slab fetched into registers while
+// the current one is consumed. Each thread keeps an 8x8 register tile of
+// K (64 FMAs per 4 shared-memory vector loads) and folds it straight
+// into its 8x4 message accumulators: a 128-column tile is exactly the
+// columns of two input channels i, i+1. It takes two small layers with
+// kw2 % 128 == 0, out_channels == 64 and an h2 tile that fits shared
+// memory (the GKN kappas, the multipole models' kw <= 256 mid levels).
+// At 147-213 KB of shared memory a block runs one to an SM and walks
+// its pairs in sequence, so a call of few tiles (the multipole levels:
+// 6 to 38 tiles on 132 SMs) would take one block's latency whatever
+// its edge count; the caller picks G (ops/fused_edge_conv.py
+// k1_simt_groups) from the tiles and the clusters the card keeps
+// resident, G = 1 where the tiles fill the card. With G > 1 each rank
+// leaves its [128 x 64] partial messages in its own shared memory (over
+// the h2 tile, whose last use is over), and after a cluster barrier
+// rank r sums rows [r * 128 / G, (r + 1) * 128 / G) of the G partials
+// through distributed shared memory, in rank order 0 .. G-1, and
+// writes them: no partial buffer in device memory, no second launch,
+// bit-repeatable. A second cluster barrier keeps every block resident
+// until the others have read its partials. With G == 1 the block
+// writes its messages directly, as a plain launch.
 //
 // The general form ('general': every other shape the JAX gate admits,
 // wider or more small layers, other widths), at the end of this file,
@@ -48,14 +64,18 @@
 // accumulate in fp32, biases stay fp32, and each K*x product is rounded
 // to bf16 before the sum over i, as the JAX o-major body does.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <climits>
 #include <type_traits>
 
 #include "sm90_tc.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -65,12 +85,17 @@ constexpr int BK = 16;        // depth of one staged B slab
 constexpr int THREADS = 256;
 constexpr int OUT = 64;       // out_channels this kernel takes
 constexpr int MAX_ADIM = 16;  // edge attribute width bound
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may use
+constexpr int MAX_CLUSTER = 16;   // blocks a SIMT cluster (non-portable > 8)
 
-// Raises a kernel's dynamic shared memory bound to `bytes` once for each
-// device: `done` is the kernel's own set of devices already raised (bit
-// d for device ordinal d), so a launch makes no attribute call.
+// Raises a kernel's dynamic shared memory bound to `bytes` (and, with
+// `wide_clusters`, allows clusters above the portable 8 blocks) once
+// for each device: `done` is the kernel's own set of devices already
+// raised (bit d for device ordinal d), so a launch makes no attribute
+// call.
 cudaError_t smem_once(const void* kernel, int bytes,
-                      std::atomic<uint64_t>& done) {
+                      std::atomic<uint64_t>& done,
+                      bool wide_clusters = false) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -79,6 +104,10 @@ cudaError_t smem_once(const void* kernel, int bytes,
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
+  if (err == cudaSuccess && wide_clusters) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
   return err;
 }
@@ -240,6 +269,16 @@ __device__ __forceinline__ void tile_gemm_streamed(
   }
 }
 
+// Dynamic shared memory of a SIMT block whose rank gathers `per`
+// channel pairs: h2t, the h1t / xt region and the B staging slabs.
+size_t simt_smem(int kw1, int kw2, int per) {
+  const int wide = kw1 > 2 * per ? kw1 : 2 * per;
+  return sizeof(float) * ((size_t)kw2 * TE + (size_t)wide * TE + 2 * BK * BN);
+}
+
+// Block b is rank b % G of the cluster that owns edge tile b / G (the
+// grid is one-dimensional, G blocks a tile, so a tile count past 65,535
+// launches as well).
 template <bool RB>
 __global__ void __launch_bounds__(THREADS, 1)
 edge_messages_kernel(const float* __restrict__ x,
@@ -249,17 +288,22 @@ edge_messages_kernel(const float* __restrict__ x,
                      const float* __restrict__ w1, const float* __restrict__ b1,
                      const float* __restrict__ wl, const float* __restrict__ bl,
                      float* __restrict__ msg, int64_t E, int in_ch,
-                     int a_dim, int kw1, int kw2) {
+                     int a_dim, int kw1, int kw2, int G, int per) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  const int wide = kw1 > 2 * per ? kw1 : 2 * per;
   float* h2t = smem;                                   // [kw2][TE]
-  float* reg = h2t + (size_t)kw2 * TE;                 // h1t [kw1][TE], then xt [in][TE]
-  float* bs = reg + (size_t)(kw1 > in_ch ? kw1 : in_ch) * TE;  // 2 x [BK][BN]
+  float* reg = h2t + (size_t)kw2 * TE;  // h1t [kw1][TE], then xt [nch][TE]
+  float* bs = reg + (size_t)wide * TE;                 // 2 x [BK][BN]
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const int64_t e0 = (int64_t)blockIdx.x * TE;
+  const int rank = (int)(blockIdx.x % (unsigned)G);
+  const int64_t e0 = (int64_t)(blockIdx.x / (unsigned)G) * TE;
   const int C = in_ch * OUT;
+  const int i_lo = 2 * rank * per;                     // this rank's channels
+  const int i_hi = in_ch - i_lo < 2 * per ? in_ch : i_lo + 2 * per;
+  const int nch = i_hi - i_lo;
 
   // 1. h1t[j][e] = relu(attr[e] . W0[:, j] + b0[j])
   {
@@ -302,25 +346,30 @@ edge_messages_kernel(const float* __restrict__ x,
   }
   // tile_gemm ended with a barrier: nobody reads h1t any more.
 
-  // 3. xt[i][e] = x[senders[e], i]  (the gather, folded in)
-  for (int idx = tid; idx < TE * in_ch; idx += THREADS) {
-    const int e = idx / in_ch;
-    const int i = idx - e * in_ch;
+  // 3. xt[i - i_lo][e] = x[senders[e], i] for this rank's channels (the
+  // gather, folded in)
+  for (int idx = tid; idx < TE * nch; idx += THREADS) {
+    const int e = idx / nch;
+    const int i = idx - e * nch;
     float v = 0.f;
-    if (e0 + e < E) v = rnd<RB>(__ldg(x + senders[e0 + e] * in_ch + i));
+    if (e0 + e < E) {
+      v = rnd<RB>(__ldg(x + senders[e0 + e] * in_ch + i_lo + i));
+    }
     reg[i * TE + e] = v;
   }
   __syncthreads();
 
-  // 4. msg[e, o] = sum_i x[e, i] * (h2 @ Wl + bl)[e, i*64 + o]
+  // 4. msg[e, o] = sum_i x[e, i] * (h2 @ Wl + bl)[e, i*64 + o] over this
+  // rank's channels
   float acc[8][4];
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
   }
-  for (int i0 = 0; i0 < in_ch; i0 += 2) {
+  for (int i0 = i_lo; i0 < i_hi; i0 += 2) {
     const int n0 = i0 * OUT;
+    const float* xt = reg + (size_t)(i0 - i_lo) * TE;
     float c[8][8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
@@ -334,8 +383,8 @@ edge_messages_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int row = tile_row(ty, r);
-      const float xa = reg[i0 * TE + row];
-      const float xb = reg[(i0 + 1) * TE + row];
+      const float xa = xt[row];
+      const float xb = xt[TE + row];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float ka = c[r][j] + bias[j];
@@ -351,35 +400,115 @@ edge_messages_kernel(const float* __restrict__ x,
     }
   }
 
-  // 5. store the valid rows
+  // 5. G == 1: store the valid rows
+  if (G == 1) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int64_t e = e0 + tile_row(ty, r);
+      if (e < E) {
+        *reinterpret_cast<float4*>(msg + e * OUT + tx * 4) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      }
+    }
+    return;
+  }
+
+  // 5'. G > 1: this rank's partials part[row][o] over the h2 tile (its
+  // last read was the last tile_gemm, which ended with a barrier); every
+  // block of the cluster reaches both barriers, whatever rows are valid
+  float4* part = reinterpret_cast<float4*>(h2t);      // [TE][OUT / 4]
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
-    const int64_t e = e0 + tile_row(ty, r);
-    if (e < E) {
-      *reinterpret_cast<float4*>(msg + e * OUT + tx * 4) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    part[tile_row(ty, r) * (OUT / 4) + tx] =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int lo = rank * TE / G, hi = (rank + 1) * TE / G;
+  for (int idx = tid; idx < (hi - lo) * (OUT / 4); idx += THREADS) {
+    const int row = lo + idx / (OUT / 4);
+    const int q4 = idx % (OUT / 4);
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < G; ++q) {
+      const float4 v =
+          cluster.map_shared_rank(part, (unsigned)q)[row * (OUT / 4) + q4];
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    if (e0 + row < E) {
+      reinterpret_cast<float4*>(msg + (e0 + row) * OUT)[q4] = s;
     }
   }
+  cluster.sync();
+}
+
+template <bool RB>
+cudaError_t simt_attributes() {
+  static std::atomic<uint64_t> ready{0};
+  return smem_once(reinterpret_cast<const void*>(edge_messages_kernel<RB>),
+                   MAX_SMEM, ready, true);
 }
 
 template <bool RB>
 int launch(const float* x, const int64_t* senders, const float* attr,
            const float* w0, const float* b0, const float* w1, const float* b1,
            const float* wl, const float* bl, float* msg, int64_t E, int in_ch,
-           int a_dim, int kw1, int kw2, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)kw2 * TE +
-                       (size_t)(kw1 > in_ch ? kw1 : in_ch) * TE +
-                       2 * BK * BN);
-  cudaError_t err = cudaFuncSetAttribute(
-      edge_messages_kernel<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+           int a_dim, int kw1, int kw2, int G, int per,
+           cudaStream_t stream) {
+  cudaError_t err = simt_attributes<RB>();
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (E + TE - 1) / TE;
-  edge_messages_kernel<RB><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      x, senders, attr, w0, b0, w1, b1, wl, bl, msg, E, in_ch, a_dim, kw1,
-      kw2);
+  const size_t smem = simt_smem(kw1, kw2, per);
+  const int64_t blocks = (E + TE - 1) / TE * G;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (G == 1) {
+    edge_messages_kernel<RB><<<(unsigned)blocks, THREADS, smem, stream>>>(
+        x, senders, attr, w0, b0, w1, b1, wl, bl, msg, E, in_ch, a_dim, kw1,
+        kw2, G, per);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr_c[1];
+  attr_c[0].id = cudaLaunchAttributeClusterDimension;
+  attr_c[0].val.clusterDim.x = (unsigned)G;
+  attr_c[0].val.clusterDim.y = 1;
+  attr_c[0].val.clusterDim.z = 1;
+  cfg.attrs = attr_c;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, edge_messages_kernel<RB>, x, senders, attr,
+                           w0, b0, w1, b1, wl, bl, msg, E, in_ch, a_dim, kw1,
+                           kw2, G, per);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The clusters of g SIMT blocks (g = 1 .. max_g) the current device keeps
+// resident at once, each rank gathering ceil((in / 2) / g) pairs.
+template <bool RB>
+int simt_clusters(int kw1, int kw2, int in_ch, int max_g, int* clusters) {
+  cudaError_t err = simt_attributes<RB>();
+  if (err != cudaSuccess) return (int)err;
+  const int pairs = in_ch / 2;
+  for (int g = 1; g <= max_g; ++g) {
+    const int per = (pairs + g - 1) / g;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)g, 1, 1);
+    cfg.blockDim = dim3(THREADS, 1, 1);
+    cfg.dynamicSmemBytes = simt_smem(kw1, kw2, per);
+    cudaLaunchAttribute attr_c[1];
+    attr_c[0].id = cudaLaunchAttributeClusterDimension;
+    attr_c[0].val.clusterDim.x = (unsigned)g;
+    attr_c[0].val.clusterDim.y = 1;
+    attr_c[0].val.clusterDim.z = 1;
+    cfg.attrs = attr_c;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&clusters[g - 1],
+                                         edge_messages_kernel<RB>, &cfg);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // ---- Tensor-core form: compute_dtype='bfloat16' on the single-launch
@@ -935,24 +1064,47 @@ int launch_last_contract(const float* h, int64_t M, int K, const float* wl,
 
 extern "C" {
 
-// Shape contract (checked by the Python wrapper): out_channels == 64,
-// in_ch even, a_dim <= 16, kw1 % 16 == 0, kw2 % 128 == 0, shared memory
-// 4 * (128 * (kw2 + max(kw1, in_ch)) + 4096) bytes <= 227 KB, every
-// pointer 16-byte aligned and contiguous. Returns a cudaError_t.
+// SIMT form. Shape contract (checked by the Python wrapper):
+// out_channels == 64, in_ch even, a_dim <= 16, kw1 % 16 == 0, kw2 % 128
+// == 0, shared memory 4 * (128 * (kw2 + max(kw1, 2 * per)) + 4096) bytes
+// <= 227 KB, every pointer 16-byte aligned and contiguous. Clusters of
+// `groups` blocks (1 .. 16), each rank `per` of the in_ch / 2 channel
+// pairs, the last rank the rest: 1 <= per <= in_ch / 2 and every rank
+// non-empty, else cudaErrorInvalidValue. Returns a cudaError_t (a
+// cluster the card cannot schedule fails the launch).
 int gpde_edge_messages(const float* x, const int64_t* senders,
                        const float* attr, const float* w0, const float* b0,
                        const float* w1, const float* b1, const float* wl,
                        const float* bl, float* msg, int64_t E, int in_ch,
-                       int a_dim, int kw1, int kw2, int round_bf16,
-                       void* stream) {
+                       int a_dim, int kw1, int kw2, int groups, int per,
+                       int round_bf16, void* stream) {
+  const int pairs = in_ch / 2;
+  if (in_ch % 2 != 0 || groups < 1 || groups > MAX_CLUSTER || per < 1 ||
+      per > pairs || (int64_t)(groups - 1) * per >= pairs ||
+      (int64_t)groups * per < pairs) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (E == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (round_bf16) {
     return launch<true>(x, senders, attr, w0, b0, w1, b1, wl, bl, msg, E,
-                        in_ch, a_dim, kw1, kw2, s);
+                        in_ch, a_dim, kw1, kw2, groups, per, s);
   }
   return launch<false>(x, senders, attr, w0, b0, w1, b1, wl, bl, msg, E,
-                       in_ch, a_dim, kw1, kw2, s);
+                       in_ch, a_dim, kw1, kw2, groups, per, s);
+}
+
+// SIMT form: clusters[g - 1] = the clusters of g blocks (g = 1 ..
+// max_g, max_g <= 16) that the current device keeps resident at once
+// at (kw1, kw2, in_ch), as cudaOccupancyMaxActiveClusters reports them.
+// Returns a cudaError_t.
+int gpde_edge_messages_clusters(int kw1, int kw2, int in_ch, int round_bf16,
+                                int max_g, int* clusters) {
+  if (max_g < 1 || max_g > MAX_CLUSTER || in_ch < 2) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (round_bf16) return simt_clusters<true>(kw1, kw2, in_ch, max_g, clusters);
+  return simt_clusters<false>(kw1, kw2, in_ch, max_g, clusters);
 }
 
 // Tensor-core form (compute_dtype='bfloat16'): w1t = W1^T [kw2][kw1] and

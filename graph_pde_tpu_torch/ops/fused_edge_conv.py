@@ -24,9 +24,11 @@ small layers with torch matmuls, and scatter-adds dx_src onto the
 senders. The same Function runs on both devices: CUDA tensors launch the
 kernels (or raise, never falling back), CPU tensors take the plain
 PyTorch versions ``edge_messages_plain`` and ``edge_messages_bwd_plain``.
-K1's general form and B1-bwd's SIMT form spread a call with few edges
-(the multipole levels) over every SM, on grids that ``k1_general_groups``
-and ``b1_bwd_simt_grid`` pick from the edge count and the card's SMs.
+K1's SIMT and general forms and B1-bwd's SIMT form spread a call with
+few edges (the multipole levels) over every SM, on grids that
+``k1_simt_groups`` (clusters of blocks over channel pairs, summed
+through distributed shared memory), ``k1_general_groups`` and
+``b1_bwd_simt_grid`` pick from the edge count and the card.
 
 ``compute_dtype='bfloat16'`` rounds as the JAX kernels do. Forward: GEMM
 operands are bf16 with fp32 accumulation, biases stay fp32, and each
@@ -170,20 +172,107 @@ def edge_messages_bwd_plain(x, senders, h2, g, wl, *, in_channels: int,
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_FAST_ARGS = [_P] * 10 + [_I64, _I, _I, _I, _I, _I, _P]
+_FAST_ARGS = [_P] * 10 + [_I64] + [_I] * 7 + [_P]
 _TC_FWD_ARGS = [_P] * 10 + [_I64, _I, _I, _I, _I, _P]
 _DENSE_ARGS = [_P, _I64, _I, _P, _P, _I, _P, _I, _P]
 _LAST_ARGS = [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_MAX_CLUSTER = 16       # blocks a K1 SIMT cluster (csrc MAX_CLUSTER)
+_clusters_seen = {}     # (device, kw1, kw2, in, rb) -> {G: clusters}
+
+
+def k1_simt_clusters(dims, in_channels: int, rb: int, device) -> dict:
+    """{G: clusters of G blocks the card keeps resident at once} of K1's
+    SIMT form at the kappa ``dims`` and ``in_channels``, for G = 1 ..
+    min(16, in_channels // 2), as cudaOccupancyMaxActiveClusters on
+    ``device`` reports them; asked once per device and shape."""
+    kw1, kw2 = dims[0][1], dims[1][1]
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = (index, kw1, kw2, in_channels, rb)
+    if key not in _clusters_seen:
+        most = max(1, min(_MAX_CLUSTER, in_channels // 2))
+        out = (ctypes.c_int * most)()
+        fn = kernels.fn("fused_edge_conv", "gpde_edge_messages_clusters",
+                        [_I, _I, _I, _I, _I, _P])
+        with torch.cuda.device(index):
+            kernels.check(fn(kw1, kw2, in_channels, rb, most, out),
+                          "K1 SIMT cluster occupancy")
+        _clusters_seen[key] = {g + 1: out[g] for g in range(most)}
+    return _clusters_seen[key]
+
+
+def k1_simt_groups(e: int, in_ch: int, sms: int, clusters):
+    """(G, per) of K1's SIMT form on ``e`` edges: clusters of G blocks a
+    128-edge tile, each block ``per`` of the in_ch // 2 channel pairs
+    (the last the rest). ``clusters[G]`` is the clusters of G blocks the
+    card keeps resident (``k1_simt_clusters``); G runs up to the largest
+    with one resident, and up to the pairs. G = 1 where the tiles alone
+    fill the card twice (one block an SM on ``sms`` SMs). Else, among G
+    up to the fewest whose grid reaches two waves of resident clusters,
+    the G whose waves x pairs a block is least (a block's time is about
+    its pairs, and a cluster takes one resident slot a wave), the fewest
+    G of equal cost: fewer blocks recompute the h2 tile less. Only G
+    that split the pairs into G non-empty runs are taken."""
+    tiles = -(-e // _TILE)
+    pairs = max(1, in_ch // 2)
+    if tiles >= 2 * sms:
+        return 1, pairs
+    runs = [g for g in range(1, pairs + 1)
+            if clusters.get(g, 0) >= 1 and -(-pairs // -(-pairs // g)) == g]
+    if not runs:
+        raise ValueError("the card keeps no K1 SIMT block resident")
+    two = next((g for g in runs if tiles >= 2 * clusters[g]), runs[-1])
+    groups = min((g for g in runs if g <= two),
+                 key=lambda g: (-(-tiles // clusters[g]) * -(-pairs // g), g))
+    return groups, -(-pairs // groups)
 
 
 def _launch_fast(x, senders, edge_attr, weights, msg, dims, in_channels,
-                 rb, stream) -> int:
+                 rb, stream, groups=None) -> int:
+    """The SIMT form on the grid ``k1_simt_groups`` picks, or with
+    ``groups`` blocks a cluster where given (each ceil(pairs / groups)
+    pairs; the kernel refuses a count that leaves a block none)."""
     ptrs = [x, senders, edge_attr, *weights, msg]
     if any(t.data_ptr() % 16 for t in ptrs):
         raise ValueError("edge-message kernel needs 16-byte aligned tensors")
+    e, pairs = senders.shape[0], in_channels // 2
+    if groups is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        groups, per = k1_simt_groups(
+            e, in_channels, sms,
+            k1_simt_clusters(dims, in_channels, rb, x.device))
+    else:
+        per = -(-pairs // max(1, groups))
     fn = kernels.fn("fused_edge_conv", "gpde_edge_messages", _FAST_ARGS)
-    return fn(*[t.data_ptr() for t in ptrs], senders.shape[0], in_channels,
-              dims[0][0], dims[0][1], dims[1][1], rb, stream)
+    return fn(*[t.data_ptr() for t in ptrs], e, in_channels, dims[0][0],
+              dims[0][1], dims[1][1], groups, per, rb, stream)
+
+
+def simt_edge_messages(x, senders, edge_attr, kernel_params, *,
+                       in_channels: int, compute_dtype=None,
+                       groups=None) -> torch.Tensor:
+    """K1's SIMT form on CUDA tensors whatever form ``k1_form`` picks
+    (in bf16 the tensor-core form's predecessor), on the grid
+    ``k1_simt_groups`` picks or with ``groups`` blocks a cluster: for
+    holding one form or grid against another on the card. Not counted,
+    not differentiable; raises where the kernel refuses the shape or the
+    grid."""
+    dims = layer_dims(kernel_params)
+    if not kernel_shape_supported(dims, in_channels, 64):
+        raise ValueError("not a shape of K1's SIMT form")
+    weights = [t.contiguous() for t in flatten_params(kernel_params)]
+    x, senders = x.contiguous(), senders.contiguous()
+    edge_attr = edge_attr.contiguous()
+    msg = torch.empty((senders.shape[0], 64), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _launch_fast(x, senders, edge_attr, weights, msg, dims,
+                           in_channels, int(_is_bf16(compute_dtype)), stream,
+                           groups)
+    kernels.check(err, "K1 SIMT form launch")
+    return msg
 
 
 def _launch_tc(x, senders, edge_attr, weights, msg, dims, in_channels,
@@ -551,4 +640,5 @@ __all__ = ["fused_edge_messages", "edge_messages_plain",
            "fused_edge_messages_bwd", "edge_messages_bwd_plain",
            "fused_path_supported", "kernel_shape_supported", "bwd_splits",
            "b1_bwd_form", "b1_bwd_simt_grid", "k1_form", "k1_general_groups",
+           "k1_simt_groups", "k1_simt_clusters", "simt_edge_messages",
            "C_CHUNK"]

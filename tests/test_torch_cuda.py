@@ -31,7 +31,10 @@ from graph_pde_tpu_torch.ops.fused_edge_conv import (b1_bwd_form,
                                                      fused_edge_messages,
                                                      fused_edge_messages_bwd,
                                                      k1_form,
-                                                     k1_general_groups)
+                                                     k1_general_groups,
+                                                     k1_simt_clusters,
+                                                     k1_simt_groups,
+                                                     simt_edge_messages)
 from graph_pde_tpu_torch.ops.fused_iterate import (b2_bwd_form,
                                                    fused_iterate_bwd,
                                                    fused_iterate_bwd_plain,
@@ -390,6 +393,53 @@ def test_k1_general_b1_simt_grids(dev, dtype, tol, e, layers, w_in, w_out):
                                 want):
         assert torch.equal(a_, b_), name
         assert _rel(a_, c_) <= tol, name
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, 1e-4), ("bfloat16", 5e-3)])
+@pytest.mark.parametrize("e", [1, 127, 129, 762, 4864])
+def test_k1_simt_cluster_grids(dev, dtype, tol, e):
+    """K1's SIMT form at the general MGKN's mid l=1 kappa (6, 128, 128,
+    4096), in 64, on fewer edges than a tile, a ragged last tile, the
+    orthogonal kw-128 level's and mid l=1's edge counts: on the grid
+    k1_simt_groups picks (G > 1 at each, ranks summed through
+    distributed shared memory) and with G forced to 1, 2, 4 and 8,
+    within the tolerance of the plain version (fp32, and bf16 rounding)
+    and a second launch bit-identical; in fp32 the wrapper takes the
+    SIMT form on the rule's grid, counted once. A grid that leaves a
+    rank no pair, or a cluster above 16 blocks, raises."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator().manual_seed(e + 7)
+    layers = (6, 128, 128, 64 * 64)
+    kp = dense_init(g, list(layers), device=dev)
+    x = torch.randn(100, 64, generator=g).to(dev)
+    s = torch.randint(0, 100, (e,), generator=g).to(dev)
+    a = torch.rand(e, 6, generator=g).to(dev)
+    clusters = k1_simt_clusters(layer_dims(kp), 64, int(dtype is not None),
+                                dev)
+    groups, _ = k1_simt_groups(e, 64, sms, clusters)
+    assert groups > 1
+    kw_args = dict(in_channels=64, compute_dtype=dtype)
+    want = edge_messages_plain(x, s, a, kp, out_channels=64, **kw_args)
+    outs = {}
+    for forced in (None, 1, 2, 4, 8):
+        outs[forced] = simt_edge_messages(x, s, a, kp, groups=forced,
+                                          **kw_args)
+        again = simt_edge_messages(x, s, a, kp, groups=forced, **kw_args)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[forced], again), forced
+        assert _rel(outs[forced], want) <= tol, forced
+    if dtype is None:
+        assert k1_form(layer_dims(kp), 64, 64, None) == "simt"
+        before = fused_edge_messages.simt_launches
+        got = fused_edge_messages(x, s, a, kp, out_channels=64, **kw_args)
+        torch.cuda.synchronize()
+        assert fused_edge_messages.simt_launches == before + 1
+        assert torch.equal(got, outs[None])
+    small = dense_init(g, [6, 16, 128, 8 * 64], device=dev)
+    for bad in (3, 17):   # 4 pairs in 3 ranks of 2 leave one none
+        with pytest.raises(RuntimeError):
+            simt_edge_messages(x[:, :8].contiguous(), s, a, small,
+                               in_channels=8, groups=bad)
 
 
 # (kw, in, out): the GKN shape, the ker_width 1024 'nn' kappa, a narrow

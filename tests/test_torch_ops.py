@@ -36,6 +36,7 @@ from graph_pde_tpu_torch.ops.fused_edge_conv import (b1_bwd_form,
                                                      fused_path_supported,
                                                      k1_form,
                                                      k1_general_groups,
+                                                     k1_simt_groups,
                                                      kernel_shape_supported)
 from graph_pde_tpu_torch.ops.fused_iterate import (b2_bwd_form,
                                                    fused_iterate_supported,
@@ -381,6 +382,75 @@ def test_k1_channel_groups_sum_to_the_whole(layers, i, o):
                 "b": tp[-1]["b"][lo * o:hi * o]}
         total += edge_messages_plain(x[:, lo:hi].contiguous(), s, a,
                                      [*tp[:-1], last], in_channels=hi - lo,
+                                     out_channels=o)
+    _close(total.numpy(), whole.numpy(), 1e-6)
+
+
+# the clusters of G K1 SIMT blocks an H100 keeps resident at once, as
+# cudaOccupancyMaxActiveClusters reported them on an NVIDIA H100 80GB
+# HBM3 at the kappas (6, 128, 128, 4096), (4, 128, 128, 4096) and (6,
+# 128, 256, 4096), in 64, both roundings (one block an SM; clusters are
+# placed within a GPC); `python3 chip_smoke.py --k1-simt` logs them
+H100_SIMT_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
+                      8: 15, 9: 9, **{g: 7 for g in range(10, 17)}}
+SIMT_CLUSTERS = {128: H100_SIMT_CLUSTERS, 256: H100_SIMT_CLUSTERS}
+
+
+@pytest.mark.parametrize("kw2", [128, 256])
+@pytest.mark.parametrize("e", [1, 127, 762, 4864, 131072, 1378816])
+def test_k1_simt_groups(e, kw2):
+    """K1 SIMT's grid on an H100's 132 SMs (in 64: 32 channel pairs):
+    the clusters' ranks cover every pair once, each a non-empty run; G =
+    1 where the edge tiles fill the card twice (131,072 edges and
+    above); G within the largest resident cluster and the pairs; else
+    the G, up to the fewest whose grid reaches two waves of resident
+    clusters, with the least waves x pairs a block, the fewest G on a
+    tie: at the general MGKN's mid l=1 (4,864 edges, 38 tiles) 3, at
+    the orthogonal kw-128 level (762) and below one tile 16."""
+    clusters = SIMT_CLUSTERS[kw2]
+    pairs, tiles = 32, -(-e // 128)
+    groups, per = k1_simt_groups(e, 64, SMS, clusters)
+    _covers_once(pairs, per, groups, 1)
+    assert groups == -(-pairs // per)
+    fits = [g for g, n in clusters.items() if n >= 1 and g <= pairs]
+    assert groups <= max(fits)
+    if e >= 131072:
+        assert (groups, per) == (1, pairs)
+        return
+    exact = [g for g in fits if -(-pairs // -(-pairs // g)) == g]
+    two = next((g for g in exact if tiles >= 2 * clusters[g]), exact[-1])
+    cost = {g: -(-tiles // clusters[g]) * -(-pairs // g)
+            for g in exact if g <= two}
+    assert groups == min(g for g in cost if cost[g] == min(cost.values()))
+    assert groups == {1: 16, 127: 16, 762: 16, 4864: 3}[e]
+
+
+def test_k1_simt_pair_groups_sum_to_the_whole():
+    """K1's SIMT form sums its cluster ranks' partial messages in rank
+    order: at a small single-launch shape ((4, 16, 128, 8 * 64), in 8,
+    700 edges: four ranks of one channel pair) the plain version run per
+    rank on the rank's slices of Wl, bl and x and summed so equals the
+    whole plain output within 1e-6 of its max-abs (the same fp32
+    products, their sum over the input channels taken in another
+    order)."""
+    layers, i, o, e = (4, 16, 128, 8 * 64), 8, 64, 700
+    rng = np.random.default_rng(6)
+    _, tp = _kparams(list(layers), 6)
+    dims = [(a, b) for a, b in zip(layers, layers[1:])]
+    assert k1_form(dims, i, o, None) == "simt"
+    x = _t(rng.normal(size=(40, i)).astype(np.float32))
+    s = _t(rng.integers(0, 40, e)).long()
+    a = _t(rng.normal(size=(e, layers[0])).astype(np.float32))
+    whole = edge_messages_plain(x, s, a, tp, in_channels=i, out_channels=o)
+    groups, per = k1_simt_groups(e, i, SMS, H100_SIMT_CLUSTERS)
+    assert (groups, per) == (4, 1)
+    total = torch.zeros_like(whole)
+    for lo, hi in _ranges(i // 2, per, groups):
+        c0, c1 = 2 * lo, 2 * hi
+        last = {"w": tp[-1]["w"][:, c0 * o:c1 * o],
+                "b": tp[-1]["b"][c0 * o:c1 * o]}
+        total += edge_messages_plain(x[:, c0:c1].contiguous(), s, a,
+                                     [*tp[:-1], last], in_channels=c1 - c0,
                                      out_channels=o)
     _close(total.numpy(), whole.numpy(), 1e-6)
 
