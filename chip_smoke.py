@@ -11,6 +11,7 @@
                                  # check's two paths against a float64
                                  # version, op by op (grad_locate)
     python3 chip_smoke.py --mgkn  # only the build and phase 9
+    python3 chip_smoke.py --gcn   # only phase 10 (no kernel to build)
     python3 chip_smoke.py --k1-simt  # only K1's build and its SIMT form
                                  # alone (k1_simt_probe)
 
@@ -127,7 +128,21 @@ Phases, each fatal on failure:
      plain predictor (impl='reference'; 1e-4); the full-width forward
      and step-1 gradients of impl='auto' against 'reference' (1e-4) for
      mgkn_general_darcy2d (mkgn), neurips1_mgkn (induced, five levels
-     at s=241) and neurips2_mgkn (single).
+     at s=241) and neurips2_mgkn (single);
+ 10. the GCN baseline (phase_gcn), from a temporary directory:
+     neurips4_gcn at full width (width 128, ker_width 1024, depth 4:
+     16 GCNConv applications) on the full s=421 lattice (177,241 nodes,
+     blocked layout, 177,664 padded), trained through run_experiment on
+     the card with 2 samples, 1 test sample and 2 epochs of batch 1 (not
+     1024 / 100 / 51). Its aggregation is plain torch (index_add_): no
+     hand kernel may launch in any step, evaluation or forward. Logs the
+     warm step, the evaluation and the peak device memory; holds the
+     card forward of the trained parameters on the test sample against
+     the same forward on the CPU (1e-4 of the max-abs); profiles a step;
+     runs `cli run neurips4_gcn --smoke --figures DIR` (exit 0, no
+     figure: the GCN runner writes none, as the JAX package's) and `cli
+     run neurips1_gkn --smoke --figures DIR` ('figures' [] without
+     matplotlib, else the three files).
 
 Prints one JSON line of kernel records before the last line, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, with no result
@@ -184,6 +199,11 @@ ORTHO_RUN = ("--set", f"ntrain={N_TRAIN}", "--set", "ntest=1", "--set",
 # one test sample; neurips1_mgkn and neurips2_mgkn at s=241, one graph.
 S_MGKN = 85
 MGKN_RUN = ORTHO_RUN
+# The GCN baseline (graph_pde_tpu/experiments/registry.py:353-357):
+# neurips4_gcn at full width on the s=421 lattice, N_TRAIN training
+# samples, one test sample, GCN_EPOCHS epochs of batch 1.
+S_GCN = 421
+GCN_EPOCHS = 2
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 SIMT rate, bf16 tensor
 # core rate and HBM3 bandwidth.
@@ -1146,11 +1166,12 @@ def profile_step(name, task, params, graphs, phase=6) -> dict:
     from graph_pde_tpu_torch.data.datasets import map_arrays
     from graph_pde_tpu_torch.train import (adam_steplr, make_train_step,
                                            profile_trace)
-    from graph_pde_tpu_torch.train.trainer import param_leaves
+    from graph_pde_tpu_torch.train.trainer import param_leaves, to_device
 
     opt, _ = adam_steplr(param_leaves(params), 1e-4, weight_decay=5e-4)
     step = make_train_step(task, opt)
-    batch = map_arrays(lambda a: a[:1], graphs.to())
+    batch = map_arrays(lambda a: a[:1],
+                       to_device(graphs, torch.device("cuda")))
     step(params, batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3165,6 +3186,144 @@ def phase_mgkn() -> dict:
     return out
 
 
+def phase_gcn() -> dict:
+    """Phase 10: the GCN baseline at full width on the s=421 lattice,
+    through run_experiment on the card, from a temporary directory (its
+    data cache and figures go there). Requires no hand-kernel launch in
+    any step, evaluation or forward, finite losses and rel-L2s, and the
+    card forward of the trained parameters on the test sample within
+    F32_TOL of the same forward on the CPU; logs the warm step, the
+    evaluation and the peak device memory; profiles a step; runs `cli
+    run neurips4_gcn --smoke --figures DIR` and `cli run neurips1_gkn
+    --smoke --figures DIR`. Returns the step figures."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graph_pde_tpu_torch.data.datasets import map_arrays
+    from graph_pde_tpu_torch.experiments import get, run_experiment
+    from graph_pde_tpu_torch.experiments.runners import gcn_data
+    from graph_pde_tpu_torch.models import GCNConfig
+    from graph_pde_tpu_torch.train import GCNTask
+    from graph_pde_tpu_torch.train.trainer import to_device
+
+    here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_gcn_")
+    os.chdir(tmp)
+    try:
+        base = get("neurips4_gcn")
+        cfg = dataclasses.replace(base, ntrain=N_TRAIN, ntest=1,
+                                  epochs=GCN_EPOCHS)
+        t0 = time.perf_counter()
+        tpl, train_b, test_b, _ = gcn_data(cfg)
+        n, e = int(tpl.n_node), int(tpl.n_edge)
+        require(n == S_GCN ** 2 and tpl.node_block == 512,
+                f"gcn lattice {n} nodes, node_block {tpl.node_block}")
+        log(f"phase 10: neurips4_gcn at full width (width {cfg.width}, "
+            f"ker_width {cfg.ker_width}, depth {cfg.depth}: "
+            f"{4 * cfg.depth} GCNConv) on the s={S_GCN} lattice: {n} nodes "
+            f"({tpl.num_nodes_padded} padded, node_block 512), {e} edges "
+            f"({tpl.num_edges_padded} padded); cuts: ntrain {base.ntrain} "
+            f"-> {cfg.ntrain}, ntest {base.ntest} -> 1, epochs "
+            f"{base.epochs} -> {cfg.epochs} (batch {cfg.batch_size}); "
+            f"data {time.perf_counter() - t0:.1f} s on the host")
+
+        steps, evals = [], []
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with counted_steps(steps, evals):
+            result = run_experiment(cfg, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        require(len(steps) == N_TRAIN * GCN_EPOCHS
+                and len(evals) == GCN_EPOCHS,
+                f"gcn run: {len(steps)} steps, {len(evals)} evaluations")
+        launched = [r["launches"] for r in steps + evals] + [read_counts()]
+        require(not any(v for c in launched for v in c.values()),
+                f"gcn run launched a hand kernel: {launched}")
+        require(all(np.isfinite(st["loss"]) for st in steps)
+                and all(np.isfinite(result[k]).all()
+                        for k in ("train_l2", "test_l2")),
+                f"gcn losses {[st['loss'] for st in steps]}, "
+                f"{result['train_l2']}, {result['test_l2']}")
+        require(result["extra"] == {"family": "gcn", "s": S_GCN,
+                                    "node_block": 512},
+                f"gcn extra {result['extra']}")
+        warm, ev = steps[-1]["ms"], evals[-1]["ms"]
+        log(f"phase 10: gcn run {run_s:.1f} s: step times (ms) "
+            f"{[round(st['ms'], 1) for st in steps]}, warm step "
+            f"{warm:.1f} ms, evaluation (1 sample) {ev:.1f} ms, train "
+            f"rel-L2 {result['train_l2']}, test rel-L2 {result['test_l2']}, "
+            f"peak device memory {peak:.2f} GiB (max_memory_allocated over "
+            f"the run); no hand-kernel launch")
+
+        mcfg = GCNConfig(width=cfg.width, ker_width=cfg.ker_width,
+                         depth=cfg.depth, in_width=6)
+        params = result["params"]
+        zero_counts()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            got = GCNTask(mcfg, template=tpl.to("cuda")).forward(
+                params, to_device(test_b, torch.device("cuda")))
+            torch.cuda.synchronize()
+            gpu_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            want = GCNTask(mcfg, template=tpl.to("cpu")).forward(
+                map_arrays(lambda t: t.detach().cpu(), params),
+                to_device(test_b, torch.device("cpu")))
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        require(not any(counts.values()), f"gcn forward launches {counts}")
+        err, rel = rel_err(got[:, :n].cpu(), want[:, :n])
+        require(rel <= F32_TOL and bool(torch.isfinite(got).all()),
+                f"gcn forward card vs CPU {rel:.3e}")
+        log(f"phase 10: gcn forward of the trained parameters on the test "
+            f"sample, card against CPU: max-abs err {err:.3e}, relative "
+            f"{rel:.3e} (tol {F32_TOL:g}; index_add_ sums in another "
+            f"order on the card); {gpu_ms:.1f} ms on the card (first "
+            f"forward outside the run), {cpu_ms:.0f} ms on the host")
+
+        prof = profile_step(
+            "gcn", GCNTask(mcfg, loss_type=cfg.loss, use_sample_idx=False,
+                           template=tpl.to("cuda")),
+            params, train_b, phase=10)
+        counts = read_counts()
+        require(not any(counts.values()), f"gcn step launches {counts}")
+
+        lines = cli_call(["run", "neurips4_gcn", "--smoke", "--figures",
+                          "figs_gcn", "--out", "gcn.json"], phase=10)
+        out = json.load(open("gcn.json"))
+        require(np.isfinite(json.loads(lines[-1])["final_test_l2"])
+                and out.get("figures") is None
+                and not (os.path.isdir("figs_gcn")
+                         and os.listdir("figs_gcn")),
+                f"gcn --figures: {out.get('figures')}")
+        cli_call(["run", "neurips1_gkn", "--smoke", "--figures", "figs_gkn",
+                  "--out", "gkn.json"], phase=10)
+        figs = json.load(open("gkn.json"))["figures"]
+        names = [f"neurips1_gkn_{t}.png" for t in ("best", "median", "worst")]
+        have_mpl = importlib.util.find_spec("matplotlib") is not None
+        require(figs == ([os.path.join("figs_gkn", f) for f in names]
+                         if have_mpl else [])
+                and all(os.path.isfile(f) for f in figs),
+                f"gkn --figures: {figs} (matplotlib "
+                f"{'present' if have_mpl else 'absent'})")
+        log(f"phase 10: cli run neurips4_gcn --smoke --figures: exit 0, no "
+            f"figure (the GCN runner writes none); cli run neurips1_gkn "
+            f"--smoke --figures: {figs} (matplotlib "
+            f"{'present' if have_mpl else 'absent'})")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(warm_step_ms=warm, eval_ms=ev, peak_gib=peak,
+                forward_rel_err=rel, profile=prof)
+
+
 # (name, kappa, E, nodes) of K1 SIMT's main-path shapes: the general
 # MGKN's mid level 1 (one s=85 graph), the orthogonal kw-128 level (one
 # s=1024 sample) and the s=61 serving graph (E_pad)
@@ -3295,6 +3454,10 @@ def main(argv) -> int:
         k1_simt_probe()
         log(ident)
         return 0
+    if argv[:1] == ["--gcn"]:
+        log("phase 10: gcn " + json.dumps(phase_gcn()))
+        log(ident)
+        return 0
     if argv[:1] == ["--mgkn"]:
         from graph_pde_tpu_torch.ops import kernels
 
@@ -3407,6 +3570,9 @@ def main(argv) -> int:
     lap("phase 9 wall time")
     log("phase 9: general MGKN slice " + json.dumps(
         dict(mgkn["steps"], predict=mgkn["predict"])))
+    gcn = phase_gcn()
+    lap("phase 10 wall time")
+    log("phase 10: gcn " + json.dumps(gcn))
 
     by_path = {f"serving {k}": v for k, v in launches.items()}
     by_path.update({k: v["launches"] for k, v in trained.items()})

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of graph_pde_tpu (GKN on Darcy: serving, training,
-the experiment registry and runner, bundles and the command line).
+"""PyTorch/CUDA port of graph_pde_tpu (GKN, GCN and the two MGKNs on
+Darcy and Burgers: serving, training, the experiment registry and
+runner, bundles, run figures and the command line).
 
 Mirrors the JAX package's module layout (graph/, ops/, models/, utils/,
 data/, train/, experiments/, compat/, inference.py, cli.py) so each

@@ -4,8 +4,8 @@ Usage:
     python -m graph_pde_tpu_torch.cli list
     python -m graph_pde_tpu_torch.cli run <experiment> [--smoke]
         [--set key=value ...] [--out results.json] [--bundle DIR]
-        [--profile DIR] [--curves DIR] [--expect-l2 X [--metric M]
-        [--tol T]] [--device {cuda,cpu}]
+        [--figures DIR] [--profile DIR] [--curves DIR]
+        [--expect-l2 X [--metric M] [--tol T]] [--device {cuda,cpu}]
     python -m graph_pde_tpu_torch.cli sweep <experiment> [--smoke]
         [--axis key=[v1,v2,...]] [--out results.json] [--device ...]
     python -m graph_pde_tpu_torch.cli predict <bundle_dir>
@@ -18,9 +18,12 @@ bundle on new Darcy coefficient fields at any grid resolution
 (GKNPredictor), a general-MGKN bundle on Darcy fields through the
 reference's split-assemble protocol (MGKNGeneralPredictor), an
 orthogonal-MGKN bundle on Burgers initial conditions 'a' at its
-training resolution (MGKNOrthogonalPredictor). Every
-command runs on CUDA unless ``--device cpu`` asks for the CPU; without
-a GPU it raises. The JSON summary lines are the JAX CLI's.
+training resolution (MGKNOrthogonalPredictor). A GCN run exports no
+bundle and a GCN bundle has no serving path, as in the JAX package; both
+exit 2. ``run --figures`` writes the worst, median and best test
+samples' triptychs (GKN and MGKN runs). Every command runs on CUDA
+unless ``--device cpu`` asks for the CPU; without a GPU it raises. The
+JSON summary lines are the JAX CLI's.
 """
 from __future__ import annotations
 
@@ -168,18 +171,14 @@ def _predict_burgers_orthogonal(args, params, mcfg, norms, extra, device):
 
 def _predict(args, device):
     """Serves a trained bundle on new input fields: GKN and the general
-    MGKN on Darcy, the orthogonal MGKN on Burgers. Bundles of a model
-    the port does not have yet (GCN) exit 2."""
+    MGKN on Darcy, the orthogonal MGKN on Burgers. Other bundles (GCN)
+    exit 2."""
     from .train import load_bundle
 
     if not args.input and not args.synthetic:
         print("error: need --input or --synthetic", file=sys.stderr)
         return 2
-    try:
-        params, mcfg, norms, extra = load_bundle(args.bundle)
-    except NotImplementedError as ex:
-        print(f"error: {ex}", file=sys.stderr)
-        return 2
+    params, mcfg, norms, extra = load_bundle(args.bundle)
     family = extra.get("family", "gkn")
     dataset = extra.get("dataset", "darcy")
     if family == "mgkn_orthogonal":
@@ -274,11 +273,16 @@ def _run(args, device):
 
     t0 = time.perf_counter()
     result = run_experiment(cfg, smoke=args.smoke, progress=progress,
+                            figures_dir=args.figures,
                             profile_dir=args.profile, device=device)
-    bundle = result.pop("_bundle")
+    bundle = result.pop("_bundle", None)
     if args.curves:
         _save_curves(args.curves, cfg.name, result)
     if args.bundle:
+        if bundle is None:
+            print(f"error: {cfg.family!r} runner exports no bundle",
+                  file=sys.stderr)
+            return 2
         from .train import save_bundle
 
         save_bundle(args.bundle, result["params"], bundle["model_cfg"],
@@ -326,6 +330,10 @@ def _parser() -> argparse.ArgumentParser:
                       help="tolerance for --expect-l2")
     runp.add_argument("--bundle", default=None, metavar="DIR",
                       help="export a serving bundle of the trained model")
+    runp.add_argument("--figures", default=None, metavar="DIR",
+                      help="save truth/approx/error triptychs for the "
+                           "worst/median/best test samples (reference "
+                           "parity: UAI1_full_resolution.py:335-461)")
     runp.add_argument("--profile", default=None, metavar="DIR",
                       help="capture a torch.profiler trace of the run")
     runp.add_argument("--curves", default=None, metavar="DIR",

@@ -11,7 +11,8 @@ MGKN's tree ``{"fc1", "conv": [{"kernel", "root", "bias"}, ...], "fc2",
 "fc3"}``, keeping "conv" a list of one entry per level, and
 ``mgkn_general_params_from_numpy`` for the general MGKN's tree ``{"fc_in",
 "conv_down", "conv_mid", "conv_up", "fc_out1", "fc_out2"}``, each conv
-list a list.
+list a list, and ``gcn_params_from_numpy`` for the GCN's tree ``{"fc_in",
+"convs", "fc_out1", "fc_out2"}``, "convs" a list of the four layers.
 
 ``normalizer_from_state`` rebuilds a normalizer from the state dict the
 JAX package's bundle export writes (train/export.py): ``{"kind": "unit"
@@ -63,6 +64,14 @@ def mgkn_general_params_from_numpy(tree, device: DeviceLike = None):
     return params
 
 
+def gcn_params_from_numpy(tree, device: DeviceLike = None):
+    """The GCN's numpy parameter tree -> the same tree of float32 tensors
+    on ``device`` (None -> CUDA), "convs" a list."""
+    params = gkn_params_from_numpy(tree, device)
+    params["convs"] = list(params["convs"])
+    return params
+
+
 def _f32(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, np.float32))
 
@@ -104,5 +113,5 @@ def normalizer_state(norm) -> dict:
 
 
 __all__ = ["gkn_params_from_numpy", "mgkn_orthogonal_params_from_numpy",
-           "mgkn_general_params_from_numpy",
+           "mgkn_general_params_from_numpy", "gcn_params_from_numpy",
            "normalizer_from_state", "normalizer_state"]

@@ -1,5 +1,5 @@
 """One runner for the registered experiments (counterpart of
-graph_pde_tpu/experiments/runners.py; GKN on Darcy and Burgers, the
+graph_pde_tpu/experiments/runners.py; GKN on Darcy and Burgers, GCN, the
 general MGKN on Darcy and the orthogonal MGKN on Burgers).
 
 data -> graphs -> fit -> evaluation protocol, returning per-epoch
@@ -9,13 +9,17 @@ weights at other resolutions), 'split_random' and 'split_downsample'
 (full-field evaluation through split/assemble; on Burgers the 1-d
 split_random cover; for the general MGKN the RandomMultiMeshSplitter
 windows), and per-m test graphs (``eval_m``). Shard training
-(``train_split``) trains on DownsampleGridSplitter shards. Runs on CUDA
-unless the caller passes ``device='cpu'``. The other families raise
-NotImplementedError, naming the ROADMAP item that ports them; the run
-figures are not ported.
+(``train_split``) trains on DownsampleGridSplitter shards. GCN trains on
+the full-grid lattice, one template graph shared by every sample. The
+GKN and MGKN runners write the run figures on request. Runs on CUDA
+unless the caller passes ``device='cpu'``. The torus time series raises
+NotImplementedError, naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
+import copy
+import math
+import os
 import warnings
 from typing import Dict, Optional
 
@@ -26,27 +30,27 @@ from ..data import (burgers_gkn_graphs, burgers_multipole_data,
                     darcy_gkn_graphs, darcy_mgkn_graphs,
                     load_or_generate_burgers, load_or_generate_darcy,
                     prepare_burgers, prepare_darcy)
+from ..data.datasets import batch_iterator
 from ..device import DeviceLike, resolve_device
-from ..graph import (DownsampleGridSplitter, RandomGridSplitter,
-                     RandomMultiMeshSplitter, make_box_grid, repad_edges,
-                     stack_graphs)
+from ..graph import (DownsampleGridSplitter, NodeBatch, RandomGridSplitter,
+                     RandomMultiMeshSplitter, build_graph, grid_edge,
+                     make_box_grid, repad_edges, stack_graphs)
 from ..inference import _largest_divisor_leq as _divisor_near
 from ..inference import _np, mgkn_split_predict
+from ..models.gcn import GCNConfig, gcn_init
 from ..models.gkn import GKNConfig, gkn_apply, gkn_init
 from ..models.mgkn_general import MGKNGeneralConfig, mgkn_general_init
 from ..models.mgkn_orthogonal import (MGKNOrthogonalConfig,
                                       mgkn_orthogonal_init, multipole_batch)
-from ..train import (GKNTask, MGKNGeneralTask, MGKNOrthogonalTask,
-                     TrainConfig, evaluate, fit)
+from ..train import (GCNTask, GKNTask, MGKNGeneralTask, MGKNOrthogonalTask,
+                     TrainConfig, evaluate, fit, metrics)
+from ..train.trainer import to_device
 from ..utils.losses import LpLoss
 from ..utils.matio import MatReader
 from .registry import ExperimentConfig
 
 # families and datasets of the registry that are not ported yet
-_NOT_PORTED = {
-    "gcn": "GCN",
-    "torus_t": "torus time series",
-}
+_NOT_PORTED = {"torus_t": "torus time series"}
 
 
 def _load_darcy_fields(cfg: ExperimentConfig, n: int, path: Optional[str],
@@ -78,12 +82,16 @@ def _kernel_layers(cfg: ExperimentConfig, ker_in: int):
 
 
 def run_experiment(cfg: ExperimentConfig, smoke: bool = False,
-                   progress=None, profile_dir: Optional[str] = None,
+                   progress=None, figures_dir: Optional[str] = None,
+                   profile_dir: Optional[str] = None,
                    device: DeviceLike = None) -> Dict:
     """Runs ``cfg`` (its ``smoke()`` version with ``smoke``).
     ``progress(epoch, params, train_l2, test_l2)`` runs after each
-    epoch; ``profile_dir`` captures a torch.profiler trace of the run
-    (train/metrics.py ``profile_trace``)."""
+    epoch; ``figures_dir`` receives truth/approx/error triptychs of the
+    worst, median and best test samples (GKN and MGKN runs; the GCN
+    runner writes none, as in the JAX package); ``profile_dir`` captures
+    a torch.profiler trace of the run (train/metrics.py
+    ``profile_trace``)."""
     if smoke:
         cfg = cfg.smoke()
     for part in (cfg.family, cfg.dataset):
@@ -93,19 +101,82 @@ def run_experiment(cfg: ExperimentConfig, smoke: bool = False,
                 f"A: {_NOT_PORTED[part]})")
     runners = {"gkn": _run_gkn, "mgkn_general": _run_mgkn_general,
                "mgkn_orthogonal": _run_mgkn_orthogonal}
-    if cfg.family not in runners or cfg.dataset not in ("darcy", "burgers"):
+    if (cfg.family not in runners and cfg.family != "gcn") \
+            or cfg.dataset not in ("darcy", "burgers"):
         raise ValueError(f"unknown family/dataset {cfg.family!r}/"
                          f"{cfg.dataset!r}")
-    run = runners[cfg.family]
     dev = resolve_device(device)
-    if profile_dir:
-        from ..train.metrics import profile_trace
 
-        with profile_trace(profile_dir):
-            result = run(cfg, progress, dev)
+    def run():
+        if cfg.family == "gcn":
+            return _run_gcn(cfg, progress, dev)
+        return runners[cfg.family](cfg, progress, dev, figures_dir)
+
+    if profile_dir:
+        with metrics.profile_trace(profile_dir):
+            result = run()
         result["profile_dir"] = profile_dir
         return result
-    return run(cfg, progress, dev)
+    return run()
+
+
+def _emit_run_figures(figures_dir: str, cfg, task, params, test_data,
+                      coords_dim: int, dev: torch.device) -> list:
+    """Truth/approx/error figures of the WORST, MEDIAN and BEST test
+    samples by decoded rel-L2 (the reference's per-run images,
+    UAI1_full_resolution.py:335-461): full-grid samples as imshow
+    triptychs, Nystrom subsamples as scatter triptychs, 1-d fields as
+    line plots. Returns the paths written (none without matplotlib)."""
+    dec_p, dec_y, masks, coords, sample_idx = [], [], [], [], []
+    with torch.no_grad():
+        for batch in batch_iterator(to_device(test_data, dev), 4,
+                                    drop_remainder=False):
+            pred = task.forward(params, batch)
+            dec_p.append(_np(task.decode(pred[..., 0], batch)))
+            dec_y.append(_np(task.decode(task.targets(batch)[..., 0],
+                                         batch)))
+            masks.append(_np(task.mask(batch)))
+            nmax = pred.shape[1]
+            coords.append(_np(batch.x)[:, :nmax, :coords_dim])
+            si = getattr(batch, "sample_idx", None)
+            sample_idx.append(None if si is None else _np(si)[:, :nmax])
+    dec_p, dec_y = np.concatenate(dec_p), np.concatenate(dec_y)
+    masks, coords = np.concatenate(masks), np.concatenate(coords)
+    sample_idx = (None if sample_idx[0] is None
+                  else np.concatenate(sample_idx))
+
+    pm, ym = dec_p * masks, dec_y * masks
+    rels = (np.linalg.norm(pm - ym, axis=1)
+            / np.maximum(np.linalg.norm(ym, axis=1), 1e-12))
+    order = np.argsort(rels)
+    picks = {"best": order[0], "median": order[len(order) // 2],
+             "worst": order[-1]}
+    os.makedirs(figures_dir, exist_ok=True)
+    written = []
+    for tag, j in picks.items():
+        valid = masks[j] > 0
+        t, a = dec_y[j][valid], dec_p[j][valid]
+        path = os.path.join(figures_dir, f"{cfg.name}_{tag}.png")
+        title = f"{cfg.name} {tag} rel-L2={rels[j]:.4f}"
+        if coords_dim == 1:
+            xs = coords[j][valid, 0]
+            o = np.argsort(xs)
+            out = metrics.save_line_triptych(xs[o], t[o], a[o], path, title)
+        else:
+            nv = int(valid.sum())
+            side = int(round(np.sqrt(nv)))
+            full_grid = side * side == nv and (
+                sample_idx is None
+                or np.array_equal(sample_idx[j][valid][:nv],
+                                  np.arange(nv)))
+            if full_grid:
+                out = metrics.save_field_triptych(t, a, path, title)
+            else:
+                out = metrics.save_points_triptych(coords[j][valid], t, a,
+                                                   path, title)
+        if out:
+            written.append(out)
+    return written
 
 
 def _gkn_config(cfg: ExperimentConfig) -> GKNConfig:
@@ -155,7 +226,8 @@ def _burgers_data(cfg: ExperimentConfig):
     return arrays, test_arrays
 
 
-def _run_gkn(cfg: ExperimentConfig, progress, dev: torch.device) -> Dict:
+def _run_gkn(cfg: ExperimentConfig, progress, dev: torch.device,
+             figures_dir: Optional[str] = None) -> Dict:
     radius_test = cfg.radius_test or cfg.radius_train
     if cfg.dataset == "darcy":
         arrays, norms, test_arrays = _darcy_data(cfg)
@@ -200,6 +272,10 @@ def _run_gkn(cfg: ExperimentConfig, progress, dev: torch.device) -> Dict:
         "final_test_l2": res.test_l2[-1] if res.test_l2 else None,
     }
     darcy = cfg.dataset == "darcy"
+    if figures_dir:
+        result["figures"] = _emit_run_figures(
+            figures_dir, cfg, task, res.params, test_g,
+            2 if darcy else 1, dev)
     if cfg.eval_protocol == "multires" and darcy:
         result["multires"], result["multires_fresh_fields"] = \
             _eval_gkn_multires(cfg, mcfg, res.params, arrays, norms,
@@ -257,8 +333,76 @@ def _eval_gkn_split_random_burgers(cfg, mcfg, params, arrays, dev) -> float:
     return total / n_eval
 
 
+def gcn_data(cfg: ExperimentConfig):
+    """The GCN run's data: (template, train NodeBatch, test NodeBatch,
+    u-normalizer over the padded nodes). GCNConv ignores edge
+    attributes, so the s x s lattice is built once, unweighted, as the
+    template Graph (host arrays) every sample shares; the s=421 lattice
+    takes the blocked layout (node_block 512 from 60,000 nodes, the JAX
+    package's rule, so N_pad and the padding agree with it). The
+    normalizer's per-node stats are extended over the padding with mean
+    0 and std 1 (the node mask keeps those nodes out of the loss)."""
+    arrays, _, test_arrays = _darcy_data(cfg)
+    s = arrays.s
+    n = s * s
+    grid, ei, _ = grid_edge(s, s)
+    node_block = 512 if n >= 60000 else 0
+    tpl = build_graph(np.zeros((n, 6), np.float32), ei[0], ei[1],
+                      np.zeros((ei.shape[1], 1), np.float32),
+                      node_block=node_block)
+    n_pad = tpl.num_nodes_padded
+
+    def stack(arr, count):
+        xs = np.zeros((count, n_pad, 6), np.float32)
+        ys = np.zeros((count, n_pad, 1), np.float32)
+        for j in range(count):
+            xs[j, :n] = np.concatenate([
+                grid, arr.a[j][:, None], arr.a_smooth[j][:, None],
+                arr.a_gradx[j][:, None], arr.a_grady[j][:, None]], axis=1)
+            ys[j, :n, 0] = arr.u[j]
+        return NodeBatch(x=xs, y=ys, n_node=np.full((count,), n, np.int32))
+
+    u_norm = copy.copy(arrays.u_normalizer)
+    pad = n_pad - n
+    if pad:
+        u_norm.mean = torch.cat([u_norm.mean, torch.zeros(pad)])
+        u_norm.std = torch.cat([u_norm.std, torch.ones(pad)])
+    return tpl, stack(arrays, cfg.ntrain), stack(test_arrays, cfg.ntest), \
+        u_norm
+
+
+def _run_gcn(cfg: ExperimentConfig, progress, dev: torch.device) -> Dict:
+    """The neurips4_GCN.py protocol: GCN on the full-grid 4-neighbor
+    lattice, trained on the decoded rel-L2 (lines 178-198), evaluated on
+    the held-out test set (lines 205-216). No serving bundle, as in the
+    JAX package."""
+    tpl, train_b, test_b, u_norm = gcn_data(cfg)
+    mcfg = GCNConfig(width=cfg.width, ker_width=cfg.ker_width,
+                     depth=cfg.depth, in_width=6)
+    params = gcn_init(torch.Generator().manual_seed(cfg.seed), mcfg,
+                      device=dev)
+    # fit moves the data to the device; the template goes with the task
+    task = GCNTask(mcfg, u_normalizer=u_norm, loss_type=cfg.loss,
+                   use_sample_idx=False, template=tpl.to(dev))
+    tc = TrainConfig(epochs=cfg.epochs, batch_size=cfg.batch_size,
+                     learning_rate=cfg.learning_rate,
+                     weight_decay=cfg.weight_decay,
+                     scheduler_step=cfg.scheduler_step,
+                     scheduler_gamma=cfg.scheduler_gamma, loss=cfg.loss,
+                     seed=cfg.seed)
+    res = fit(task, params, train_b, tc, test_data=test_b,
+              callback=progress, device=dev)
+    return {"config": cfg.name, "train_l2": res.train_l2,
+            "test_l2": res.test_l2, "test_epochs": res.test_epochs,
+            "final_test_l2": res.test_l2[-1] if res.test_l2 else None,
+            "epoch_times": res.epoch_times, "params": res.params,
+            "extra": {"family": "gcn", "s": math.isqrt(int(tpl.n_node)),
+                      "node_block": tpl.node_block}}
+
+
 def _run_mgkn_orthogonal(cfg: ExperimentConfig, progress,
-                         dev: torch.device) -> Dict:
+                         dev: torch.device,
+                         figures_dir: Optional[str] = None) -> Dict:
     """The orthogonal MGKN on Burgers (MGKN_orthogonal_burgers1d.py): the
     level hierarchy of the training grid, trained on the decoded rel-L2;
     the bundle carries the training s."""
@@ -282,10 +426,14 @@ def _run_mgkn_orthogonal(cfg: ExperimentConfig, progress,
                      seed=cfg.seed)
     res = fit(task, params, train_g, tc, test_data=test_g,
               callback=progress, device=dev)
+    figures = (_emit_run_figures(figures_dir, cfg, task, res.params, test_g,
+                                 1, dev)
+               if figures_dir else None)
     return {"config": cfg.name, "train_l2": res.train_l2,
             "test_l2": res.test_l2, "test_epochs": res.test_epochs,
             "epoch_times": res.epoch_times,
             "final_test_l2": res.test_l2[-1] if res.test_l2 else None,
+            "figures": figures,
             "params": res.params,
             "_bundle": {"model_cfg": mcfg,
                         "normalizers": {"a": arrays.a_normalizer,
@@ -297,7 +445,8 @@ def _run_mgkn_orthogonal(cfg: ExperimentConfig, progress,
 
 
 def _run_mgkn_general(cfg: ExperimentConfig, progress,
-                      dev: torch.device) -> Dict:
+                      dev: torch.device,
+                      figures_dir: Optional[str] = None) -> Dict:
     """The general MGKN on Darcy (MGKN_general_darcy2d.py and the
     neurips{1,2,3}_MGKN scripts): multilevel graphs of the training and
     test samples (the test capacities at least the training ones),
@@ -346,6 +495,9 @@ def _run_mgkn_general(cfg: ExperimentConfig, progress,
     elif cfg.eval_protocol == "multires":
         result["multires"], result["multires_fresh_fields"] = \
             _eval_mgkn_multires(cfg, task, res.params, arrays, norms, dev)
+    if figures_dir:
+        result["figures"] = _emit_run_figures(
+            figures_dir, cfg, task, res.params, test_g, 2, dev)
     return result
 
 

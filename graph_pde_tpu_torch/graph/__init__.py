@@ -1,6 +1,8 @@
-from .graph import (Graph, MultiLevelGraph, build_graph,
+from .graph import (Graph, MultiLevelGraph, NodeBatch, build_graph,
                     build_multilevel_graph, pad_capacities, stack_graphs,
                     flatten_stacked, repad_edges, round_up)
+from .lattice import (simple_grid, grid_edge, grid_edge1d, grid_edge_aug,
+                      grid_edge_aug_full, downsample_field, multi_grid)
 from .build import radius_connectivity, forward_filter, edge_attributes
 from .mesh import (make_box_grid, SquareMeshGenerator, RandomMeshGenerator,
                    RandomTwoMeshGenerator, RandomMultiMeshGenerator)
@@ -8,9 +10,11 @@ from .splitters import (RandomGridSplitter, RandomMultiMeshSplitter,
                         DownsampleGridSplitter)
 
 __all__ = [
-    "Graph", "MultiLevelGraph", "build_graph", "build_multilevel_graph",
-    "pad_capacities", "stack_graphs", "flatten_stacked", "repad_edges",
+    "Graph", "MultiLevelGraph", "NodeBatch", "build_graph",
+    "build_multilevel_graph", "pad_capacities", "stack_graphs", "flatten_stacked", "repad_edges",
     "round_up",
+    "simple_grid", "grid_edge", "grid_edge1d", "grid_edge_aug",
+    "grid_edge_aug_full", "downsample_field", "multi_grid",
     "radius_connectivity", "forward_filter", "edge_attributes",
     "make_box_grid", "SquareMeshGenerator", "RandomMeshGenerator",
     "RandomTwoMeshGenerator", "RandomMultiMeshGenerator",

@@ -568,9 +568,25 @@ def build_multilevel_graph(
     )
 
 
+@dataclasses.dataclass
+class NodeBatch:
+    """Per-sample node data on a SHARED edge structure.
+
+    The full-grid lattice (neurips4_GCN.py:133) is the same for every
+    sample, so one template ``Graph`` holds the edges and a batch carries
+    only what varies: node features, targets and the valid-node count.
+    ``map_arrays``, ``leading_size`` and ``batch_iterator`` take it as any
+    dataclass of arrays."""
+
+    x: object            # [B, N_pad, F]
+    y: object            # [B, N_pad, out]
+    n_node: object       # [B]
+
+
 __all__ = [
     "Graph",
     "MultiLevelGraph",
+    "NodeBatch",
     "build_graph",
     "build_multilevel_graph",
     "pad_capacities",

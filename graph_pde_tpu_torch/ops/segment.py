@@ -26,10 +26,16 @@ def segment_counts(segment_ids: torch.Tensor, mask: torch.Tensor,
                    num_segments: int) -> torch.Tensor:
     """Valid rows per segment, clamped to 1 (PyG scatter_mean divisor),
     float32 [num_segments]."""
-    counts = torch.zeros(num_segments, dtype=torch.float32,
-                         device=segment_ids.device)
-    counts.index_add_(0, segment_ids, mask.to(torch.float32))
-    return counts.clamp_min(1.0)
+    return segment_degrees(segment_ids, mask, num_segments).clamp_min(1.0)
+
+
+def segment_degrees(segment_ids: torch.Tensor, mask: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Valid rows per segment (the mask-weighted in-degree), float32
+    [num_segments], not clamped."""
+    deg = torch.zeros(num_segments, dtype=torch.float32,
+                      device=segment_ids.device)
+    return deg.index_add_(0, segment_ids, mask.to(torch.float32))
 
 
 def masked_segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -48,4 +54,4 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["masked_segment_sum", "masked_segment_mean", "segment_counts",
-           "gather_rows"]
+           "segment_degrees", "gather_rows"]

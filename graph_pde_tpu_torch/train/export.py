@@ -6,7 +6,7 @@ parameter tree, through ``torch.save``) and ``bundle.json`` with the JAX
 package's schema: ``model_config_class``, ``model_config`` (the config
 dataclass as a dict), ``normalizers`` (name -> ``convert.
 normalizer_state``) and ``extra`` (family, dataset, radius or train_s,
-experiment). GKN, general MGKN and orthogonal MGKN bundles load.
+experiment). GKN, GCN, general MGKN and orthogonal MGKN bundles load.
 A JAX bundle's params are an orbax checkpoint, which only the JAX
 package reads; its ``bundle.json`` loads here as it is.
 """
@@ -19,16 +19,15 @@ from typing import Any, Dict, Optional
 
 from ..convert import normalizer_from_state, normalizer_state
 from ..data.datasets import map_arrays
+from ..models.gcn import GCNConfig
 from ..models.gkn import GKNConfig
 from ..models.mgkn_general import MGKNGeneralConfig
 from ..models.mgkn_orthogonal import MGKNOrthogonalConfig
 from .checkpoint import restore_checkpoint, save_checkpoint
 
-_MODEL_CONFIGS = {"GKNConfig": GKNConfig,
+_MODEL_CONFIGS = {"GKNConfig": GKNConfig, "GCNConfig": GCNConfig,
                   "MGKNGeneralConfig": MGKNGeneralConfig,
                   "MGKNOrthogonalConfig": MGKNOrthogonalConfig}
-# model config classes of the JAX package whose models are not ported yet
-_NOT_PORTED = {"GCNConfig": "ROADMAP queue A: GCN"}
 _META = "bundle.json"
 
 
@@ -57,12 +56,7 @@ def load_meta(directory: str):
     the part a JAX bundle shares with the port's."""
     with open(os.path.join(os.path.abspath(directory), _META)) as f:
         meta = json.load(f)
-    name = meta["model_config_class"]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} bundles need a model that is not ported yet: "
-            f"{_NOT_PORTED[name]}")
-    cfg = _MODEL_CONFIGS[name](**{
+    cfg = _MODEL_CONFIGS[meta["model_config_class"]](**{
         k: tuple(v) if isinstance(v, list) else v
         for k, v in meta["model_config"].items()})
     norms = {k: normalizer_from_state(v)

@@ -1,9 +1,12 @@
-"""Metric logging and profiling (counterpart of
-graph_pde_tpu/train/metrics.py; the triptych figures are not ported yet).
+"""Metric logging, profiling and figures (counterpart of
+graph_pde_tpu/train/metrics.py).
 
 ``MetricsLogger`` writes a per-epoch metric stream (stdout line, JSONL
 file, in-memory history) and the reference's ``np.savetxt`` error-curve
-files. ``profile_trace`` captures a ``torch.profiler`` trace.
+files. ``profile_trace`` captures a ``torch.profiler`` trace. The
+``save_*_triptych`` functions write the truth/approx/error figures the
+reference saves per run (UAI1_full_resolution.py:335-461); each returns
+None where matplotlib cannot be imported.
 """
 from __future__ import annotations
 
@@ -77,4 +80,86 @@ def profile_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-__all__ = ["MetricsLogger", "profile_trace"]
+def _pyplot():
+    """matplotlib.pyplot on the Agg backend, or None where matplotlib
+    cannot be imported."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except Exception:
+        return None
+    return plt
+
+
+def _save(plt, fig, path: str, title: str) -> str:
+    if title:
+        fig.suptitle(title)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    fig.savefig(path, dpi=100, bbox_inches="tight")
+    plt.close(fig)
+    return path
+
+
+def _triptych(plt, truth, approx, draw, path: str, title: str) -> str:
+    """Truth, approx and error panels, each drawn by ``draw(ax, values)``
+    with a colorbar."""
+    t, a = np.asarray(truth), np.asarray(approx)
+    fig, axes = plt.subplots(1, 3, figsize=(12, 4))
+    for ax, (vals, name) in zip(axes, [(t, "truth"), (a, "approx"),
+                                       (t - a, "error")]):
+        fig.colorbar(draw(ax, vals), ax=ax, fraction=0.046)
+        ax.set_title(name)
+    return _save(plt, fig, path, title)
+
+
+def save_field_triptych(truth: np.ndarray, approx: np.ndarray,
+                        path: str, title: str = "") -> Optional[str]:
+    """Truth / prediction / error triptych on a square grid."""
+    plt = _pyplot()
+    if plt is None:
+        return None
+    s = int(round(np.sqrt(np.asarray(truth).size)))
+    return _triptych(plt, np.reshape(truth, (s, s)),
+                     np.reshape(approx, (s, s)),
+                     lambda ax, img: ax.imshow(img), path, title)
+
+
+def save_points_triptych(xy: np.ndarray, truth: np.ndarray,
+                         approx: np.ndarray, path: str,
+                         title: str = "") -> Optional[str]:
+    """Truth / prediction / error triptych for scattered (Nystrom) nodes,
+    where no full grid exists."""
+    plt = _pyplot()
+    if plt is None:
+        return None
+
+    def draw(ax, vals):
+        ax.set_aspect("equal")
+        return ax.scatter(xy[:, 0], xy[:, 1], c=vals, s=14)
+
+    return _triptych(plt, truth, approx, draw, path, title)
+
+
+def save_line_triptych(x: np.ndarray, truth: np.ndarray,
+                       approx: np.ndarray, path: str,
+                       title: str = "") -> Optional[str]:
+    """1-D variant (Burgers): truth and prediction overlaid, and the
+    error."""
+    plt = _pyplot()
+    if plt is None:
+        return None
+    t, a = np.asarray(truth), np.asarray(approx)
+    fig, axes = plt.subplots(1, 2, figsize=(10, 4))
+    axes[0].plot(x, t, label="truth")
+    axes[0].plot(x, a, "--", label="approx")
+    axes[0].legend()
+    axes[0].set_title("truth vs approx")
+    axes[1].plot(x, t - a)
+    axes[1].set_title("error")
+    return _save(plt, fig, path, title)
+
+
+__all__ = ["MetricsLogger", "profile_trace", "save_field_triptych",
+           "save_points_triptych", "save_line_triptych"]

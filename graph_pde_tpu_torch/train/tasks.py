@@ -1,10 +1,11 @@
 """Task adapters binding a model family to the trainer (counterpart of
-graph_pde_tpu/train/tasks.py; GKN, general and orthogonal MGKN, the GCN
-task comes with its model)."""
+graph_pde_tpu/train/tasks.py): GKN, GCN, and the general and orthogonal
+MGKN."""
 from __future__ import annotations
 
 import torch
 
+from ..models.gcn import GCNConfig, gcn_apply, gcn_apply_batched
 from ..models.gkn import GKNConfig, gkn_apply_batched
 from ..models.mgkn_general import (MGKNGeneralConfig,
                                    mgkn_general_apply_batched)
@@ -50,6 +51,29 @@ class GKNTask(_NormalizerDecodeMixin, Task):
         return _node_mask_batched(batch)
 
 
+class GCNTask(_NormalizerDecodeMixin, Task):
+    """``template``: a Graph whose edges every sample shares (the
+    full-grid lattice, neurips4_GCN.py:133), as tensors on the task's
+    device; batches are then ``NodeBatch``es carrying only per-sample
+    node data. Without a template, batches are stacked Graphs."""
+
+    def __init__(self, cfg: GCNConfig, u_normalizer=None, loss_type="l1",
+                 use_sample_idx=True, template=None):
+        self.cfg = cfg
+        self.u_normalizer = u_normalizer
+        self.loss_type = loss_type
+        self.use_sample_idx = use_sample_idx
+        self.template = template
+
+    def forward(self, params, batch):
+        if self.template is not None:
+            return gcn_apply(params, self.cfg, self.template, x=batch.x)
+        return gcn_apply_batched(params, self.cfg, batch)
+
+    def mask(self, batch):
+        return _node_mask_batched(batch)
+
+
 class MGKNGeneralTask(_NormalizerDecodeMixin, Task):
     """Predictions and targets live on the finest level (no node
     padding)."""
@@ -87,4 +111,4 @@ class MGKNOrthogonalTask(_NormalizerDecodeMixin, Task):
                           device=batch.x.device)
 
 
-__all__ = ["GKNTask", "MGKNGeneralTask", "MGKNOrthogonalTask"]
+__all__ = ["GKNTask", "GCNTask", "MGKNGeneralTask", "MGKNOrthogonalTask"]

@@ -110,6 +110,14 @@ def make_train_step(task: Task, optimizer: torch.optim.Optimizer):
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(params, batch)
         loss.backward()
+        # a leaf the forward never reached (the 'single' MGKN's other
+        # convs) gets a zero gradient, as jax.grad gives it: Adam then
+        # applies weight decay and its moment updates to it, as optax
+        # does, instead of skipping it
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         optimizer.step()
         metrics["loss"] = loss.detach()
         return metrics

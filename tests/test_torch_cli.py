@@ -134,15 +134,48 @@ def test_predict_needs_an_input(trained):
 
 
 def test_predict_mgkn_bundle_exits_2(tmp_path, capsys):
-    d = tmp_path / "gcn"
-    d.mkdir()
-    (d / "bundle.json").write_text(json.dumps({
-        "model_config_class": "GCNConfig", "model_config": {},
-        "normalizers": {}, "extra": {"family": "gcn", "dataset": "darcy"}}))
-    rc = cli.main(["predict", str(d), "--synthetic", "1", "--res", "9",
-                   "--device", "cpu"])
+    """A GCN bundle loads and, as in the JAX package, has no serving
+    path."""
+    from graph_pde_tpu_torch.models.gcn import GCNConfig, gcn_init
+
+    cfg = GCNConfig(width=8, ker_width=16)
+    ttrain.save_bundle(str(tmp_path / "gcn"),
+                       gcn_init(torch.Generator().manual_seed(0), cfg,
+                                device="cpu"), cfg,
+                       extra={"family": "gcn", "dataset": "darcy"})
+    rc = cli.main(["predict", str(tmp_path / "gcn"), "--synthetic", "1",
+                   "--res", "9", "--device", "cpu"])
     assert rc == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert capsys.readouterr().err.strip() == \
+        "error: no serving path for family='gcn' dataset='darcy'"
+
+
+def test_run_gcn_bundle_exits_2(tmp_path, capsys):
+    """The GCN runner exports no bundle: `run --bundle` trains, then
+    exits 2, as the JAX CLI does; without --bundle it exits 0."""
+    args = ["run", "neurips4_gcn", "--smoke", "--device", "cpu", "--set",
+            "epochs=1", "--set", "ntrain=2", "--set", "ntest=1"]
+    rc = cli.main(args + ["--bundle", str(tmp_path / "b")])
+    assert rc == 2
+    assert capsys.readouterr().err.strip() == \
+        "error: 'gcn' runner exports no bundle"
+    assert not (tmp_path / "b").exists()
+    assert cli.main(args) == 0
+    assert np.isfinite(_last_json(capsys.readouterr().out)["final_test_l2"])
+
+
+def test_run_figures_writes_the_triptychs(tmp_path):
+    """`run --figures DIR` writes the worst, median and best test
+    samples' triptychs and lists them under 'figures'."""
+    figs, out = tmp_path / "figs", tmp_path / "r.json"
+    rc = cli.main(["run", "neurips1_gkn", "--smoke", "--device", "cpu",
+                   "--set", "epochs=1", "--set", "ntrain=2",
+                   "--figures", str(figs), "--out", str(out)])
+    assert rc == 0
+    names = [f"neurips1_gkn_{t}.png" for t in ("best", "median", "worst")]
+    assert json.load(open(out))["figures"] == [str(figs / n)
+                                               for n in names]
+    assert sorted(os.listdir(figs)) == sorted(names)
 
 
 def test_list_prints_the_registry(capsys):

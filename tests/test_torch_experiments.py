@@ -76,7 +76,7 @@ def test_sweep_configs_match_jax(name):
         [dataclasses.asdict(c) for c in j]
 
 
-@pytest.mark.parametrize("name", ["neurips4_gcn", "grain_torus_timeseries"])
+@pytest.mark.parametrize("name", ["grain_torus_timeseries"])
 def test_unported_experiments_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         trun.run_experiment(treg.get(name), smoke=True, device="cpu")

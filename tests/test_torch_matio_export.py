@@ -142,12 +142,22 @@ def test_bundle_json_matches_jax(tmp_path):
 
 
 def test_load_bundle_refuses_unported_models(tmp_path):
+    """Every model config class of the JAX package loads (a GCN bundle
+    too); a class the packages do not have is refused."""
+    from graph_pde_tpu_torch.models.gcn import GCNConfig, gcn_init
+
+    cfg = GCNConfig(width=8, ker_width=16)
+    params = gcn_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    texport.save_bundle(str(tmp_path / "gcn"), params, cfg,
+                        extra={"family": "gcn"})
+    _, loaded, norms, extra = texport.load_bundle(str(tmp_path / "gcn"))
+    assert loaded == cfg and norms == {} and extra == {"family": "gcn"}
     d = tmp_path / "b"
     d.mkdir()
     (d / "bundle.json").write_text(json.dumps({
-        "model_config_class": "GCNConfig", "model_config": {},
-        "normalizers": {}, "extra": {"family": "gcn"}}))
-    with pytest.raises(NotImplementedError, match="GCN"):
+        "model_config_class": "FNOConfig", "model_config": {},
+        "normalizers": {}, "extra": {}}))
+    with pytest.raises(KeyError, match="FNOConfig"):
         texport.load_bundle(str(d))
 
 

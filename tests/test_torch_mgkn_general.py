@@ -383,13 +383,16 @@ def test_grads_match_jax(graphs, variant):
         _close(a.numpy(), b)
 
 
-def test_train_steps_match_jax(arrays, graphs):
+@pytest.mark.parametrize("variant", ["mkgn", "single"])
+def test_train_steps_match_jax(arrays, graphs, variant):
     """Two Adam steps at batch 2 under the decoded rel-L2 loss from the
     same parameters: losses within 1e-5 relative, parameters within 1e-4
     of each leaf's max-abs (tests/test_torch_train.py says why Adam keeps
-    that bound)."""
+    that bound). Under 'single' the forward reaches only K_00: the other
+    leaves get zero gradients in JAX, and weight decay and Adam still
+    move them, in both packages."""
     ta, ja, _ = arrays
-    jcfg, tcfg = _cfgs(impl="reference")
+    jcfg, tcfg = _cfgs(impl="reference", variant=variant)
     jp, tp = _params(jcfg, seed=3)
     tg, jg = graphs
     tg = tg.to("cpu")
