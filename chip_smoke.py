@@ -12,6 +12,8 @@
                                  # version, op by op (grad_locate)
     python3 chip_smoke.py --mgkn  # only the build and phase 9
     python3 chip_smoke.py --gcn   # only phase 10 (no kernel to build)
+    python3 chip_smoke.py --torus  # only K1's and B1-bwd's build and
+                                 # phase 11
     python3 chip_smoke.py --k1-simt  # only K1's build and its SIMT form
                                  # alone (k1_simt_probe)
 
@@ -142,7 +144,26 @@ Phases, each fatal on failure:
      runs `cli run neurips4_gcn --smoke --figures DIR` (exit 0, no
      figure: the GCN runner writes none, as the JAX package's) and `cli
      run neurips1_gkn --smoke --figures DIR` ('figures' [] without
-     matplotlib, else the three files).
+     matplotlib, else the three files);
+ 11. the torus family and the last single-device modules (phase_torus),
+     from a temporary directory: the native graph builder, built with
+     g++ and required to load, its edges bit-equal to cKDTree's and
+     dense numpy's on the s=61 GKN grid, the general MGKN's s=85 levels
+     (inner and bipartite) and a full-width torus shard (geometry too),
+     its host builds and an s=61 GKN and an s=85 general-MGKN request
+     with each builder timed in turns (outputs equal); K1 (general
+     form) and B1-bwd (SIMT in fp32, tensor cores in bf16) at the torus
+     conv (kappa (5, 32, 64, 1024), in = out = 32) on one shard (E_pad
+     12,800) and a batch of 4 (51,200), every output, a second launch
+     bit-identical, timed beside bounds and plain versions; `run
+     grain_torus_timeseries` at full width (TORUS_EPOCHS epochs, not
+     24) under the registry's kcached (no launch) and `--set impl=auto`
+     (each step K1 general 3, B1-bwd simt 3; the evaluation K1 general
+     3 a shard forward), a step of each profiled, peak memory; the
+     torus step-1 gradients of auto against reference, and of
+     loop_vjp=True against False (torus; uai1 unfused kcached in fp32
+     and bf16 compute); uai1's warm steps with loop_vjp on and off, in
+     turns, on the full s=61 training graph.
 
 Prints one JSON line of kernel records before the last line, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, with no result
@@ -204,6 +225,14 @@ MGKN_RUN = ORTHO_RUN
 # samples, one test sample, GCN_EPOCHS epochs of batch 1.
 S_GCN = 421
 GCN_EPOCHS = 2
+
+# The torus family (graph_pde_tpu/experiments/registry.py:202-205):
+# grain_torus_timeseries at full width (width 32, ker_width 64: kappa
+# (5, 32, 64, 1024), depth 3, source_res 32 in 2 x 2 shards of 256
+# nodes, batch 4, T 3), TORUS_EPOCHS epochs (not 24) of ntrain // batch
+# steps; TORUS_E: one shard's E_pad and the flattened batch of 4.
+TORUS_EPOCHS = 3
+TORUS_E = (12800, 51200)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 SIMT rate, bf16 tensor
 # core rate and HBM3 bandwidth.
@@ -503,18 +532,18 @@ def phase_general_forms(g, dev) -> dict:
 
 
 def check_k1(name, x, s, a, kp, w_in, dt, tol, form, want=None,
-             phase=2) -> float:
-    """K1 against its plain version (out 64; ``want`` if given) in the
-    form its shape takes, and a second launch bit-identical; returns the
-    max-abs error."""
+             phase=2, w_out=64) -> float:
+    """K1 against its plain version (``want`` if given) in the form its
+    shape takes, and a second launch bit-identical; returns the max-abs
+    error."""
     import torch
 
     from graph_pde_tpu_torch.ops.dense import layer_dims
     from graph_pde_tpu_torch.ops.fused_edge_conv import (
         edge_messages_plain, fused_edge_messages, k1_form)
 
-    kw = dict(in_channels=w_in, out_channels=64, compute_dtype=dt)
-    require(k1_form(layer_dims(kp), w_in, 64, dt) == form,
+    kw = dict(in_channels=w_in, out_channels=w_out, compute_dtype=dt)
+    require(k1_form(layer_dims(kp), w_in, w_out, dt) == form,
             f"{name}: k1_form picks {form}")
     zero_counts()
     got = fused_edge_messages(x, s, a, kp, **kw)
@@ -837,9 +866,9 @@ def set_bound(r: dict) -> None:
     r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
 
 
-def k1_cost(kp, e, n, tc=False) -> dict:
+def k1_cost(kp, e, n, tc=False, w=64) -> dict:
     """K1's operations and bytes on e edges of an n-node graph (in = out
-    = 64): the MLP's products and the contraction, every input read once
+    = w): the MLP's products and the contraction, every input read once
     (x, senders, attr, weights), the messages written once. With ``tc``
     (the bf16 tensor-core form) the products after the first layer run
     on bf16 operands, so they count as ``bf16_flops``; attr @ W0 and the
@@ -850,7 +879,7 @@ def k1_cost(kp, e, n, tc=False) -> dict:
     mlp = [2.0 * e * a * b for a, b in dims]
     fold = 2.0 * e * dims[-1][1]
     wbytes = 4 * sum(p["w"].numel() + p["b"].numel() for p in kp)
-    nbytes = 4 * n * 64 + 8 * e + 4 * e * dims[0][0] + wbytes + 4 * e * 64
+    nbytes = 4 * n * w + 8 * e + 4 * e * dims[0][0] + wbytes + 4 * e * w
     if tc:
         return dict(flops=mlp[0] + fold, bf16_flops=sum(mlp[1:]),
                     bytes=nbytes)
@@ -1164,23 +1193,34 @@ def profile_step(name, task, params, graphs, phase=6) -> dict:
     import torch
 
     from graph_pde_tpu_torch.data.datasets import map_arrays
-    from graph_pde_tpu_torch.train import (adam_steplr, make_train_step,
-                                           profile_trace)
+    from graph_pde_tpu_torch.train import adam_steplr, make_train_step
     from graph_pde_tpu_torch.train.trainer import param_leaves, to_device
 
     opt, _ = adam_steplr(param_leaves(params), 1e-4, weight_decay=5e-4)
     step = make_train_step(task, opt)
     batch = map_arrays(lambda a: a[:1],
                        to_device(graphs, torch.device("cuda")))
-    step(params, batch)
+    return profile_fn(name, lambda: step(params, batch), phase)
+
+
+def profile_fn(name, fn, phase) -> dict:
+    """``fn`` (one train step) once to warm up, once timed to a sync,
+    and once under torch.profiler: the device time of each kernel, the
+    device's busy time and its idle share of the timed step's wall
+    time."""
+    import torch
+
+    from graph_pde_tpu_torch.train import profile_trace
+
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    step(params, batch)
+    fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     zero_counts()
     with profile_trace(f"results/profile_{name}_step") as prof:
-        step(params, batch)
+        fn()
         torch.cuda.synchronize()
     rows = kernel_rows(prof)
     busy = sum(r[0] for r in rows)
@@ -3324,6 +3364,584 @@ def phase_gcn() -> dict:
                 forward_rel_err=rel, profile=prof)
 
 
+@contextlib.contextmanager
+def no_native():
+    """Within it, the compiled graph builder reads as unavailable, so the
+    graph builds take their cKDTree (radius) and dense numpy (torus)
+    paths."""
+    from graph_pde_tpu_torch.graph import native
+
+    load = native._load
+    native._load = lambda: None
+    try:
+        yield
+    finally:
+        native._load = load
+
+
+def turns_s(a, b) -> tuple:
+    """Host seconds of ``a`` and ``b`` in turns (a, b, b, a): each one's
+    mean, and the four times."""
+    times = []
+    for fn in (a, b, b, a):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2, times
+
+
+def torus_native(dev) -> dict:
+    """The compiled cell-list builder: its build, bit-equal edges against
+    cKDTree and dense numpy (the s=61 GKN grid at r 0.2; the general
+    MGKN's s=85 levels, inner and bipartite; a full-width torus shard,
+    its geometry too), the host builds and one s=61 GKN and one s=85
+    general-MGKN request with each builder, in turns, their outputs
+    equal (bit for bit under deterministic algorithms). Returns the
+    times."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from graph_pde_tpu_torch.data import (load_or_generate_darcy,
+                                          prepare_darcy)
+    from graph_pde_tpu_torch.experiments import get
+    from graph_pde_tpu_torch.experiments.runners import torus_splitter
+    from graph_pde_tpu_torch.graph import (RandomMultiMeshGenerator, build,
+                                           make_box_grid, native)
+    from graph_pde_tpu_torch.inference import (GKNPredictor,
+                                               MGKNGeneralPredictor)
+    from graph_pde_tpu_torch.models import mgkn_general_init
+
+    fresh = not native.library_path().exists()
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0 if fresh else None
+    require(native.available(), "the native graph builder loads")
+    log(f"phase 11: native graph builder {path.name} (g++ "
+        f"{' '.join(native.CXX_FLAGS)}) "
+        + (f"built in {build_s:.2f} s" if fresh else
+           "already built by an earlier phase's first radius graph"))
+
+    def three_ways(name, pts, r, pts_b=None) -> int:
+        nat = build.radius_connectivity(pts, r, points_b=pts_b)
+        with no_native():
+            tree = build.radius_connectivity(pts, r, points_b=pts_b)
+        dense = build.radius_connectivity(pts, r, points_b=pts_b,
+                                          method="dense")
+        require(np.array_equal(nat, tree) and np.array_equal(nat, dense),
+                f"native edges on {name} equal cKDTree's and dense's")
+        log(f"phase 11: {name}: {nat.shape[1]} edges, native = cKDTree = "
+            f"dense bit for bit")
+        return nat.shape[1]
+
+    grid61 = make_box_grid([[0, 1], [0, 1]], [S_FULL, S_FULL])
+    three_ways(f"s={S_FULL} GKN grid, r {RADIUS}", grid61, RADIUS)
+    mc = get("mgkn_general_darcy2d")
+    mg = RandomMultiMeshGenerator([[0, 1], [0, 1]], [S_MGKN, S_MGKN],
+                                  len(mc.points), mc.points, seed=SEED)
+    mg.sample()
+    for l in range(len(mc.points)):
+        three_ways(f"s={S_MGKN} MGKN level {l}, r {mc.radius_inner[l]}",
+                   mg.grid_sample[l], mc.radius_inner[l])
+    for l in range(len(mc.points) - 1):
+        three_ways(f"s={S_MGKN} MGKN levels {l}->{l + 1} (bipartite), r "
+                   f"{mc.radius_inter[l]}", mg.grid_sample[l],
+                   mc.radius_inter[l], mg.grid_sample[l + 1])
+    tc = get("grain_torus_timeseries")
+    sp = torus_splitter(tc)
+    theta = np.zeros((tc.source_res, tc.source_res, 1), np.float32)
+    shard = sp._shard(theta, 1, 1)[0]
+    nat = native.native_torus2d(shard, tc.radius_train)
+    dense = build._dense_torus2d(shard, tc.radius_train)
+    require(all(np.array_equal(a, b) for a, b in zip(nat, dense)),
+            "native torus edges and geometry equal dense numpy's")
+    log(f"phase 11: torus shard (1, 1), {shard.shape[0]} nodes, r "
+        f"{tc.radius_train}: {nat[0].shape[1]} edges; edges, dist, dx, dy "
+        f"native = dense bit for bit")
+
+    def radius61():
+        build.radius_connectivity(grid61, RADIUS)
+
+    def tree61():
+        with no_native():
+            radius61()
+
+    def dense_torus():
+        build._dense_torus2d(shard, tc.radius_train)
+
+    out = {"build_s": build_s}
+    out["s61_radius_native_s"], out["s61_radius_ckdtree_s"], t61 = \
+        turns_s(radius61, tree61)
+    out["torus_native_s"], out["torus_dense_s"], tt = turns_s(
+        lambda: native.native_torus2d(shard, tc.radius_train), dense_torus)
+    log(f"phase 11: host builds in turns (native, other, other, native): "
+        f"s={S_FULL} radius graph native {out['s61_radius_native_s']:.4f} "
+        f"s, cKDTree {out['s61_radius_ckdtree_s']:.4f} s {t61}; torus shard "
+        f"native {out['torus_native_s']:.5f} s, dense numpy "
+        f"{out['torus_dense_s']:.5f} s {tt}")
+
+    # one s=61 GKN request (impl='auto') and one s=85 general-MGKN request
+    # (19 windows), each with either builder, in turns; a fresh MGKN
+    # predictor each time so that every request draws the same windows
+    cfg, params, norms, u_norm, full, _ = serving_setup(dev)
+    gkn = GKNPredictor(params, cfg, norms, u_norm, radius=RADIUS,
+                       split_threshold=SPLIT_THRESHOLD)
+    mcfg = mgkn_config()
+    # normalizers fitted at s=85 itself (the unit u-normalizer is per
+    # node): their values do not matter here
+    fields = load_or_generate_darcy(N_TRAIN, S_MGKN, seed=mc.data_seed)
+    arrays, mnorms = prepare_darcy(fields, n=N_TRAIN, u_norm=mc.u_norm)
+    mparams = mgkn_general_init(torch.Generator().manual_seed(SEED), mcfg)
+    req = load_or_generate_darcy(1, S_MGKN, seed=SEED + 3)
+    outs = []
+
+    def request(kind, tree):
+        def call():
+            with no_native() if tree else contextlib.nullcontext():
+                if kind == "gkn":
+                    got = gkn.predict(full[:1])
+                else:
+                    got = MGKNGeneralPredictor(
+                        mparams, mcfg, input_normalizers=mnorms,
+                        u_normalizer=arrays.u_normalizer,
+                        radius_inner=mc.radius_inner,
+                        radius_inter=mc.radius_inter).predict(
+                            req["coeff"], req["Kcoeff"], req["Kcoeff_x"],
+                            req["Kcoeff_y"])
+                torch.cuda.synchronize()
+            outs.append(got)
+            return got
+        return call
+
+    for kind, s in (("gkn", S_FULL), ("mgkn", S_MGKN)):
+        request(kind, False)()   # warm-up
+        # bit for bit where the scatter sums (index_add_'s atomics) are
+        # deterministic; timed in the default mode, in turns
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # deterministic-mode notices
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                same = np.array_equal(request(kind, False)(),
+                                      request(kind, True)())
+            finally:
+                torch.use_deterministic_algorithms(False)
+        require(same, f"{kind} requests with either builder equal bit for "
+                f"bit under deterministic algorithms")
+        outs.clear()
+        nat_s, tree_s, tr = turns_s(request(kind, False),
+                                    request(kind, True))
+        worst = max(rel_err(torch.from_numpy(o), torch.from_numpy(outs[0]))[1]
+                    for o in outs)
+        require(worst <= F32_TOL, f"{kind} timed requests agree ({worst})")
+        out[f"{kind}_request_native_s"] = nat_s
+        out[f"{kind}_request_ckdtree_s"] = tree_s
+        log(f"phase 11: {kind} request (s={s}): native builder {nat_s:.4f} "
+            f"s, cKDTree {tree_s:.4f} s, in turns {tr}; outputs of either "
+            f"builder bit-equal under deterministic algorithms, the timed "
+            f"ones (default mode) within {worst:.3e} of each other")
+    return out
+
+
+def torus_batch(cfg, dev, n=4):
+    """n training shards of the torus runner (its data, splitter and
+    seeds), at one edge capacity, stacked on the card."""
+    import numpy as np
+
+    from graph_pde_tpu_torch.experiments.runners import (torus_samples,
+                                                         torus_splitter)
+    from graph_pde_tpu_torch.graph import repad_edges, round_up, stack_graphs
+
+    samples = torus_samples(cfg, np.random.default_rng(cfg.data_seed), n)
+    sp = torus_splitter(cfg)
+    shards = [sp.sampleT(theta, y)[0] for theta, y in samples]
+    e_pad = round_up(max(g.senders.shape[0] for g in shards), 512)
+    return stack_graphs([repad_edges(g, e_pad) for g in shards]).to(dev)
+
+
+def expected_torus(mcfg, n_fwd: int, n_bwd: int) -> dict:
+    """The counts of n_fwd forwards and n_bwd backwards of the torus GKN:
+    under impl='auto' K1 and B1-bwd `depth` times each in the forms its
+    conv takes (fp32: K1 general, B1-bwd SIMT); kcached launches none."""
+    from graph_pde_tpu_torch.ops.dense import layer_dims
+    from graph_pde_tpu_torch.ops.fused_edge_conv import b1_bwd_form, k1_form
+
+    counts = dict.fromkeys(COUNTED, 0)
+    if mcfg.impl != "auto":
+        return counts
+    dims, w = layer_dims_of(mcfg), mcfg.width
+    form = k1_form(dims, w, w, mcfg.compute_dtype)
+    bwd = b1_bwd_form(dims[-1][0], w, w, mcfg.compute_dtype)
+    for key, n in (("K1", n_fwd), (f"K1 {form}", n_fwd), ("B1-bwd", n_bwd),
+                   (f"B1-bwd {bwd}", n_bwd)):
+        counts[key] += n * mcfg.depth
+    return counts
+
+
+def layer_dims_of(mcfg):
+    layers = mcfg.resolved_kernel_layers()
+    return tuple(zip(layers[:-1], layers[1:]))
+
+
+def torus_kernels(batch, params, mcfg) -> tuple:
+    """K1 and B1-bwd at the torus conv (kappa (5, 32, 64, 1024), in = out
+    = 32) on one shard (E_pad 12,800) and on the flattened batch of 4
+    (51,200): fp32 (K1 general, B1-bwd SIMT) within F32_TOL, bf16 (K1
+    general, B1-bwd on the tensor cores) within BF16_TOL, every B1-bwd
+    output, a second launch bit-identical; then their times beside the
+    bounds and the plain versions. Returns (errors, times)."""
+    import torch
+
+    from graph_pde_tpu_torch.graph.graph import flatten_stacked
+    from graph_pde_tpu_torch.models.gkn import _member
+    from graph_pde_tpu_torch.ops.dense import dense_apply
+    from graph_pde_tpu_torch.ops.fused_edge_conv import (
+        edge_messages_bwd_plain, edge_messages_plain, fused_edge_messages,
+        fused_edge_messages_bwd)
+
+    w, kp = mcfg.width, params["kernel"]
+    dims = layer_dims_of(mcfg)
+    require(dims == ((5, 32), (32, 64), (64, 1024)) and w == 32,
+            f"torus kappa {dims}, width {w}")
+    dev = batch.x.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator().manual_seed(SEED + 21)
+    errs, times = {}, {}
+    graphs = ((TORUS_E[0], _member(batch, 0)), (TORUS_E[1],
+                                                  flatten_stacked(batch)))
+    with torch.inference_mode():
+        for e, g in graphs:
+            s, a = g.senders, g.edge_attr
+            require(s.shape[0] == e, f"torus E_pad {s.shape[0]}")
+            n = g.x.shape[0]
+            x = torch.randn(n, w, generator=gen).to(dev)
+            gg = torch.randn(e, w, generator=gen).to(dev)
+            h2 = dense_apply(kp[:-1], a, out_nonlinearity=torch.relu)
+            wl = kp[-1]["w"]
+            for dt, tol in ((None, F32_TOL), ("bfloat16", BF16_TOL)):
+                name = f"torus E {e} {dt or 'float32'}"
+                ab = check_k1(f"K1 {name}", x, s, a, kp, w, dt, tol,
+                              "general", phase=11, w_out=w)
+                errs[f"K1 general torus {dt or 'float32'}"] = max(
+                    ab, errs.get(f"K1 general torus {dt or 'float32'}", 0.0))
+                ab = check_b1_bwd(f"B1-bwd {name}", x, s, h2, gg, wl, w, dt,
+                                  tol, phase=11)
+                errs[f"B1-bwd torus {dt or 'float32'}"] = max(
+                    ab, errs.get(f"B1-bwd torus {dt or 'float32'}", 0.0))
+            kw, c = wl.shape
+            prods, elems = 6.0 * e * kw * c, 3.0 * e * c
+            nbytes = (4 * (e * kw + n * w + e * w + kw * c) + 8 * e
+                      + 4 * (e * w + e * kw + kw * c + c))
+            for dt in (None, "bfloat16"):
+                kw_args = dict(in_channels=w, out_channels=w,
+                               compute_dtype=dt)
+                k1 = lambda: fused_edge_messages(x, s, a, kp, **kw_args)
+                k1p = lambda: edge_messages_plain(x, s, a, kp, **kw_args)
+                b1 = lambda: fused_edge_messages_bwd(x, s, h2, gg, wl,
+                                                     **kw_args)
+                b1p = lambda: edge_messages_bwd_plain(x, s, h2, gg, wl,
+                                                      **kw_args)
+                tag = dt or "float32"
+                shape = f"E={e}, kappa (5, 32, 64, 1024), in = out = 32"
+                times[f"K1 general torus E{e} {tag}"] = dict(
+                    ms=time_ms(k1, 20), plain_ms=time_ms(k1p, 20),
+                    library_ms=None, shape=f"{shape}, {tag}",
+                    grid=k1_general_grid(e, w, sms),
+                    **k1_cost(kp, e, n, w=w))
+                ops = (dict(bf16_flops=prods, flops=elems) if dt
+                       else dict(flops=prods + elems))
+                rec = dict(ms=time_ms(b1, 20), plain_ms=time_ms(b1p, 20),
+                           library_ms=None, bytes=nbytes,
+                           shape=f"{shape}, {tag}", **ops)
+                if not dt:
+                    rec["grid"] = b1_simt_grid(e, kw, w, sms)
+                times[f"B1-bwd {'tc' if dt else 'simt'} torus E{e}"] = rec
+    for key, r in times.items():
+        set_bound(r)
+        log(f"phase 11: {key} ({r['shape']}): {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), grid {r.get('grid')}")
+    return errs, times
+
+
+def torus_run(name, args, mcfg) -> dict:
+    """One `cli run grain_torus_timeseries` at full width (TORUS_EPOCHS
+    epochs of ntrain // batch steps) with every step's launches counted
+    (each step: expected_torus(mcfg, 1, 1)) and the evaluation's after
+    the last step (expected_torus(mcfg, shards x ntest, 0)). Logs the
+    step times, the rel-L2s and the peak device memory."""
+    import numpy as np
+    import torch
+
+    from graph_pde_tpu_torch.experiments import get
+    from graph_pde_tpu_torch.experiments import runners as trun
+
+    cfg = get("grain_torus_timeseries")
+    steps, orig = [], trun._torus_step
+
+    def counted(params, c, opt, batch):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        loss = orig(params, c, opt, batch)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          launches=read_counts(), loss=float(loss),
+                          params=params, opt=opt, batch=batch))
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    trun._torus_step = counted
+    try:
+        cli_call(["run", "grain_torus_timeseries", "--set",
+                  f"epochs={TORUS_EPOCHS}", "--out", f"{name}.json", *args],
+                 phase=11)
+    finally:
+        trun._torus_step = orig
+    torch.cuda.synchronize()
+    # the counters still hold the last step's launches, then the
+    # evaluation's
+    evals = {k: v - steps[-1]["launches"][k] if steps else v
+             for k, v in read_counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    result = json.load(open(f"{name}.json"))
+    n_steps = TORUS_EPOCHS * (cfg.ntrain // cfg.batch_size)
+    shards = cfg.downsample ** 2 * cfg.ntest
+    require(len(steps) == n_steps, f"{name}: {len(steps)} steps")
+    for st in steps:
+        require(st["launches"] == expected_torus(mcfg, 1, 1),
+                f"{name} step launches {st['launches']}")
+        require(bool(np.isfinite(st["loss"])), f"{name} loss finite")
+    require(evals == expected_torus(mcfg, shards, 0),
+            f"{name} evaluation launches {evals} ({shards} shard forwards)")
+    require(len(result["train_l2"]) == TORUS_EPOCHS
+            and len(result["test_l2_per_step"]) == cfg.torus_T
+            and np.isfinite(result["train_l2"]).all()
+            and np.isfinite(result["test_l2_per_step"]).all(),
+            f"{name} histories {result['train_l2']}, "
+            f"{result['test_l2_per_step']}")
+    warm = float(np.median([st["ms"] for st in steps[-n_steps // 2:]]))
+    log(f"phase 11: {name}: step times (ms) "
+        f"{[round(st['ms'], 2) for st in steps]}, warm step (median of the "
+        f"last half) {warm:.2f} ms, train loss {result['train_l2']}, test "
+        f"rel-L2 per step {result['test_l2_per_step']}, peak device memory "
+        f"{peak:.3f} GiB; launches a step "
+        f"{ {k: v for k, v in steps[0]['launches'].items() if v} }, the "
+        f"evaluation's {shards} shard forwards "
+        f"{ {k: v for k, v in evals.items() if v} }")
+    return dict(steps=steps, warm_step_ms=warm, peak_gib=peak,
+                test_l2_per_step=result["test_l2_per_step"],
+                launches={k: sum(r["launches"][k] for r in steps) + evals[k]
+                          for k in COUNTED})
+
+
+def torus_grads(name, batch, params, cfg, ref_cfg, tol) -> dict:
+    """The torus loss's step-1 gradients of ``cfg`` against ``ref_cfg``
+    from the same parameters on one batch, each leaf within ``tol`` of
+    its max-abs. Returns the first's launches."""
+    import torch
+
+    from graph_pde_tpu_torch.experiments.runners import torus_loss
+    from graph_pde_tpu_torch.train.trainer import param_leaves, trainable
+
+    def grads(c):
+        p = trainable(params)
+        zero_counts()
+        lv = torus_loss(p, c, batch)
+        lv.backward()
+        torch.cuda.synchronize()
+        return float(lv.detach()), [t.grad for t in param_leaves(p)], \
+            read_counts()
+
+    lk, gk, ck = grads(cfg)
+    lr, gr, cr = grads(ref_cfg)
+    require(ck == expected_torus(cfg, 1, 1), f"{name} launches {ck}")
+    require(cr == expected_torus(ref_cfg, 1, 1), f"{name} reference "
+            f"launches {cr}")
+    worst = 0.0
+    for j, (a, b) in enumerate(zip(gk, gr)):
+        rel = rel_err(a, b)[1]
+        require(rel <= tol and bool(torch.isfinite(a).all()),
+                f"{name} gradient {j}: relative {rel:.3e}")
+        worst = max(worst, rel)
+    log(f"phase 11: {name}: step-1 loss {lk:.6g} vs {lr:.6g}, worst "
+        f"parameter relative max-abs err {worst:.3e} (tol {tol:g}) over "
+        f"{len(gk)} parameters; launches "
+        f"{ {k: v for k, v in ck.items() if v} }")
+    return ck
+
+
+def uai1_loop_vjp(dev) -> dict:
+    """loop_vjp on the uai1 model under the runner's unfused kcached path,
+    step-1 gradients with loop_vjp on against off: on the gradient
+    check's graph with fp32 K, within F32_TOL; there in bf16 compute,
+    where the two round dK at different points (once after an fp32 sum
+    over the depth steps, against once a step), each path judged by its
+    distance from the fp32-compute gradient (on no farther than
+    FP8_GRAD_FACTOR x off + FP8_GRAD_SLACK, leaf by leaf, as the e5m2
+    check judges fp8); and on the full s=61 training graph, whose K is
+    bf16 (the runner's uai1 path), within GRAD_BF16_TOL. Then the warm
+    train steps of each there, in turns (off, on, on, off), with their
+    peak device memory."""
+    import torch
+
+    from graph_pde_tpu_torch.data.datasets import map_arrays
+    from graph_pde_tpu_torch.models import gkn as gkn_model
+    from graph_pde_tpu_torch.models import gkn_init
+    from graph_pde_tpu_torch.train import (GKNTask, adam_steplr,
+                                           make_loss_fn, make_train_step)
+    from graph_pde_tpu_torch.train.trainer import param_leaves, trainable
+
+    off = dataclasses.replace(uai1_config(), kcached_fused="off")
+    on = dataclasses.replace(off, loop_vjp=True)
+
+    def grads(c, arrays, batch, params):
+        task = GKNTask(c, u_normalizer=arrays.u_normalizer, loss_type="l1")
+        p = trainable(params)
+        zero_counts()
+        lv, _ = make_loss_fn(task, "l1")(p, batch)
+        lv.backward()
+        torch.cuda.synchronize()
+        require(not any(read_counts().values()), "uai1 unfused launches")
+        require(bool(torch.isfinite(lv)), "uai1 loss finite")
+        return [t.grad for t in param_leaves(p)]
+
+    def dist(a, b):
+        return [rel_err(x, y)[1] for x, y in zip(a, b)]
+
+    small = grad_inputs(off, "gaussian", S_GRAD1, R_GRAD1, 0)
+    worst = max(dist(grads(on, *small), grads(off, *small)))
+    require(worst <= F32_TOL, f"uai1 loop_vjp fp32 gradients: {worst:.3e}")
+    log(f"phase 11: uai1 loop_vjp step-1 gradients on vs off (fp32 K, s="
+        f"{S_GRAD1}): worst parameter relative max-abs err {worst:.3e} "
+        f"(tol {F32_TOL:g})")
+    ref = grads(off, *small)
+    g_on, g_off = (grads(dataclasses.replace(c, compute_dtype="bfloat16"),
+                         *small) for c in (on, off))
+    d_on, d_off = dist(g_on, ref), dist(g_off, ref)
+    for j, (a, b) in enumerate(zip(d_on, d_off)):
+        require(a <= FP8_GRAD_FACTOR * b + FP8_GRAD_SLACK,
+                f"uai1 loop_vjp bf16 gradient {j}: {a:.3e} from fp32, "
+                f"autograd {b:.3e}")
+    log(f"phase 11: uai1 loop_vjp step-1 gradients in bf16 compute (s="
+        f"{S_GRAD1}): on vs off worst {max(dist(g_on, g_off)):.3e}; "
+        f"distance from the fp32-compute gradient, worst leaf: on "
+        f"{max(d_on):.3e}, off {max(d_off):.3e} (each leaf: on <= "
+        f"{FP8_GRAD_FACTOR} x off + {FP8_GRAD_SLACK:g})")
+
+    arrays, graphs = training_data(N_TRAIN, S_UAI1, R_UAI1, "gaussian", 0,
+                                   SEED + 1)
+    batch = map_arrays(lambda a: a[:1], graphs.to(dev))
+    init = gkn_init(torch.Generator().manual_seed(SEED), off, device=dev)
+    e = graphs.senders.shape[1]
+    k_dtype = ("bf16" if e * 64 * 64 * 4 > gkn_model._KCACHED_F32_MAX_BYTES
+               else "fp32")
+    full = dist(grads(on, arrays, batch, init), grads(off, arrays, batch,
+                                                      init))
+    tol = GRAD_BF16_TOL if k_dtype == "bf16" else F32_TOL
+    require(max(full) <= tol, f"uai1 loop_vjp s={S_UAI1} gradients: "
+            f"{max(full):.3e}")
+    log(f"phase 11: uai1 loop_vjp step-1 gradients on vs off (s={S_UAI1}, "
+        f"E_pad {e}, {k_dtype} K): worst parameter relative max-abs err "
+        f"{max(full):.3e} (tol {tol:g})")
+    times, peaks = {"off": [], "on": []}, {}
+    for which in ("off", "on", "on", "off"):
+        cfg = on if which == "on" else off
+        params = trainable(init)
+        opt, _ = adam_steplr(param_leaves(params), 1e-4, weight_decay=5e-4)
+        step = make_train_step(GKNTask(cfg, u_normalizer=arrays.u_normalizer,
+                                       loss_type="l1"), opt)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        step(params, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, batch)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3)
+        peaks[which] = torch.cuda.max_memory_allocated() / 2 ** 30
+        require(not any(read_counts().values()), "uai1 unfused launches")
+        del params, opt, step
+    out = {f"warm_step_{k}_ms": sum(v) / 2 for k, v in times.items()}
+    out.update({f"peak_{k}_gib": v for k, v in peaks.items()})
+    out.update(grad_on_off=max(full), bf16_compute_on_off=max(dist(g_on,
+                                                                   g_off)))
+    log(f"phase 11: uai1 (unfused kcached, E_pad {e}, {k_dtype} K) warm "
+        f"step, in turns (off, on, on, off): loop_vjp off "
+        f"{out['warm_step_off_ms']:.1f} ms {times['off']}, on "
+        f"{out['warm_step_on_ms']:.1f} ms {times['on']}; peak device "
+        f"memory off {peaks['off']:.2f} GiB, on {peaks['on']:.2f} GiB")
+    return out
+
+
+def phase_torus(dev) -> dict:
+    """Phase 11: the torus family and the last single-device modules, from
+    a temporary directory (its data cache and result files go there):
+    the native graph builder (torus_native), K1 and B1-bwd at the torus
+    conv (torus_kernels), `cli run grain_torus_timeseries` at full width
+    under the registry's kcached (no launch) and `--set impl=auto` (each
+    step K1 general 3, B1-bwd simt 3; the evaluation K1 general 3 a shard
+    forward), a step of each profiled, the step-1 gradients of auto
+    against reference and of loop_vjp against autograd (torus, uai1),
+    and uai1's warm steps with loop_vjp on and off. Returns the launches,
+    errors, times and step figures."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from graph_pde_tpu_torch.experiments import get
+    from graph_pde_tpu_torch.experiments import runners as trun
+    from graph_pde_tpu_torch.models import gkn_init
+
+    here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_torus_")
+    os.chdir(tmp)
+    out = dict(launches={})
+    try:
+        out["native"] = torus_native(dev)
+        cfg = get("grain_torus_timeseries")
+        auto = dataclasses.replace(trun.torus_model_config(cfg), impl="auto")
+        counts = expected_torus(auto, 1, 1)
+        require(counts["K1 general"] == 3 == counts["B1-bwd simt"]
+                and counts["K1"] == 3 == counts["B1-bwd"],
+                f"torus auto forms a step {counts}")
+        batch = torus_batch(cfg, dev)
+        params = gkn_init(torch.Generator().manual_seed(SEED), auto,
+                          device=dev)
+        out["errs"], out["times"] = torus_kernels(batch, params, auto)
+
+        au = torus_run("torus_auto", ["--set", "impl=auto"], auto)
+        kc_cfg = trun.torus_model_config(cfg)
+        kc = torus_run("torus_kcached", [], kc_cfg)
+        out["launches"]["cli run torus auto"] = au["launches"]
+        out["launches"]["cli run torus kcached"] = kc["launches"]
+        out["steps"] = {}
+        for key, run, c in (("auto", au, auto), ("kcached", kc, kc_cfg)):
+            last = run["steps"][-1]
+            prof = profile_fn(
+                f"torus_{key}", lambda: trun._torus_step(
+                    last["params"], c, last["opt"], last["batch"]),
+                phase=11)
+            out["steps"][key] = dict(warm_step_ms=run["warm_step_ms"],
+                                     peak_gib=run["peak_gib"],
+                                     test_l2_per_step=run[
+                                         "test_l2_per_step"], profile=prof)
+
+        out["launches"]["grad torus auto"] = torus_grads(
+            "torus auto vs reference", batch, params, auto,
+            dataclasses.replace(auto, impl="reference"), F32_TOL)
+        torus_grads("torus loop_vjp on vs off", batch, params,
+                    dataclasses.replace(kc_cfg, loop_vjp=True), kc_cfg,
+                    F32_TOL)
+        out["loop_vjp_uai1"] = uai1_loop_vjp(dev)
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 # (name, kappa, E, nodes) of K1 SIMT's main-path shapes: the general
 # MGKN's mid level 1 (one s=85 graph), the orthogonal kw-128 level (one
 # s=1024 sample) and the s=61 serving graph (E_pad)
@@ -3458,6 +4076,17 @@ def main(argv) -> int:
         log("phase 10: gcn " + json.dumps(phase_gcn()))
         log(ident)
         return 0
+    if argv[:1] == ["--torus"]:
+        t0 = time.perf_counter()
+        kernels.build(["fused_edge_conv", "fused_edge_conv_bwd"])
+        log(f"phase 1: built K1 and B1-bwd in {time.perf_counter() - t0:.1f} "
+            f"s")
+        torus = phase_torus(dev)
+        log("phase 11: torus slice " + json.dumps(dict(
+            torus["steps"], native=torus["native"],
+            loop_vjp_uai1=torus["loop_vjp_uai1"])))
+        log(ident)
+        return 0
     if argv[:1] == ["--mgkn"]:
         from graph_pde_tpu_torch.ops import kernels
 
@@ -3573,6 +4202,13 @@ def main(argv) -> int:
     gcn = phase_gcn()
     lap("phase 10 wall time")
     log("phase 10: gcn " + json.dumps(gcn))
+    torus = phase_torus(dev)
+    errs.update(torus["errs"])
+    times.update(torus["times"])
+    lap("phase 11 wall time")
+    log("phase 11: torus slice " + json.dumps(dict(
+        torus["steps"], native=torus["native"],
+        loop_vjp_uai1=torus["loop_vjp_uai1"])))
 
     by_path = {f"serving {k}": v for k, v in launches.items()}
     by_path.update({k: v["launches"] for k, v in trained.items()})
@@ -3581,6 +4217,7 @@ def main(argv) -> int:
     by_path.update(cli_paths["launches"])
     by_path.update(ortho["launches"])
     by_path.update(mgkn["launches"])
+    by_path.update(torus["launches"])
 
     def count(key, counts):
         """A form's launches in one path's counts: K2 and B2-bwd count
@@ -3700,6 +4337,33 @@ def main(argv) -> int:
                 for f in ("ms", "plain_ms", "bound_ms", "previous_form_ms",
                           "device_ms", "previous_form_device_ms", "grid",
                           "step_excess_ms")}
+    # the torus conv's shapes beside the forms' records: K1 general and
+    # B1-bwd SIMT in fp32 (the torus auto path's), B1-bwd's tensor-core
+    # form in bf16, each with that path's launches
+    torus_paths = [k for k in torus["launches"]]
+    for r in records:
+        at = {"K1 fused_edge_messages, general form": "K1 general",
+              "B1-bwd fused_edge_messages_bwd, fp32 SIMT form":
+                  "B1-bwd simt",
+              "B1-bwd fused_edge_messages_bwd": "B1-bwd tc"}.get(r["name"])
+        if at is None:
+            continue
+        r["at_torus"] = {
+            "launches": sum(count(at, by_path[k]) for k in torus_paths),
+            "max_abs_err": torus["errs"][
+                ("K1 general" if at == "K1 general" else "B1-bwd")
+                + (" torus bfloat16" if at.endswith("tc")
+                   else " torus float32")]}
+        for e in TORUS_E:
+            key = (f"{at} torus E{e} float32" if at == "K1 general"
+                   else f"{at} torus E{e}")
+            r["at_torus"][f"E{e}"] = {f: times[key][f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "grid")
+                if f in times[key]}
+            if at == "K1 general":
+                bf = times[f"K1 general torus E{e} bfloat16"]
+                r["at_torus"][f"E{e} bf16"] = {
+                    f: bf[f] for f in ("ms", "plain_ms", "bound_ms")}
     require(all(r["launches"] > 0 for r in records),
             "every kernel form launched on its main path")
     log(json.dumps({"kernels": records}))

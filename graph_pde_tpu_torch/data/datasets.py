@@ -12,14 +12,17 @@
 - ``prepare_burgers``, ``burgers_gkn_graphs`` (1-d Nystrom GKN graphs,
   node features [x, a]) and ``burgers_multipole_data`` (the orthogonal
   MGKN's level grids, FMM edge lists and per-sample edge attributes).
+- ``darcy_mgkn_graphs``: the general MGKN's multilevel Darcy graphs.
 - ``batch_iterator``: stacked sub-batches of a leading-batch-axis tree
-  (Graphs, other dataclasses such as MultipoleGraph1D, dicts, lists).
+  (Graphs, other dataclasses such as MultipoleGraph1D, dicts, lists);
+  ``prefetch_to_device`` keeps a few of them in flight to the device.
 
 The builders are host numpy and give the same arrays as the JAX
-package's from the same seed. MGKN-general data is not ported yet.
+package's from the same seed.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 from typing import Dict, Optional, Sequence, Tuple
@@ -27,6 +30,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
 from ..graph.graph import (_ARRAY_FIELDS, Graph, build_graph,
                            build_multilevel_graph, round_up, stack_graphs)
 from ..graph.mesh import (RandomMeshGenerator, RandomMultiMeshGenerator,
@@ -400,9 +404,39 @@ def batch_iterator(stacked, batch_size: int,
         yield map_arrays(take, stacked)
 
 
+def prefetch_to_device(iterator, size: int = 2, device: DeviceLike = None):
+    """Yields the batches of ``iterator`` on ``device`` (None: CUDA),
+    keeping ``size`` of them in flight: each batch's arrays are copied
+    with non-blocking copies from pinned host memory, so the copies of
+    the next batches overlap the current step's work. The JAX version
+    takes a ``sharding``; one device has none, so this takes the device
+    instead."""
+    dev = resolve_device(device)
+
+    def move(a):
+        t = torch.as_tensor(a)
+        if dev.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(dev, non_blocking=True)
+
+    it, queue, end = iter(iterator), collections.deque(), object()
+
+    def put():
+        batch = next(it, end)
+        if batch is not end:
+            queue.append(map_arrays(move, batch))
+
+    for _ in range(size):
+        put()
+    while queue:
+        out = queue.popleft()
+        put()
+        yield out
+
+
 __all__ = ["load_or_generate_darcy", "load_or_generate_burgers",
            "DarcyArrays", "prepare_darcy", "darcy_gkn_graphs",
            "darcy_mgkn_graphs", "BurgersArrays", "prepare_burgers",
            "burgers_gkn_graphs",
-           "burgers_multipole_data", "batch_iterator", "map_arrays",
-           "leading_size"]
+           "burgers_multipole_data", "batch_iterator", "prefetch_to_device",
+           "map_arrays", "leading_size"]

@@ -7,8 +7,7 @@ Each of the reference's scripts is an ``ExperimentConfig``, run by
 experiment to a seconds-scale version of itself. The runner defaults to
 synthetic data at ``source_res`` and reads .mat files where
 ``data_path`` is given. The comments cite the reference file each config
-reproduces. The port runs the Darcy GKN entries; the others raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+reproduces. The port runs every entry.
 """
 from __future__ import annotations
 

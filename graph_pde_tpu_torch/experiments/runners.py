@@ -11,9 +11,10 @@ split_random cover; for the general MGKN the RandomMultiMeshSplitter
 windows), and per-m test graphs (``eval_m``). Shard training
 (``train_split``) trains on DownsampleGridSplitter shards. GCN trains on
 the full-grid lattice, one template graph shared by every sample. The
+torus time series trains on one random periodic shard a sample an epoch
+with T-step targets and scores the stitched full field per step. The
 GKN and MGKN runners write the run figures on request. Runs on CUDA
-unless the caller passes ``device='cpu'``. The torus time series raises
-NotImplementedError, naming the ROADMAP item that ports it.
+unless the caller passes ``device='cpu'``.
 """
 from __future__ import annotations
 
@@ -33,25 +34,25 @@ from ..data import (burgers_gkn_graphs, burgers_multipole_data,
 from ..data.datasets import batch_iterator
 from ..device import DeviceLike, resolve_device
 from ..graph import (DownsampleGridSplitter, NodeBatch, RandomGridSplitter,
-                     RandomMultiMeshSplitter, build_graph, grid_edge,
-                     make_box_grid, repad_edges, stack_graphs)
+                     RandomMultiMeshSplitter, TorusGridSplitter, build_graph,
+                     grid_edge, make_box_grid, repad_edges, round_up,
+                     stack_graphs)
 from ..inference import _largest_divisor_leq as _divisor_near
 from ..inference import _np, mgkn_split_predict
 from ..models.gcn import GCNConfig, gcn_init
-from ..models.gkn import GKNConfig, gkn_apply, gkn_init
+from ..models.gkn import (GKNConfig, gkn_apply, gkn_apply_batched,
+                          gkn_init)
 from ..models.mgkn_general import MGKNGeneralConfig, mgkn_general_init
 from ..models.mgkn_orthogonal import (MGKNOrthogonalConfig,
                                       mgkn_orthogonal_init, multipole_batch)
 from ..train import (GCNTask, GKNTask, MGKNGeneralTask, MGKNOrthogonalTask,
                      TrainConfig, evaluate, fit, metrics)
-from ..train.trainer import to_device
+from ..train.optim import adam_steplr
+from ..train.trainer import param_leaves, to_device, trainable
+from ..utils.filters import gaussian_filter
 from ..utils.losses import LpLoss
 from ..utils.matio import MatReader
 from .registry import ExperimentConfig
-
-# families and datasets of the registry that are not ported yet
-_NOT_PORTED = {"torus_t": "torus time series"}
-
 
 def _load_darcy_fields(cfg: ExperimentConfig, n: int, path: Optional[str],
                        seed: int) -> Dict[str, np.ndarray]:
@@ -94,22 +95,18 @@ def run_experiment(cfg: ExperimentConfig, smoke: bool = False,
     ``profile_trace``)."""
     if smoke:
         cfg = cfg.smoke()
-    for part in (cfg.family, cfg.dataset):
-        if part in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: {part!r} is not ported yet (ROADMAP queue "
-                f"A: {_NOT_PORTED[part]})")
     runners = {"gkn": _run_gkn, "mgkn_general": _run_mgkn_general,
                "mgkn_orthogonal": _run_mgkn_orthogonal}
-    if (cfg.family not in runners and cfg.family != "gcn") \
+    no_figures = {"gcn": _run_gcn, "torus_t": _run_torus_timeseries}
+    if (cfg.family not in runners and cfg.family not in no_figures) \
             or cfg.dataset not in ("darcy", "burgers"):
         raise ValueError(f"unknown family/dataset {cfg.family!r}/"
                          f"{cfg.dataset!r}")
     dev = resolve_device(device)
 
     def run():
-        if cfg.family == "gcn":
-            return _run_gcn(cfg, progress, dev)
+        if cfg.family in no_figures:
+            return no_figures[cfg.family](cfg, progress, dev)
         return runners[cfg.family](cfg, progress, dev, figures_dir)
 
     if profile_dir:
@@ -713,6 +710,125 @@ def _eval_gkn_split_downsample(cfg, mcfg, params, arrays, norms, dev):
     count = test_arrays.a.shape[0]
     return {"full_field_l2": total / max(count, 1),
             "shard_l2": sum(shards) / max(len(shards), 1)}
+
+
+def torus_samples(cfg: ExperimentConfig, rng: np.random.Generator, n: int):
+    """n synthetic grain fields on the s x s torus: theta a wrap-smoothed
+    Gaussian field at unit std [s*s, 1], targets y_t = sin((t+1) theta)
+    [T, s*s]."""
+    res, T = cfg.source_res, cfg.torus_T
+    out = []
+    for _ in range(n):
+        raw = rng.normal(size=(res, res)).astype(np.float32)
+        theta = gaussian_filter(raw, sigma=2.0, mode="wrap")
+        theta = theta / max(float(theta.std()), 1e-6)
+        y = np.stack([np.sin((t + 1) * theta) for t in range(T)])
+        out.append((theta.reshape(-1, 1), y.reshape(T, -1)))
+    return out
+
+
+def torus_splitter(cfg: ExperimentConfig) -> TorusGridSplitter:
+    """The runner's splitter: the s x s torus grid in r x r strided
+    shards of (s / r)^2 nodes, drawing its shards from ``cfg.seed``."""
+    res = cfg.source_res
+    grid = make_box_grid([[0, 1], [0, 1]], [res, res]) * (res - 1) / res
+    r = max(cfg.downsample, 1)
+    return TorusGridSplitter(grid, res, r=r, m=(-(-res // r)) ** 2,
+                             radius=cfg.radius_train, T=cfg.torus_T,
+                             seed=cfg.seed)
+
+
+def torus_model_config(cfg: ExperimentConfig) -> GKNConfig:
+    """The torus GKN: node features [x, y, theta], edge attributes [dx,
+    dy, dist, theta_i, theta_j], T outputs, no ReLU after the last
+    step."""
+    return GKNConfig(width=cfg.width, ker_width=cfg.ker_width,
+                     depth=cfg.depth, ker_in=5, in_width=3,
+                     out_width=cfg.torus_T,
+                     kernel_layers=_kernel_layers(cfg, 5), relu_last=False,
+                     impl=cfg.impl, compute_dtype=cfg.compute_dtype,
+                     k_storage=cfg.k_storage)
+
+
+def torus_loss(params, mcfg: GKNConfig, batch) -> torch.Tensor:
+    """The masked MSE over the T steps of a stacked batch:
+    sum(d^2) / max(sum(mask) * T, 1)."""
+    out = gkn_apply_batched(params, mcfg, batch)
+    mask = batch.node_mask().to(out.dtype)
+    d = (out - batch.y) * mask[..., None]
+    return torch.sum(d ** 2) / torch.clamp(
+        torch.sum(mask) * mcfg.out_width, min=1.0)
+
+
+def _torus_step(params, mcfg: GKNConfig, opt, batch) -> torch.Tensor:
+    """One Adam step on the torus loss; returns the loss (detached)."""
+    opt.zero_grad(set_to_none=True)
+    loss = torus_loss(params, mcfg, batch)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def _run_torus_timeseries(cfg: ExperimentConfig, progress,
+                          dev: torch.device) -> Dict:
+    """T-step training on the periodic domain, the grain-microstructure
+    workflow behind the reference's TorusGridSplitter checkpoints. Each
+    epoch, each training sample gives one random periodic shard with
+    T-step targets (``sampleT``); the shards keep one monotone edge
+    capacity, and the epoch's steps run in a shuffled order. Evaluation
+    stitches every deterministic shard of a test sample with
+    ``assembleT`` (wrap-mode smoothing) and scores rel-L2 per step. The
+    random streams are the JAX runner's: data (train, then test), the
+    splitter's shard draws, one shuffle permutation an epoch."""
+    T = cfg.torus_T
+    rng = np.random.default_rng(cfg.data_seed)
+    train = torus_samples(cfg, rng, cfg.ntrain)
+    test = torus_samples(cfg, rng, cfg.ntest)
+    sp = torus_splitter(cfg)
+    mcfg = torus_model_config(cfg)
+    params = trainable(gkn_init(torch.Generator().manual_seed(cfg.seed),
+                                mcfg, device=dev), dev)
+    opt, sched = adam_steplr(param_leaves(params), cfg.learning_rate,
+                             weight_decay=cfg.weight_decay,
+                             step_size_epochs=cfg.scheduler_step,
+                             gamma=cfg.scheduler_gamma)
+
+    train_hist = []
+    shuffle = np.random.default_rng(cfg.seed + 1)
+    n_steps = max(cfg.ntrain // cfg.batch_size, 1)
+    e_pad = 0   # monotone edge capacity, as in the JAX runner
+    for ep in range(cfg.epochs):
+        shards = [sp.sampleT(theta, y)[0] for theta, y in train]
+        e_pad = max(e_pad, round_up(
+            max(g.senders.shape[0] for g in shards), 512))
+        shards = [repad_edges(g, e_pad) for g in shards]
+        order = shuffle.permutation(cfg.ntrain)
+        losses = []
+        for i in range(n_steps):
+            sel = order[i * cfg.batch_size: (i + 1) * cfg.batch_size]
+            batch = stack_graphs([shards[j] for j in sel]).to(dev)
+            losses.append(_torus_step(params, mcfg, opt, batch))
+        sched.step()
+        train_hist.append(float(torch.stack(losses).mean()))
+        if progress is not None:
+            progress(ep, params, train_hist[-1], None)
+
+    lp = LpLoss(size_average=False)
+    totals = np.zeros(T)
+    with torch.inference_mode():
+        for theta, y in test:
+            preds, xys = [], []
+            for g, xy in sp.get_data(theta):
+                out = gkn_apply(params, mcfg, g.to(dev))
+                preds.append(_np(out)[: int(g.n_node)])
+                xys.append(xy)
+            full = sp.assembleT(preds, xys, sigma=cfg.assemble_sigma)
+            for t in range(T):
+                totals[t] += float(lp.rel(full[t][None], y[t][None]))
+    per_step = (totals / max(cfg.ntest, 1)).tolist()
+    return {"config": cfg.name, "train_l2": train_hist,
+            "test_l2_per_step": per_step,
+            "final_test_l2": float(np.mean(per_step)), "params": params}
 
 
 __all__ = ["run_experiment"]

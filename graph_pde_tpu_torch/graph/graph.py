@@ -120,6 +120,13 @@ class Graph:
     def device(self) -> torch.device:
         return self.x.device
 
+    def node_mask(self):
+        """[N_pad] bool mask of valid nodes (torch graphs only); [B, N_pad]
+        for a stacked batch, whose ``n_node`` is [B]."""
+        ar = torch.arange(self.num_nodes_padded, device=self.x.device)
+        n = torch.as_tensor(self.n_node, device=self.x.device)
+        return ar < n.unsqueeze(-1)
+
     def edge_mask(self):
         """[E_pad] bool mask of valid edges (torch graphs only)."""
         if self.edge_valid is not None:

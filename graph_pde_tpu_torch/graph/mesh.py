@@ -52,11 +52,38 @@ class SquareMeshGenerator:
         self.n_edges = self.edge_index.shape[1]
         return self.edge_index
 
+    def gaussian_connectivity(self, sigma: float, rng=None) -> np.ndarray:
+        self.edge_index = build.gaussian_connectivity(self.grid, sigma, rng)
+        self.n_edges = self.edge_index.shape[1]
+        return self.edge_index
+
     def get_grid(self) -> np.ndarray:
         return self.grid.astype(np.float32)
 
     def attributes(self, f=None, theta=None) -> np.ndarray:
         return build.edge_attributes(self.grid, self.edge_index,
+                                     theta=theta, f=f)
+
+    def get_boundary(self) -> np.ndarray:
+        """Indices of the 2-d grid's boundary nodes: first row, last row,
+        then the first and last column (corners repeated)."""
+        s, n = self.s, self.n
+        self.boundary = np.concatenate([
+            np.arange(0, s), np.arange(n - s, n), np.arange(s, n, s),
+            np.arange(2 * s - 1, n, s)])
+        return self.boundary
+
+    def boundary_connectivity2d(self, stride: int = 1) -> np.ndarray:
+        """Edges from every ``stride``-th boundary node to every node."""
+        boundary = self.boundary[::stride]
+        v1 = np.repeat(np.arange(self.n), len(boundary))
+        v2 = np.tile(boundary, self.n)
+        self.edge_index_boundary = np.stack([v2, v1])
+        self.n_edges_boundary = self.edge_index_boundary.shape[1]
+        return self.edge_index_boundary
+
+    def attributes_boundary(self, f=None, theta=None) -> np.ndarray:
+        return build.edge_attributes(self.grid, self.edge_index_boundary,
                                      theta=theta, f=f)
 
 
@@ -95,6 +122,19 @@ class RandomMeshGenerator:
         self.edge_index = ei
         self.n_edges = ei.shape[1]
         return ei
+
+    def torus1d_connectivity(self, r: float) -> np.ndarray:
+        self.edge_index = build.torus1d_connectivity(self.grid_sample, r)
+        self.n_edges = self.edge_index.shape[1]
+        return self.edge_index
+
+    def gaussian_connectivity(self, sigma: float) -> np.ndarray:
+        """Bernoulli-RBF graph on the sampled nodes, drawn from the
+        generator's own rng."""
+        self.edge_index = build.gaussian_connectivity(
+            self.grid_sample, sigma, self.rng)
+        self.n_edges = self.edge_index.shape[1]
+        return self.edge_index
 
     def attributes(self, f=None, theta=None) -> np.ndarray:
         th = None if theta is None else np.asarray(theta)[self.idx]

@@ -227,6 +227,9 @@ class DownsampleGridSplitter:
         self.rng = np.random.default_rng(seed)
         self.index = np.arange(self.n).reshape(resolution, resolution)
 
+    def _connectivity(self, grid_split):
+        return build.radius_connectivity(grid_split, self.radius)
+
     def _attrs(self, grid_split, theta_split, ei):
         a = theta_split[:, : self.edge_features]
         attr = np.zeros((ei.shape[1], 4 + 2 * self.edge_features),
@@ -251,7 +254,7 @@ class DownsampleGridSplitter:
 
     def _raw(self, theta, x, y):
         gs, ts, idx = self._shard(theta, x, y)
-        ei = build.radius_connectivity(gs, self.radius)
+        ei = self._connectivity(gs)
         return (np.concatenate([gs, ts], axis=1), ei,
                 self._attrs(gs, ts, ei), idx)
 
@@ -283,6 +286,17 @@ class DownsampleGridSplitter:
                         n_node_pad=round_up(X.shape[0], 8), n_edge_pad=e_pad)
         return g, (x, y)
 
+    _assemble_mode = "constant"
+
+    def _interleave(self, out, p, x, y):
+        """Writes shard (x, y)'s predictions [m, ...] (their prefix of
+        strided nodes) into ``out`` [..., s, s]."""
+        nx = (self.resolution - x + self.r - 1) // self.r
+        ny = (self.resolution - y + self.r - 1) // self.r
+        p = np.asarray(p)[: nx * ny]
+        out[..., x::self.r, y::self.r] = np.moveaxis(p, 0, -1).reshape(
+            out.shape[:-2] + (nx, ny))
+
     def assemble(self, preds: Sequence[np.ndarray],
                  split_xy: Sequence[Tuple[int, int]],
                  sigma: float = 1.0) -> np.ndarray:
@@ -290,12 +304,73 @@ class DownsampleGridSplitter:
         strided nodes) and smooths: [s*s]."""
         out = np.zeros((self.resolution, self.resolution), np.float32)
         for p, (x, y) in zip(preds, split_xy):
-            nx = (self.resolution - x + self.r - 1) // self.r
-            ny = (self.resolution - y + self.r - 1) // self.r
-            out[x::self.r, y::self.r] = np.asarray(p).reshape(-1)[
-                : nx * ny].reshape(nx, ny)
-        return gaussian_filter(out, sigma=sigma, mode="constant").reshape(-1)
+            self._interleave(out, np.asarray(p).reshape(-1), x, y)
+        return gaussian_filter(out, sigma=sigma,
+                               mode=self._assemble_mode).reshape(-1)
+
+
+class TorusGridSplitter(DownsampleGridSplitter):
+    """The periodic-domain splitter (reference: utilities.py:1153-1438):
+    edges under the torus metric with edge attributes [dx, dy, dist, a_i,
+    a_j] of the nearest periodic copy, wrap-mode smoothing, and T-step
+    targets (``sampleT`` / ``assembleT``)."""
+
+    _assemble_mode = "wrap"
+
+    def __init__(self, grid, resolution, r, m=100, radius=0.15, T=None,
+                 edge_features=1, seed=None):
+        super().__init__(grid, resolution, r, m=m, radius=radius,
+                         edge_features=edge_features, seed=seed)
+        self.T = T
+
+    def _connectivity(self, grid_split):
+        ei, dist, xd, yd = build.torus2d_connectivity(grid_split,
+                                                      self.radius)
+        self._last_edge_geo = (dist, xd, yd)
+        return ei
+
+    def _attrs(self, grid_split, theta_split, ei):
+        dist, xd, yd = self._last_edge_geo
+        a = theta_split[:, : self.edge_features]
+        attr = np.zeros((ei.shape[1], 3 + 2 * self.edge_features),
+                        np.float32)
+        attr[:, 0] = xd
+        attr[:, 1] = yd
+        attr[:, 2] = dist
+        attr[:, 3:3 + self.edge_features] = a[ei[0]]
+        attr[:, 3 + self.edge_features:] = a[ei[1]]
+        return attr
+
+    def sampleT(self, theta: np.ndarray, Y: np.ndarray,
+                n_edge_pad: Optional[int] = None, edge_multiple: int = 512):
+        """One random training shard with T-step targets (Y: [T, n]):
+        (graph with y [m, T], (x, y))."""
+        if self.T is None:
+            raise ValueError("sampleT needs the splitter's T")
+        theta = np.asarray(theta).reshape(self.resolution, self.resolution,
+                                          -1)
+        Y = np.asarray(Y).reshape(self.T, self.n)
+        x = int(self.rng.integers(0, self.r))
+        y = int(self.rng.integers(0, self.r))
+        X, ei, attr, idx = self._raw(theta, x, y)
+        e_pad = n_edge_pad or round_up(ei.shape[1], edge_multiple)
+        g = build_graph(X, ei[0], ei[1], attr, y=Y[:, idx].T,
+                        sample_idx=idx, n_node_pad=round_up(X.shape[0], 8),
+                        n_edge_pad=e_pad)
+        return g, (x, y)
+
+    def assembleT(self, preds, split_xy, sigma: float = 1.0) -> np.ndarray:
+        """Shard predictions [m, T] re-interleaved and smoothed in wrap
+        mode (over t too, as the JAX package does): [T, s*s]."""
+        if self.T is None:
+            raise ValueError("assembleT needs the splitter's T")
+        out = np.zeros((self.T, self.resolution, self.resolution),
+                       np.float32)
+        for p, (x, y) in zip(preds, split_xy):
+            self._interleave(out, p, x, y)
+        return gaussian_filter(out, sigma=sigma, mode="wrap").reshape(
+            self.T, self.n)
 
 
 __all__ = ["RandomGridSplitter", "RandomMultiMeshSplitter",
-           "DownsampleGridSplitter"]
+           "DownsampleGridSplitter", "TorusGridSplitter"]

@@ -14,7 +14,9 @@ path hands both kernels a 1-byte copy k8 and its dK lands on the
 full-precision K; the unfused path quantizes K behind a straight-through
 estimator. Every path is differentiable: the fused ops are autograd
 Functions with backward kernels, and autograd differentiates the cached
-K's chunked build. A batch runs as one flattened graph, but its gates
+K's chunked build. ``loop_vjp`` (unfused path, flat graphs) runs the
+depth loop as one autograd Function whose backward builds dK once
+(ops/kcached_loop.py). A batch runs as one flattened graph, but its gates
 read one graph's sizes (as the JAX package's per-graph vmap does), so a
 config takes the same branch and the same K dtype in both packages.
 """
@@ -27,14 +29,13 @@ import torch
 
 from ..device import DeviceLike
 from ..graph.graph import Graph, flatten_stacked
-from ..ops.cached_contraction import (apply_cached_kernel, maybe_quantize_k,
-                                      to_fp8)
+from ..ops.cached_contraction import maybe_quantize_k, to_fp8
 from ..ops.dense import (dense_apply, dense_init, linear_init,
                          pyg_uniform_init)
 from ..ops.edge_conv import _cast_params, _resolve_dtype, edge_kernel_conv
 from ..ops.fused_iterate import (fused_iterate_supported,
                                  fused_iterate_total, sorted_iterate_setup)
-from ..ops.segment import gather_rows, masked_segment_mean, masked_segment_sum
+from ..ops.kcached_loop import kcached_depth_loop, kcached_iterate
 
 # The JAX package's one-hot gate (ops/segment.py _ONEHOT_MAX_BYTES): the
 # kcached_fused='auto' rule fuses only where that one-hot would not apply.
@@ -61,7 +62,7 @@ class GKNConfig:
     use_bias: bool = True
     impl: str = "auto"
     compute_dtype: Optional[str] = None  # e.g. 'bfloat16'
-    loop_vjp: bool = False      # kcached loop-level VJP: not ported
+    loop_vjp: bool = False      # kcached: one backward for the depth loop
     batch_mode: str = "vmap"    # gates see one graph ('vmap') or the batch
     k_storage: Optional[str] = None  # kcached K: 'float8_e4m3'|'float8_e5m2'
     kcached_fused: str = "off"  # 'off' | 'on' | 'auto'
@@ -136,12 +137,6 @@ def _cached_kernel(kp, attr, k_dtype) -> torch.Tensor:
 
 def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask, dtype,
              gate_e: int, gate_n: int):
-    if cfg.loop_vjp:
-        raise NotImplementedError(
-            "loop_vjp (the loop-level custom VJP of the JAX package's "
-            "ops/kcached_loop.py, measured slower than plain autodiff "
-            "there) is not ported; autograd differentiates the depth loop "
-            "with loop_vjp=False")
     w = cfg.width
     big = gate_e * w * w * 4 > _KCACHED_F32_MAX_BYTES
     k_dtype = torch.bfloat16 if (dtype is not None or big) else torch.float32
@@ -152,7 +147,7 @@ def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask, dtype,
     kk = _cached_kernel(kp, attr, k_dtype)
     n = x.shape[0]
 
-    use_fused = (not graph.node_block
+    use_fused = (not graph.node_block and not cfg.loop_vjp
                  and graph.sorted_span > 0
                  and cfg.aggr in ("mean", "add")
                  and fused_iterate_supported(gate_e, w, w, graph.sorted_span)
@@ -177,13 +172,16 @@ def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask, dtype,
         return x
 
     kk = maybe_quantize_k(kk, cfg.k_storage)
+    if cfg.loop_vjp and not graph.node_block:
+        # one backward for the whole depth loop, dK built once
+        return kcached_depth_loop(
+            x, kk, params.get("root"), params.get("bias"), graph.senders,
+            graph.receivers, edge_mask, depth=cfg.depth, width=w,
+            aggr=cfg.aggr, relu_last=cfg.relu_last)
     for t in range(cfg.depth):
-        msg = apply_cached_kernel(gather_rows(x, graph.senders), kk, w, w)
-        if cfg.aggr == "mean":
-            out = masked_segment_mean(msg, graph.receivers, edge_mask, n)
-        else:
-            out = masked_segment_sum(msg, graph.receivers, edge_mask, n)
-        x = _root_bias(params, x, out)
+        x = kcached_iterate(x, kk, params.get("root"), params.get("bias"),
+                            graph.senders, graph.receivers, edge_mask, w,
+                            cfg.aggr)
         if _relu_after(cfg, t):
             x = torch.relu(x)
     return x

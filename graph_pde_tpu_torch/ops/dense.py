@@ -65,6 +65,11 @@ def dense_apply(params, x: torch.Tensor,
     return x
 
 
+def dense_sin_apply(params, x: torch.Tensor) -> torch.Tensor:
+    """DenseNet_sin forward: ``dense_apply`` with sin between layers."""
+    return dense_apply(params, x, nonlinearity=torch.sin)
+
+
 def layer_dims(kernel_params) -> Tuple[Tuple[int, int], ...]:
     """((in, out), ...) of each layer of a DenseNet."""
     return tuple((p["w"].shape[0], p["w"].shape[1]) for p in kernel_params)
@@ -83,4 +88,4 @@ def unflatten_params(weights) -> Tuple:
 
 
 __all__ = ["linear_init", "pyg_uniform_init", "dense_init", "dense_apply",
-           "layer_dims", "flatten_params", "unflatten_params"]
+           "dense_sin_apply", "layer_dims", "flatten_params", "unflatten_params"]

@@ -126,6 +126,40 @@ def edge_kernel_conv(
     return out
 
 
+def edge_conv_gaussian(
+    x: torch.Tensor,
+    senders: torch.Tensor,
+    receivers: torch.Tensor,
+    edge_attr: torch.Tensor,
+    edge_mask: torch.Tensor,
+    lengthscale_params,
+    *,
+    aggr: str = "mean",
+    root: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The diagonal Gaussian kernel conv (reference: graph-neural-operator/
+    nn_conv.py:99-194): the message is x[s_e] * weight_e with
+    weight_e = exp(-attr0^2 / ell^2) / sqrt(|attr1 * attr2|) and learned
+    per-channel lengthscales ell = nn(1). Plain torch: no kernel."""
+    n = x.shape[0]
+    one = torch.ones((1, 1), dtype=x.dtype, device=x.device)
+    ell = dense_apply(lengthscale_params, one).reshape(-1)
+    a = 1.0 / torch.sqrt(torch.abs(edge_attr[:, 1] * edge_attr[:, 2])
+                         + 1e-12)
+    b = torch.exp(-(edge_attr[:, 0:1] ** 2) / (ell[None, :] ** 2))
+    msg = gather_rows(x, senders) * (a[:, None] * b)
+    if aggr == "mean":
+        out = masked_segment_mean(msg, receivers, edge_mask, n)
+    else:
+        out = masked_segment_sum(msg, receivers, edge_mask, n)
+    if root is not None:
+        out = out + x @ root
+    if bias is not None:
+        out = out + bias
+    return out
+
+
 def _pick_impl(e, in_channels, out_channels, kernel_type, kernel_params,
                on_cuda: bool) -> str:
     if kernel_type != "full":
@@ -140,4 +174,4 @@ def _pick_impl(e, in_channels, out_channels, kernel_type, kernel_params,
     return "scan"
 
 
-__all__ = ["edge_kernel_conv"]
+__all__ = ["edge_kernel_conv", "edge_conv_gaussian"]

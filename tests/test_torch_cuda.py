@@ -334,6 +334,52 @@ def test_k1_b1_bwd_mgkn_general_kappas(dev, dtype, tol, e, layers, n,
         assert _rel(a_, b_) <= tol, name
 
 
+# (E, nodes) of the torus model's conv at the full width of
+# grain_torus_timeseries (kappa (5, 32, 64, 32 * 32), in = out = 32): one
+# 256-node shard's E_pad and the flattened batch of 4
+TORUS_SHAPES = [(12800, 256), (51200, 1024)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, 1e-4), ("bfloat16", 5e-3)])
+@pytest.mark.parametrize("e,n", TORUS_SHAPES)
+def test_k1_b1_bwd_torus_kappa(dev, dtype, tol, e, n):
+    """K1 (general form: out is not 64) and B1-bwd (SIMT in fp32, tensor
+    cores in bf16: out 32 divides 128) at the torus model's conv: the
+    forward and all four B1-bwd outputs against the plain versions, a
+    second launch bit-identical."""
+    layers, w = (5, 32, 64, 32 * 32), 32
+    g = torch.Generator().manual_seed(e + 5)
+    kp = dense_init(g, list(layers), device=dev)
+    x = torch.randn(n, w, generator=g).to(dev)
+    s = torch.randint(0, n, (e,), generator=g).to(dev)
+    a = torch.randn(e, 5, generator=g).to(dev)
+    kw_args = dict(in_channels=w, out_channels=w, compute_dtype=dtype)
+    assert k1_form(layer_dims(kp), w, w, dtype) == "general"
+    before = fused_edge_messages.general_launches
+    got = fused_edge_messages(x, s, a, kp, **kw_args)
+    again = fused_edge_messages(x, s, a, kp, **kw_args)
+    torch.cuda.synchronize()
+    assert fused_edge_messages.general_launches == before + 2
+    assert torch.equal(got, again)
+    assert _rel(got, edge_messages_plain(x, s, a, kp, **kw_args)) <= tol
+    bform = b1_bwd_form(64, w, w, dtype)
+    assert bform == ("tc" if dtype else "simt")
+    h2 = dense_apply(kp[:-1], a, out_nonlinearity=torch.relu)
+    gg = torch.randn(e, w, generator=g).to(dev)
+    wl = kp[-1]["w"]
+    before = getattr(fused_edge_messages_bwd, f"{bform}_launches")
+    got = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
+    again = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
+    torch.cuda.synchronize()
+    assert getattr(fused_edge_messages_bwd, f"{bform}_launches") == \
+        before + 2
+    want = edge_messages_bwd_plain(x, s, h2, gg, wl, **kw_args)
+    for name, a_, b_, c_ in zip(("dx_src", "dh2", "dWl", "dbl"), got, again,
+                                want):
+        assert torch.equal(a_, b_), name
+        assert _rel(a_, c_) <= tol, name
+
+
 # (E, kappa layers, in, out) of K1's general form and B1-bwd's SIMT form
 # on both kinds of grid: the orthogonal kw-1024 level's edge count, where
 # K1 takes channel groups (G > 1) and B1-bwd channel groups and depth

@@ -76,12 +76,6 @@ def test_sweep_configs_match_jax(name):
         [dataclasses.asdict(c) for c in j]
 
 
-@pytest.mark.parametrize("name", ["grain_torus_timeseries"])
-def test_unported_experiments_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        trun.run_experiment(treg.get(name), smoke=True, device="cpu")
-
-
 def _setup(name, **overrides):
     """The smoke config of ``name``; both packages' model configs, data
     and normalizers, and the same initial parameters on both sides."""

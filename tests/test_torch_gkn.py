@@ -148,13 +148,45 @@ def test_gkn_init_shapes_and_bounds():
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("field", [{"loop_vjp": True}])
-def test_unported_kcached_options_raise(field):
-    _, tcfg = _cfg(impl="kcached", **field)
-    _, tp = _params(_cfg()[0])
-    _, tg = _both_graphs(4)
-    with pytest.raises(NotImplementedError):
-        tgkn.gkn_apply(tp, tcfg, tg)
+# loop_vjp: the depth loop's one backward (ops/kcached_loop.py) against
+# JAX's custom VJP, on the unfused kcached path (loop_vjp also turns the
+# fused path off); with bf16 compute or fp8 K at the bf16 bound above.
+@pytest.mark.parametrize("dtype,k_storage,fused", [
+    (None, None, "on"), ("bfloat16", None, "off"),
+    ("bfloat16", "float8_e4m3", "off")])
+def test_gkn_loop_vjp_matches_jax(dtype, k_storage, fused):
+    jcfg, tcfg = _cfg(impl="kcached", loop_vjp=True, relu_last=True,
+                      compute_dtype=dtype, k_storage=k_storage,
+                      kcached_fused=fused)
+    jp, tp = _params(jcfg, seed=8)
+    jg, tg = _both_graphs(9)
+    cot = np.random.default_rng(10).normal(
+        size=(tg.x.shape[0], 1)).astype(np.float32)
+
+    def jloss(p):
+        out = jgkn.gkn_apply(p, jcfg, jg)
+        return jnp.sum(out * cot), out
+
+    (_, jout), jgr = jax.value_and_grad(jloss, has_aux=True)(jp)
+    p = trainable(tp, "cpu")
+    out = tgkn.gkn_apply(p, tcfg, tg)
+    assert out.grad_fn is not None
+    (out * torch.from_numpy(cot)).sum().backward()
+    _close(out.detach().numpy(), jout)
+    want = param_leaves(gkn_params_from_numpy(jax.tree.map(np.asarray, jgr),
+                                              "cpu"))
+    g_tol = MODEL_TOL if dtype is None else 2e-2
+    for a, b in zip(param_leaves(p), want):
+        _close(a.grad.numpy(), b, g_tol)
+    # the forward of autograd through the loop, and its gradients (dK
+    # rounds to bf16 once here, once a step there)
+    plain = trainable(tp, "cpu")
+    ref = tgkn.gkn_apply(plain, dataclasses.replace(
+        tcfg, loop_vjp=False, kcached_fused="off"), tg)
+    (ref * torch.from_numpy(cot)).sum().backward()
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    for a, b in zip(param_leaves(p), param_leaves(plain)):
+        _close(a.grad.numpy(), b.grad.numpy(), g_tol)
 
 
 # fp8 K storage on both kcached branches, in float32 and bf16 compute:
