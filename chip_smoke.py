@@ -16,6 +16,10 @@
                                  # phase 11
     python3 chip_smoke.py --k1-simt  # only K1's build and its SIMT form
                                  # alone (k1_simt_probe)
+    python3 chip_smoke.py --parallel  # only K1's and B1-bwd's build and
+                                 # phase 12
+    python3 chip_smoke.py --gloo-probe  # which torch.distributed ops gloo
+                                 # takes on CUDA tensors (gloo_probe)
 
 Phases, each fatal on failure:
   1. card identity (nvidia-smi) and the build of every CUDA kernel;
@@ -163,7 +167,32 @@ Phases, each fatal on failure:
      torus step-1 gradients of auto against reference, and of
      loop_vjp=True against False (torus; uai1 unfused kcached in fp32
      and bf16 compute); uai1's warm steps with loop_vjp on and off, in
-     turns, on the full s=61 training graph.
+     turns, on the full s=61 training graph;
+ 12. the parallel slice (phase_parallel): PAR_RANKS processes (start
+     method spawn) join a gloo group through parallel.initialize and
+     compute on the one card: (a) a DP + TP train step of neurips1_gkn
+     at full width (impl='auto', MSE, Adam) on a (2, 2) mesh over its
+     N_TRAIN Nystrom m=200 training graphs, one a data rank, the kappa
+     MLP split over two model ranks (no rank holds its [256, 4096] last
+     layer): each rank runs K1 SIMT on its [256, 2048] last-layer shard
+     and its 32 input channels, the small layers gathered, and B1-bwd
+     SIMT in the backward; on a 1-d mesh of every rank, node-sharded (b)
+     GKN on the s=61 serving graph (impl='pallas': K1 SIMT; 'reference';
+     the ring variant) and its gradients on a training graph (B1-bwd
+     SIMT), (c) general MGKN mgkn_general_darcy2d (mkgn, s=85, pallas
+     and reference, gradients) and (d) orthogonal MGKN at s=1024
+     (pallas and reference). Each rank zeroes the counters around each
+     path and requires its kernels' exact launches (every rank launches
+     K1, and B1-bwd in the gradient runs and the DP + TP step; the
+     reference and ring paths none). The parent holds every output, the
+     step's loss, its gathered gradients (before the Adam update) and
+     updated parameters, and every gradient leaf against single-process
+     runs on the card (F32_TOL), every rank holding the same output; a
+     world of one rank (NCCL, mesh (1, 1)) must take the single-process
+     step bit for bit (loss, gradients, parameters). K1 and B1-bwd at
+     rank 0's s=61 edge bucket and at the TP shard's shapes against
+     their plain versions, timed; each rank's peak memory and wall
+     times.
 
 Prints one JSON line of kernel records before the last line, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, with no result
@@ -233,6 +262,12 @@ GCN_EPOCHS = 2
 # steps; TORUS_E: one shard's E_pad and the flattened batch of 4.
 TORUS_EPOCHS = 3
 TORUS_E = (12800, 51200)
+
+# The parallel slice (graph_pde_tpu/parallel/): PAR_RANKS processes share
+# the one card over gloo (NCCL refuses two ranks on one GPU); the DP + TP
+# step takes a (2, 2) mesh of them, node sharding all of them.
+PAR_RANKS = 4
+PAR_TIMEOUT = 420  # seconds for a phase-12 world to finish
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 SIMT rate, bf16 tensor
 # core rate and HBM3 bandwidth.
@@ -320,8 +355,17 @@ def serving_setup(dev):
 def full_graph(dev, params, norms, coeff):
     """The s=61 request graph as the predictor builds it, on the card,
     with the width-64 node features after fc1."""
-    import numpy as np
     import torch
+
+    g = full_graph_host(norms, coeff).to(dev)
+    with torch.inference_mode():
+        h = g.x @ params["fc1"]["w"] + params["fc1"]["b"]
+    return g, h
+
+
+def full_graph_host(norms, coeff):
+    """The s=61 request graph as the predictor builds it, on the host."""
+    import numpy as np
 
     from graph_pde_tpu_torch.graph import (SquareMeshGenerator, build_graph,
                                            edge_attributes, round_up)
@@ -336,12 +380,9 @@ def full_graph(dev, params, norms, coeff):
     grid = gen.get_grid()
     x = np.concatenate([grid] + [v[:, None] for v in enc], axis=1)
     attr = edge_attributes(grid, ei, theta=enc[0])
-    g = build_graph(x, ei[0], ei[1], attr,
-                    sample_idx=np.arange(S_FULL * S_FULL),
-                    n_edge_pad=round_up(ei.shape[1], 512)).to(dev)
-    with torch.inference_mode():
-        h = g.x @ params["fc1"]["w"] + params["fc1"]["b"]
-    return g, h
+    return build_graph(x, ei[0], ei[1], attr,
+                       sample_idx=np.arange(S_FULL * S_FULL),
+                       n_edge_pad=round_up(ei.shape[1], 512))
 
 
 def phase_kernels_vs_plain(g, h, params) -> dict:
@@ -659,7 +700,8 @@ def k1_simt_grid(e, kp, w_in, dt, dev) -> dict:
                                    if tiles >= 2 * clusters[g]), None))
 
 
-def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol, phase=2) -> float:
+def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol, phase=2,
+                 w_in=None) -> float:
     """B1-bwd against its plain version, all four outputs, in the form
     its shape takes (tensor cores in bf16, SIMT in float32, for every
     kappa checked here), and a second launch bit-identical; returns the
@@ -669,7 +711,7 @@ def check_b1_bwd(name, x, s, h2, g, wl, w, dt, tol, phase=2) -> float:
     from graph_pde_tpu_torch.ops.fused_edge_conv import (
         edge_messages_bwd_plain, fused_edge_messages_bwd)
 
-    kw = dict(in_channels=w, out_channels=w, compute_dtype=dt)
+    kw = dict(in_channels=w_in or w, out_channels=w, compute_dtype=dt)
     form = "tc" if dt else "simt"
     zero_counts()
     got = fused_edge_messages_bwd(x, s, h2, g, wl, **kw)
@@ -866,9 +908,10 @@ def set_bound(r: dict) -> None:
     r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
 
 
-def k1_cost(kp, e, n, tc=False, w=64) -> dict:
+def k1_cost(kp, e, n, tc=False, w=64, w_in=None) -> dict:
     """K1's operations and bytes on e edges of an n-node graph (in = out
-    = w): the MLP's products and the contraction, every input read once
+    = w, or in = w_in): the MLP's products and the contraction, every
+    input read once
     (x, senders, attr, weights), the messages written once. With ``tc``
     (the bf16 tensor-core form) the products after the first layer run
     on bf16 operands, so they count as ``bf16_flops``; attr @ W0 and the
@@ -879,7 +922,8 @@ def k1_cost(kp, e, n, tc=False, w=64) -> dict:
     mlp = [2.0 * e * a * b for a, b in dims]
     fold = 2.0 * e * dims[-1][1]
     wbytes = 4 * sum(p["w"].numel() + p["b"].numel() for p in kp)
-    nbytes = 4 * n * w + 8 * e + 4 * e * dims[0][0] + wbytes + 4 * e * w
+    nbytes = (4 * n * (w_in or w) + 8 * e + 4 * e * dims[0][0] + wbytes
+              + 4 * e * w)
     if tc:
         return dict(flops=mlp[0] + fold, bf16_flops=sum(mlp[1:]),
                     bytes=nbytes)
@@ -4027,6 +4071,707 @@ def k1_simt_probe() -> None:
                               if k not in ("flops", "bytes")}))
 
 
+# ------------------------------------------------------------ phase 12
+
+def par_gkn_config(impl):
+    """neurips1_gkn at full width, the runner's model config."""
+    from graph_pde_tpu_torch.experiments import get
+    from graph_pde_tpu_torch.experiments.runners import _gkn_config
+
+    return dataclasses.replace(_gkn_config(get("neurips1_gkn")), impl=impl)
+
+
+def member0(g):
+    """Sample 0 of a stacked host graph dataclass."""
+    import numpy as np
+
+    return dataclasses.replace(g, **{
+        f.name: getattr(g, f.name)[0] for f in dataclasses.fields(g)
+        if isinstance(getattr(g, f.name), np.ndarray)})
+
+
+def par_inputs(dev) -> dict:
+    """Phase 12's host inputs, built once: N_TRAIN Nystrom training
+    graphs of neurips1_gkn (m=200, one a data rank) and its task, the
+    s=61 serving graph, one s=85 mgkn_general_darcy2d multilevel graph
+    and one s=1024 mgkn_orthogonal_burgers1d graph."""
+    from graph_pde_tpu_torch.data import (burgers_dataset,
+                                          burgers_multipole_data,
+                                          darcy_dataset, darcy_gkn_graphs,
+                                          darcy_mgkn_graphs, prepare_burgers,
+                                          prepare_darcy)
+    from graph_pde_tpu_torch.experiments import get
+    from graph_pde_tpu_torch.experiments.runners import _task
+    from graph_pde_tpu_torch.models import MultipoleGraph1D
+
+    c = get("neurips1_gkn")
+    fields = darcy_dataset(N_TRAIN, c.source_res, seed=c.data_seed)
+    arrays, _ = prepare_darcy(fields, n=N_TRAIN, r=c.downsample,
+                              u_norm=c.u_norm)
+    train = darcy_gkn_graphs(arrays, m=c.nystrom_m, k=c.graphs_per_sample,
+                             radius=c.radius_train, seed=c.seed)
+    _, _, norms, _, full, _ = serving_setup(dev)
+    m = get("mgkn_general_darcy2d")
+    mfields = darcy_dataset(1, m.source_res, seed=m.data_seed)
+    marrays, _ = prepare_darcy(mfields, n=1, r=m.downsample, u_norm=m.u_norm)
+    mg, _ = darcy_mgkn_graphs(marrays, points=m.points,
+                              radius_inner=m.radius_inner,
+                              radius_inter=m.radius_inter, seed=m.seed)
+    ba = prepare_burgers(burgers_dataset(1, S_ORTHO, seed=SEED), n=1)
+    xs, _, se, re, at = burgers_multipole_data(ba)
+    return {"train": train,
+            "task": _task(c, par_gkn_config("auto"), arrays),
+            "lr": c.learning_rate, "wd": c.weight_decay,
+            "g61": full_graph_host(norms, full[0]), "mg85": member0(mg),
+            "og": MultipoleGraph1D(x=xs[0], senders=list(se),
+                                   receivers=list(re),
+                                   attrs=[a[0] for a in at])}
+
+
+def par_step(inp, dev, mesh=None):
+    """The neurips1_gkn train step of phase 12 (impl='auto', the task's
+    MSE loss, Adam with the registry's lr and weight decay) on the
+    training batch, from the seeded parameters: single-process without
+    ``mesh``; with a (data, model) mesh, DP + TP, each rank on its block
+    of the batch and its shards of the kappa MLP. Returns the step
+    function, the trainable tree, the rank's batch and a dict whose
+    'grads' the first step fills, just before its Adam update, with the
+    whole gradient tree (the TP shards gathered)."""
+    import torch
+
+    from graph_pde_tpu_torch import parallel as par
+    from graph_pde_tpu_torch.models import gkn_init
+    from graph_pde_tpu_torch.train import (adam_steplr, make_train_step,
+                                           param_leaves, trainable)
+
+    cfg = par_gkn_config("auto")
+    params = trainable(gkn_init(torch.Generator().manual_seed(SEED), cfg,
+                                device=dev), dev)
+    batch = inp["train"].to(dev)
+    group = None
+    if mesh is not None:
+        params = par.param_sharding(mesh, params)
+        batch = par.batch_sharding(mesh, batch)
+        group = mesh.get_group("data")
+    opt, _ = adam_steplr(param_leaves(params), inp["lr"],
+                         weight_decay=inp["wd"])
+    seen = {}
+
+    def snapshot(*_):
+        if "grads" not in seen:
+            seen["grads"] = par.gather_params(params, grad=True)
+
+    opt.register_step_pre_hook(snapshot)
+    return (make_train_step(inp["task"], opt, data_group=group), params,
+            batch, seen)
+
+
+def flat_tree(tree, prefix, out, grad=False) -> dict:
+    """{path: numpy array} of a parameter tree's tensors (or their
+    gradients)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat_tree(v, f"{prefix}/{k}", out, grad)
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            flat_tree(v, f"{prefix}/{i}", out, grad)
+    else:
+        t = tree.grad if grad else tree
+        out[prefix] = t.detach().cpu().numpy().copy()
+    return out
+
+
+class RankRecorder:
+    """A rank's results of phase 12: arrays, and each path's launches
+    (counted from 0 just before it runs, read just after), host wall
+    time and peak device memory."""
+
+    def __init__(self):
+        self.arrays, self.meta = {}, {"launches": {}, "ms": {},
+                                      "peak_gib": {}}
+
+    def run(self, name, fn, warm=False):
+        import torch
+
+        if warm:
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.meta["ms"][name] = (time.perf_counter() - t0) * 1e3
+        self.meta["launches"][name] = read_counts()
+        self.meta["peak_gib"][name] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        return out
+
+    def save(self, out_dir, rank) -> None:
+        import os
+
+        import numpy as np
+
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **self.arrays)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(self.meta, f)
+
+
+def parallel_rank(rank, port, inp_path, out_dir) -> None:
+    """One of PAR_RANKS ranks of phase 12, all on cuda:0 over gloo: (a)
+    the DP + TP train step on a (2, 2) mesh; on a 1-d mesh of every
+    rank, (b) the node-sharded GKN on the s=61 serving graph (pallas,
+    reference, ring) and its gradients on a training graph, (c) the
+    node-sharded general MGKN (pallas, reference, gradients), (d) the
+    node-sharded orthogonal MGKN (pallas, reference). Each path's
+    launches must be its kernels' own, once a conv and depth step."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from graph_pde_tpu_torch import parallel as par
+    from graph_pde_tpu_torch.models import (gkn_init, mgkn_general_init,
+                                            mgkn_orthogonal_init)
+    from graph_pde_tpu_torch.train import trainable
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    with open(inp_path, "rb") as f:
+        inp = pickle.load(f)
+    par.initialize(f"localhost:{port}", PAR_RANKS, rank)
+    require(dist.get_backend() == "gloo", "phase 12 ranks share the card "
+            "over gloo")
+    rec = RankRecorder()
+    none = dict.fromkeys(COUNTED, 0)
+
+    # (a) DP + TP on a (2, 2) mesh
+    mesh2 = par.make_mesh((2, 2))
+    step, p_tp, batch, seen = par_step(inp, dev, mesh2)
+    rec.meta["tp_last_layer"] = list(p_tp["kernel"][-1]["w"].shape)
+    m = rec.run("dp_tp step", lambda: step(p_tp, batch))
+    rec.meta["dp_tp loss"] = float(m["loss"])
+    flat_tree(par.gather_params(p_tp), "dp_tp", rec.arrays)
+    flat_tree(seen["grads"], "dp_tp grads", rec.arrays)
+    rec.run("dp_tp warm step", lambda: step(p_tp, batch))
+
+    # (b)-(d) node sharding over every rank
+    mesh1 = par.make_mesh((PAR_RANKS,), ("data",))
+    group = mesh1.get_group("data")
+    cfg = par_gkn_config("pallas")
+    gen = torch.Generator()
+    p0 = gkn_init(gen.manual_seed(SEED), cfg, device=dev)
+    parts = par.partition_graph(inp["g61"], PAR_RANKS)
+    ring = par.partition_graph_ring(inp["g61"], PAR_RANKS)
+    mcfg = mgkn_config(impl="pallas")
+    mp = mgkn_general_init(gen.manual_seed(SEED), mcfg, device=dev)
+    mparts, mmeta = par.partition_multilevel_graph(inp["mg85"], PAR_RANKS)
+    ocfg = ortho_config("pallas")
+    op = mgkn_orthogonal_init(gen.manual_seed(SEED), ocfg, device=dev)
+    oparts, ometa = par.partition_multipole1d(inp["og"], PAR_RANKS)
+    fwd = {
+        "gkn pallas": lambda i: par.gkn_apply_node_sharded(
+            p0, cfg, parts, mesh1, impl=i),
+        "gkn ring": lambda i: par.gkn_apply_node_sharded_ring(
+            p0, cfg, ring, mesh1),
+        "mgkn pallas": lambda i: par.mgkn_general_apply_node_sharded(
+            mp, mcfg, mparts, mmeta, mesh1, impl=i),
+        "ortho pallas": lambda i: par.mgkn_orthogonal_apply_node_sharded(
+            op, ocfg, oparts, ometa, mesh1, impl=i),
+    }
+    auto = {"gkn": dataclasses.replace(cfg, impl="auto"),
+            "mgkn": dataclasses.replace(mcfg, impl="auto"),
+            "ortho": dataclasses.replace(ocfg, impl="auto")}
+    step_want = expected(auto["gkn"], cfg.depth, cfg.depth)
+    want = {"dp_tp step": step_want, "dp_tp warm step": step_want,
+            "gkn pallas": expected(auto["gkn"], cfg.depth, 0),
+            "mgkn pallas": expected_mgkn(auto["mgkn"], 1, 0),
+            "ortho pallas": expected_ortho(auto["ortho"], 1, 0),
+            "gkn grads": expected(auto["gkn"], cfg.depth, cfg.depth),
+            "mgkn grads": expected_mgkn(auto["mgkn"], 1, 1)}
+    with torch.no_grad():
+        for name, fn in fwd.items():
+            impls = ("ring",) if "ring" in name else ("pallas", "reference")
+            for impl in impls:
+                key = name.replace("pallas", impl)
+                out = rec.run(key, lambda: fn(impl), warm=impl == "pallas")
+                rec.arrays[key] = out.cpu().numpy()
+
+    tg0 = member0(inp["train"])
+    tparts = par.partition_graph(tg0, PAR_RANKS)
+    n, n0 = int(tg0.n_node), mcfg.points[0]
+
+    def grads(params, apply, rows):
+        p = trainable(params, dev)
+        (apply(p)[:rows] ** 2).sum().backward()
+        par.allreduce_grads(p, group)
+        return p
+
+    p = rec.run("gkn grads", lambda: grads(p0, lambda q: (
+        par.gkn_apply_node_sharded(q, cfg, tparts, mesh1, impl="pallas")), n))
+    flat_tree(p, "gkn grads", rec.arrays, grad=True)
+    p = rec.run("mgkn grads", lambda: grads(mp, lambda q: (
+        par.mgkn_general_apply_node_sharded(q, mcfg, mparts, mmeta, mesh1,
+                                            impl="pallas")), n0))
+    flat_tree(p, "mgkn grads", rec.arrays, grad=True)
+    for name, counts in rec.meta["launches"].items():
+        require(counts == want.get(name, none),
+                f"phase 12 rank {rank} {name}: launches "
+                f"{({k: v for k, v in counts.items() if v})}")
+    rec.save(out_dir, rank)
+    dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (index_add_ without atomics), for
+    runs compared bit for bit."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # deterministic-mode notices
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def nccl_rank(rank, port, inp_path, out_dir) -> None:
+    """A world of one rank on the card through ``initialize``'s backend
+    rule (NCCL: every rank has a card of its own): phase 12's DP + TP
+    step on a (1, 1) mesh over the whole batch, under deterministic
+    algorithms as the single-process step it must equal bit for bit."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from graph_pde_tpu_torch import parallel as par
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    with open(inp_path, "rb") as f:
+        inp = pickle.load(f)
+    par.initialize(f"localhost:{port}", 1, rank)
+    require(dist.get_backend() == "nccl", "a world of one rank on one "
+            "card takes NCCL")
+    rec = RankRecorder()
+    mesh = par.make_mesh((1, 1))
+    step, p_tp, batch, seen = par_step(inp, dev, mesh)
+    with deterministic():
+        m = rec.run("dp_tp step", lambda: step(p_tp, batch))
+    rec.meta["dp_tp loss"] = float(m["loss"])
+    flat_tree(par.gather_params(p_tp), "dp_tp", rec.arrays)
+    flat_tree(seen["grads"], "dp_tp grads", rec.arrays)
+    rec.save(out_dir, "nccl")
+    dist.destroy_process_group()
+
+
+def load_rank(out_dir, rank) -> tuple:
+    import os
+
+    import numpy as np
+
+    with np.load(os.path.join(out_dir, f"rank{rank}.npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+    with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+        return arrays, json.load(f)
+
+
+def close_leaves(name, got: dict, want: dict, tol=F32_TOL) -> float:
+    """Each leaf of ``got`` within ``tol`` of ``want``'s max-abs (the same
+    paths); returns the worst relative max-abs error."""
+    import numpy as np
+
+    require(got.keys() == want.keys() and len(got) > 0,
+            f"{name}: the same leaves ({sorted(got)[:3]} ...)")
+    worst = 0.0
+    for k in want:
+        a, b = np.asarray(got[k], np.float64), np.asarray(want[k], np.float64)
+        require(a.shape == b.shape, f"{name} {k}: shape {a.shape} vs "
+                f"{b.shape}")
+        r = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+        require(r <= tol and bool(np.isfinite(a).all()),
+                f"{name} {k}: relative max-abs err {r:.3e} (tol {tol:g})")
+        worst = max(worst, r)
+    return worst
+
+
+def prefixed(arrays, prefix) -> dict:
+    return {k[len(prefix):]: v for k, v in arrays.items()
+            if k.startswith(prefix + "/")}
+
+
+def par_bucket_kernels(inp, dev) -> dict:
+    """K1 and B1-bwd (fp32: the SIMT forms) against their plain versions
+    at the shapes phase 12 gives them, timed beside plain and bound:
+    rank 0's edge bucket of the s=61 graph (senders global ids into the
+    all-gathered [S * n_loc, 64] features) and model rank 0's part of the
+    DP + TP step on a training graph (32 input channels, the [256, 2048]
+    last-layer shard)."""
+    import torch
+
+    from graph_pde_tpu_torch import parallel as par
+    from graph_pde_tpu_torch.models import gkn_init
+    from graph_pde_tpu_torch.ops.dense import dense_apply
+    from graph_pde_tpu_torch.ops.fused_edge_conv import (
+        edge_messages_bwd_plain, edge_messages_plain, fused_edge_messages,
+        fused_edge_messages_bwd)
+
+    cfg = par_gkn_config("pallas")
+    kp = gkn_init(torch.Generator().manual_seed(SEED), cfg,
+                  device=dev)["kernel"]
+    parts = par.partition_graph(inp["g61"], PAR_RANKS)
+    tg0 = member0(inp["train"])
+    half = kp[:-1] + ({"w": kp[-1]["w"][:, :32 * 64].contiguous(),
+                       "b": kp[-1]["b"][:32 * 64].contiguous()},)
+    cases = {
+        "s61_bucket": (torch.as_tensor(parts["senders"][0]),
+                       torch.as_tensor(parts["edge_attr"][0]),
+                       parts["x"].shape[0] * parts["x"].shape[1], 64, kp),
+        "tp_shard": (torch.as_tensor(tg0.senders),
+                     torch.as_tensor(tg0.edge_attr), tg0.x.shape[0], 32,
+                     half),
+    }
+    gen = torch.Generator().manual_seed(SEED + 12)
+    out = {}
+    for case, (s, a, n, w_in, kpc) in cases.items():
+        s, a, e = s.long().to(dev), a.to(dev), s.shape[0]
+        x = torch.randn(n, w_in, generator=gen).to(dev)
+        kw = dict(in_channels=w_in, out_channels=64)
+        with torch.inference_mode():
+            err = check_k1(f"{case} K1", x, s, a, kpc, w_in, None,
+                           F32_TOL, "simt", phase=12)
+            r = dict(ms=time_ms(lambda: fused_edge_messages(
+                x, s, a, kpc, **kw), 3),
+                     plain_ms=time_ms(lambda: edge_messages_plain(
+                         x, s, a, kpc, **kw), 1),
+                     max_abs_err=err, E=e, N=n,
+                     **k1_cost(kpc, e, n, w_in=w_in))
+            set_bound(r)
+            out[("K1", case)] = r
+            h2 = dense_apply(kpc[:-1], a, out_nonlinearity=torch.relu)
+            g = torch.randn(e, 64, generator=gen).to(dev)
+            wl = kpc[-1]["w"]
+            err = check_b1_bwd(f"{case} B1-bwd", x, s, h2, g, wl,
+                               64, None, F32_TOL, phase=12, w_in=w_in)
+            kwd, c = wl.shape
+            r = dict(ms=time_ms(lambda: fused_edge_messages_bwd(
+                x, s, h2, g, wl, **kw), 3),
+                     plain_ms=time_ms(lambda: edge_messages_bwd_plain(
+                         x, s, h2, g, wl, **kw), 1),
+                     max_abs_err=err, E=e, N=n,
+                     flops=6.0 * e * kwd * c + 3.0 * e * c,
+                     bytes=(4 * (e * kwd + n * w_in + e * 64 + kwd * c)
+                            + 8 * e + 4 * (e * w_in + e * kwd + kwd * c
+                                           + c)))
+            set_bound(r)
+            out[("B1-bwd", case)] = r
+    for (k, case), r in out.items():
+        log(f"phase 12: {k} at {case} (E {r['E']}, N {r['N']}): "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+    res = {}
+    for (k, case), r in out.items():
+        res.setdefault(k, {})[case] = {
+            f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "max_abs_err", "E", "N")}
+    return res
+
+
+def phase_parallel(dev) -> dict:
+    """Phase 12: the parallel slice. PAR_RANKS ranks on the one card
+    (gloo) run (a)-(d) of ``parallel_rank``; the parent holds every
+    rank's results against single-process runs on the same card
+    (F32_TOL of the reference's max-abs; every rank the same output),
+    then a world of one rank (NCCL) takes the DP + TP step, which must
+    equal the single-process step bit for bit."""
+    import os
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from graph_pde_tpu_torch.models import (gkn_apply, gkn_init,
+                                            mgkn_general_apply,
+                                            mgkn_general_init,
+                                            mgkn_orthogonal_apply,
+                                            mgkn_orthogonal_init)
+    from graph_pde_tpu_torch.train import trainable
+
+    t0 = time.perf_counter()
+    inp = par_inputs(dev)
+    log(f"phase 12: inputs built in {time.perf_counter() - t0:.1f} s: "
+        f"{N_TRAIN} neurips1_gkn training graphs (E_pad "
+        f"{inp['train'].senders.shape[1]}), s={S_FULL} graph (E_pad "
+        f"{inp['g61'].senders.shape[0]}), general MGKN s={S_MGKN}, "
+        f"orthogonal s={S_ORTHO}")
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "inputs.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(inp, f)
+        t0 = time.perf_counter()
+        codes = spawn_ranks(parallel_rank, PAR_RANKS,
+                            (free_port(), path, work), PAR_TIMEOUT)
+        log(f"phase 12: {PAR_RANKS} ranks (gloo, one card) exited {codes} "
+            f"after {time.perf_counter() - t0:.1f} s")
+        require(codes == [0] * PAR_RANKS, f"phase 12 rank exit codes {codes}")
+        ranks = [load_rank(work, r) for r in range(PAR_RANKS)]
+        codes = spawn_ranks(nccl_rank, 1, (free_port(), path, work),
+                            PAR_TIMEOUT)
+        require(codes == [0], f"phase 12 NCCL world exit code {codes}")
+        nccl = load_rank(work, "nccl")
+    res0 = ranks[0][0]
+    for name in ("gkn pallas", "gkn reference", "gkn ring", "mgkn pallas",
+                 "mgkn reference", "ortho pallas", "ortho reference"):
+        for r in range(1, PAR_RANKS):
+            require(np.array_equal(ranks[r][0][name], res0[name]),
+                    f"phase 12 {name}: rank {r} holds rank 0's output")
+    times = {"card": gpu_identity()}
+
+    # (a) the single-process step, against DP + TP and the NCCL world
+    step, params, batch, seen = par_step(inp, dev)
+    with deterministic():
+        m = step(params, batch)
+    ref = flat_tree(params, "", {})
+    ref_grads = flat_tree(seen["grads"], "", {})
+    t1 = time.perf_counter()
+    step(params, batch)
+    torch.cuda.synchronize()
+    times["single-process step ms"] = (time.perf_counter() - t1) * 1e3
+    times["dp_tp warm step ms (rank 0)"] = \
+        ranks[0][1]["ms"]["dp_tp warm step"]
+    # every rank against one process: the ranks compute the replicated
+    # layers each on its own, through index_add_'s atomics, so they
+    # agree to rounding, not bit for bit
+    loss_ref = float(m["loss"])
+    losses = [ranks[r][1]["dp_tp loss"] for r in range(PAR_RANKS)]
+    loss_err = max(abs(v - loss_ref) for v in losses) / abs(loss_ref)
+    require(loss_err <= F32_TOL, f"phase 12 (a) DP + TP loss {losses} vs "
+            f"single-process {loss_ref!r}")
+    worst_g = max(close_leaves(f"phase 12 (a) rank {r} DP + TP gradients",
+                               prefixed(ranks[r][0], "dp_tp grads"),
+                               ref_grads) for r in range(PAR_RANKS))
+    worst_a = max(close_leaves(f"phase 12 (a) rank {r} DP + TP step",
+                               prefixed(ranks[r][0], "dp_tp"), ref)
+                  for r in range(PAR_RANKS))
+    log(f"phase 12: (a) DP + TP step (2, 2) losses {losses} vs "
+        f"single-process {loss_ref!r} (worst relative err "
+        f"{loss_err:.3e}); every rank's gradients before the update, "
+        f"worst relative max-abs err {worst_g:.3e}; updated parameters "
+        f"{worst_a:.3e} (tol {F32_TOL:g})")
+    kw, c = 256, 64 * 64
+    for r in range(PAR_RANKS):
+        last = ranks[r][1]["tp_last_layer"]
+        require(last != [kw, c] and last[0] * last[1] == kw * c // 2,
+                f"phase 12 rank {r} holds {last} of the [kw, w^2] layer")
+    same = (all(np.array_equal(nccl[0][f"dp_tp{k}"], v)
+                for k, v in ref.items())
+            and all(np.array_equal(nccl[0][f"dp_tp grads{k}"], v)
+                    for k, v in ref_grads.items())
+            and nccl[1]["dp_tp loss"] == loss_ref)
+    log(f"phase 12: NCCL world of one rank, (1, 1) mesh: step bit-equal to "
+        f"the single-process step {same} (loss {nccl[1]['dp_tp loss']!r} "
+        f"vs {loss_ref!r}; gradients and updated parameters)")
+    require(same, "phase 12 NCCL (1, 1) step equals the single-process "
+            "step bit for bit")
+
+    # (b)-(d) single-process forwards and gradients on the card
+    gen = torch.Generator()
+    cfg = par_gkn_config("pallas")
+    p0 = gkn_init(gen.manual_seed(SEED), cfg, device=dev)
+    mcfg = mgkn_config(impl="pallas")
+    mp = mgkn_general_init(gen.manual_seed(SEED), mcfg, device=dev)
+    ocfg = ortho_config("pallas")
+    op = mgkn_orthogonal_init(gen.manual_seed(SEED), ocfg, device=dev)
+    g61, mg, og = (inp["g61"].to(dev), inp["mg85"].to(dev),
+                   inp["og"].to(dev))
+    single = {"gkn": lambda: gkn_apply(p0, cfg, g61),
+              "mgkn": lambda: mgkn_general_apply(mp, mcfg, mg),
+              "ortho": lambda: mgkn_orthogonal_apply(op, ocfg, og)}
+    errs = {}
+    n61 = int(inp["g61"].n_node)
+    with torch.inference_mode():
+        for model, fn in single.items():
+            want = fn().cpu().numpy()
+            rows = n61 if model == "gkn" else want.shape[0]
+            for impl in (("pallas", "reference", "ring") if model == "gkn"
+                         else ("pallas", "reference")):
+                key = f"{model} {impl}"
+                errs[key] = close_leaves(f"phase 12 {key}",
+                                         {0: res0[key][:rows]},
+                                         {0: want[:rows]})
+        times["gkn forward ms, single process"] = time_ms(single["gkn"], 3)
+    times["gkn pallas forward ms, sharded (rank 0)"] = \
+        ranks[0][1]["ms"]["gkn pallas"]
+    tg0 = member0(inp["train"])
+    n = int(tg0.n_node)
+    for model, params, apply, rows in (
+            ("gkn", p0, lambda q: gkn_apply(q, cfg, tg0.to(dev)), n),
+            ("mgkn", mp, lambda q: mgkn_general_apply(q, mcfg, mg),
+             mcfg.points[0])):
+        p = trainable(params, dev)
+        (apply(p)[:rows] ** 2).sum().backward()
+        errs[f"{model} grads"] = close_leaves(
+            f"phase 12 {model} gradients",
+            prefixed(res0, f"{model} grads"), flat_tree(p, "", {},
+                                                        grad=True))
+    log(f"phase 12: (b)-(d) sharded against single-process on the card, "
+        f"worst relative max-abs err per path {json.dumps(errs)} (tol "
+        f"{F32_TOL:g})")
+
+    launches = {name: [ranks[r][1]["launches"][name]
+                       for r in range(PAR_RANKS)]
+                for name in ranks[0][1]["launches"]}
+    for name in ("dp_tp step", "gkn pallas", "mgkn pallas", "ortho pallas",
+                 "gkn grads", "mgkn grads"):
+        require(all(c["K1"] > 0 for c in launches[name]),
+                f"phase 12 {name}: every rank launched K1")
+    for name in ("dp_tp step", "gkn grads", "mgkn grads"):
+        require(all(c["B1-bwd"] > 0 for c in launches[name]),
+                f"phase 12 {name}: every rank launched B1-bwd")
+    peak = {name: [round(ranks[r][1]["peak_gib"][name], 3)
+                   for r in range(PAR_RANKS)]
+            for name in ranks[0][1]["peak_gib"]}
+    log("phase 12: each rank's peak device memory (GiB) "
+        + json.dumps(peak))
+    log("phase 12: rank wall times (ms) " + json.dumps(
+        {name: [round(ranks[r][1]["ms"][name], 1) for r in range(PAR_RANKS)]
+         for name in ranks[0][1]["ms"]}))
+    bucket = par_bucket_kernels(inp, dev)
+    return {"launches": launches, "errs": errs, "times": times,
+            "bucket": bucket}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(target, world: int, args: tuple, timeout: float) -> list:
+    """Runs ``target(rank, *args)`` in ``world`` processes (start method
+    spawn) and returns their exit codes; a process still running at the
+    deadline is killed (exit code None)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r,) + args)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    codes = []
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+        if p.is_alive():
+            p.kill()
+            p.join()
+            codes.append(None)
+        else:
+            codes.append(p.exitcode)
+    return codes
+
+
+GLOO_OPS = ("broadcast", "all_reduce", "all_gather_into_tensor",
+            "reduce_scatter_tensor", "batch_isend_irecv", "device_mesh")
+
+
+def gloo_probe_rank(rank, op, port, out_dir) -> None:
+    """One rank of a 2-rank gloo group on cuda:0: runs ``op`` on CUDA
+    tensors and writes what happened (ok, wrong values, or the error
+    gloo raised) to out_dir/op-rank.json."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    dev = torch.device("cuda", 0)
+    x = torch.arange(4.0, device=dev) + 10 * rank
+    try:
+        if op == "broadcast":
+            dist.broadcast(x, src=0)
+            got, want = x, torch.arange(4.0)
+        elif op == "all_reduce":
+            dist.all_reduce(x)
+            got, want = x, 2 * torch.arange(4.0) + 10
+        elif op == "all_gather_into_tensor":
+            got = torch.empty(8, device=dev)
+            dist.all_gather_into_tensor(got, x)
+            want = torch.cat([torch.arange(4.0), torch.arange(4.0) + 10])
+        elif op == "reduce_scatter_tensor":
+            got = torch.empty(2, device=dev)
+            dist.reduce_scatter_tensor(got, x)
+            want = (2 * torch.arange(4.0) + 10)[2 * rank:2 * rank + 2]
+        elif op == "batch_isend_irecv":
+            got = torch.empty(4, device=dev)
+            ops = [dist.P2POp(dist.isend, x, 1 - rank),
+                   dist.P2POp(dist.irecv, got, 1 - rank)]
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+            want = torch.arange(4.0) + 10 * (1 - rank)
+        else:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            mesh = init_device_mesh("cuda", (2, 1),
+                                    mesh_dim_names=("data", "model"))
+            got = x.clone()
+            dist.all_reduce(got, group=mesh.get_group("data"))
+            want = 2 * torch.arange(4.0) + 10
+        torch.cuda.synchronize()
+        res = ("ok" if torch.equal(got.cpu(), want)
+               else f"wrong values {got.cpu().tolist()}")
+    except Exception as e:  # the probe records what gloo says
+        res = f"{type(e).__name__}: {str(e)[:300]}"
+    with open(os.path.join(out_dir, f"{op}-{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def gloo_probe() -> None:
+    """--gloo-probe: which torch.distributed ops gloo takes on CUDA
+    tensors, each op in its own 2-rank group on cuda:0 (all groups at
+    once), logged per op and rank."""
+    import os
+    import tempfile
+
+    import torch
+
+    log(f"gloo-probe: torch {torch.__version__}, CUDA {torch.version.cuda}")
+    with tempfile.TemporaryDirectory() as out:
+        import threading
+
+        results = {}
+
+        def run(op):
+            results[op] = spawn_ranks(gloo_probe_rank, 2,
+                                      (op, free_port(), out), 180)
+
+        threads = [threading.Thread(target=run, args=(op,))
+                   for op in GLOO_OPS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for op in GLOO_OPS:
+            said = []
+            for r in range(2):
+                p = os.path.join(out, f"{op}-{r}.json")
+                said.append(json.load(open(p)) if os.path.exists(p)
+                            else "no result")
+            log(f"gloo-probe: {op}: exit codes {results[op]}, {said}")
+
+
 def log_ptxas(logs, phase=1) -> None:
     """Each built kernel's registers, spills and wgmma serialization
     notes from its compiler log (``-Xptxas -v``)."""
@@ -4072,6 +4817,10 @@ def main(argv) -> int:
         k1_simt_probe()
         log(ident)
         return 0
+    if argv[:1] == ["--gloo-probe"]:
+        gloo_probe()
+        log(ident)
+        return 0
     if argv[:1] == ["--gcn"]:
         log("phase 10: gcn " + json.dumps(phase_gcn()))
         log(ident)
@@ -4085,6 +4834,16 @@ def main(argv) -> int:
         log("phase 11: torus slice " + json.dumps(dict(
             torus["steps"], native=torus["native"],
             loop_vjp_uai1=torus["loop_vjp_uai1"])))
+        log(ident)
+        return 0
+    if argv[:1] == ["--parallel"]:
+        t0 = time.perf_counter()
+        kernels.build(["fused_edge_conv", "fused_edge_conv_bwd"])
+        log(f"phase 1: built K1 and B1-bwd in {time.perf_counter() - t0:.1f} "
+            f"s")
+        par = phase_parallel(dev)
+        log("phase 12: parallel slice " + json.dumps(
+            dict(times=par["times"], bucket=par["bucket"])))
         log(ident)
         return 0
     if argv[:1] == ["--mgkn"]:
@@ -4209,6 +4968,10 @@ def main(argv) -> int:
     log("phase 11: torus slice " + json.dumps(dict(
         torus["steps"], native=torus["native"],
         loop_vjp_uai1=torus["loop_vjp_uai1"])))
+    par = phase_parallel(dev)
+    lap("phase 12 wall time")
+    log("phase 12: parallel slice " + json.dumps(
+        dict(times=par["times"], bucket=par["bucket"])))
 
     by_path = {f"serving {k}": v for k, v in launches.items()}
     by_path.update({k: v["launches"] for k, v in trained.items()})
@@ -4364,6 +5127,27 @@ def main(argv) -> int:
                 bf = times[f"K1 general torus E{e} bfloat16"]
                 r["at_torus"][f"E{e} bf16"] = {
                     f: bf[f] for f in ("ms", "plain_ms", "bound_ms")}
+    # the parallel slice's launches, per path and per rank, beside the
+    # records of the forms it runs (fp32: K1 SIMT and general, B1-bwd
+    # SIMT), with K1's and B1-bwd's SIMT forms at rank 0's s=61 bucket
+    # and at the DP + TP step's shard
+    for r in records:
+        at = {"K1 fused_edge_messages": "K1 simt",
+              "K1 fused_edge_messages, general form": "K1 general",
+              "B1-bwd fused_edge_messages_bwd, fp32 SIMT form":
+                  "B1-bwd simt"}.get(r["name"])
+        if at is None:
+            continue
+        r["at_parallel"] = {"launches": {
+            path: [c[at] for c in per_rank]
+            for path, per_rank in par["launches"].items()
+            if any(c[at] for c in per_rank)}}
+        if at != "K1 general":
+            r["at_parallel"].update(par["bucket"][at.split()[0]])
+        require(all(all(v > 0 for v in per_rank) for per_rank in
+                    r["at_parallel"]["launches"].values())
+                and r["at_parallel"]["launches"],
+                f"{at}: launched by every rank of the parallel slice")
     require(all(r["launches"] > 0 for r in records),
             "every kernel form launched on its main path")
     log(json.dumps({"kernels": records}))

@@ -404,13 +404,15 @@ def batch_iterator(stacked, batch_size: int,
         yield map_arrays(take, stacked)
 
 
-def prefetch_to_device(iterator, size: int = 2, device: DeviceLike = None):
+def prefetch_to_device(iterator, size: int = 2, sharding=None,
+                       device: DeviceLike = None):
     """Yields the batches of ``iterator`` on ``device`` (None: CUDA),
     keeping ``size`` of them in flight: each batch's arrays are copied
     with non-blocking copies from pinned host memory, so the copies of
-    the next batches overlap the current step's work. The JAX version
-    takes a ``sharding``; one device has none, so this takes the device
-    instead."""
+    the next batches overlap the current step's work. ``sharding``, a
+    function from a batch to this rank's part of it (e.g.
+    ``functools.partial(parallel.batch_sharding, mesh)``), is applied on
+    the host first, so each rank copies only its data shard."""
     dev = resolve_device(device)
 
     def move(a):
@@ -424,6 +426,8 @@ def prefetch_to_device(iterator, size: int = 2, device: DeviceLike = None):
     def put():
         batch = next(it, end)
         if batch is not end:
+            if sharding is not None:
+                batch = sharding(batch)
             queue.append(map_arrays(move, batch))
 
     for _ in range(size):

@@ -108,8 +108,9 @@ def gkn_init(gen: torch.Generator, cfg: GKNConfig, *,
 
 
 def params_to(params, device: torch.device):
-    """The parameter tree with every tensor on ``device``."""
-    if isinstance(params, torch.Tensor):
+    """The parameter tree with every tensor (and tensor-parallel kappa,
+    parallel.TPKernel) on ``device``."""
+    if hasattr(params, "to"):
         return params.to(device)
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}

@@ -17,6 +17,10 @@ Paths (``impl``), named as in the JAX package so configs carry over:
     fused-path gate holds (the CUDA kernel takes every shape it admits);
     otherwise the JAX rule, 'reference' up to 64 M kernel elements and
     'scan' above. A shape decision only.
+
+A kappa split over tensor-parallel ranks (parallel.TPKernel) computes
+its own messages: ``messages`` on the plain paths, ``fused_messages``
+(K1 on every rank) on 'pallas'; 'auto' gates on its whole shapes.
 """
 from __future__ import annotations
 
@@ -38,6 +42,10 @@ def _cast_params(kernel_params, dtype):
 def _kernel_messages(x_src, edge_attr, kernel_params, in_channels,
                      out_channels, kernel_type, compute_dtype):
     """Per-edge messages x_j @ kappa(e), float32 [E', w_out] ('full')."""
+    if hasattr(kernel_params, "messages"):     # tensor-parallel kappa
+        return kernel_params.messages(x_src, edge_attr, in_channels,
+                                      out_channels, kernel_type,
+                                      compute_dtype)
     if compute_dtype is not None:
         x_src = x_src.to(compute_dtype)
         edge_attr = edge_attr.to(compute_dtype)
@@ -98,9 +106,13 @@ def edge_kernel_conv(
     if impl == "pallas":
         from .fused_edge_conv import fused_edge_messages
 
-        msg = fused_edge_messages(
-            x, senders, edge_attr, kernel_params, in_channels=in_channels,
-            out_channels=out_channels, compute_dtype=dtype)
+        kw = dict(in_channels=in_channels, out_channels=out_channels,
+                  compute_dtype=dtype)
+        if hasattr(kernel_params, "fused_messages"):  # tensor-parallel
+            msg = kernel_params.fused_messages(x, senders, edge_attr, **kw)
+        else:
+            msg = fused_edge_messages(x, senders, edge_attr, kernel_params,
+                                      **kw)
     elif impl == "scan" and kernel_type == "full" and e > chunk_size:
         msg = torch.cat([
             _kernel_messages(gather_rows(x, senders[s0:s0 + chunk_size]),
@@ -167,7 +179,8 @@ def _pick_impl(e, in_channels, out_channels, kernel_type, kernel_params,
     if on_cuda:
         from .fused_edge_conv import fused_path_supported
 
-        if fused_path_supported(kernel_params, in_channels, out_channels):
+        shapes = getattr(kernel_params, "whole_shapes", kernel_params)
+        if fused_path_supported(shapes, in_channels, out_channels):
             return "pallas"
     if e * in_channels * out_channels <= _REFERENCE_MAX_KERNEL_ELEMS:
         return "reference"

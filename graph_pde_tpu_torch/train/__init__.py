@@ -1,4 +1,4 @@
-from .optim import adam_steplr
+from .optim import adam_steplr, step_lr
 from .trainer import (TrainConfig, Task, make_loss_fn, make_train_step,
                       make_eval_step, fit, evaluate, FitResult, param_leaves,
                       trainable)
@@ -8,7 +8,7 @@ from .metrics import MetricsLogger, profile_trace
 from .export import save_bundle, load_bundle, load_meta
 
 __all__ = [
-    "adam_steplr", "TrainConfig", "Task", "make_loss_fn",
+    "adam_steplr", "step_lr", "TrainConfig", "Task", "make_loss_fn",
     "make_train_step", "make_eval_step", "fit", "evaluate", "FitResult",
     "param_leaves", "trainable", "GKNTask", "GCNTask", "MGKNGeneralTask",
     "MGKNOrthogonalTask", "save_checkpoint",

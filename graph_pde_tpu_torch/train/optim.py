@@ -14,6 +14,16 @@ from typing import Iterable, Tuple
 import torch
 
 
+def step_lr(base_lr: float, steps_per_epoch: int, step_size_epochs: int,
+            gamma: float):
+    """StepLR as a schedule over optimizer steps: the learning rate at
+    step ``count`` (the JAX package's optax schedule)."""
+    def schedule(count):
+        epoch = count // max(steps_per_epoch, 1)
+        return base_lr * (gamma ** (epoch // step_size_epochs))
+    return schedule
+
+
 def adam_steplr(params: Iterable[torch.Tensor], base_lr: float, *,
                 weight_decay: float = 0.0, step_size_epochs: int = 50,
                 gamma: float = 0.5, eps: float = 1e-8
@@ -27,4 +37,4 @@ def adam_steplr(params: Iterable[torch.Tensor], base_lr: float, *,
     return opt, sched
 
 
-__all__ = ["adam_steplr"]
+__all__ = ["adam_steplr", "step_lr"]

@@ -33,6 +33,7 @@ import torch
 from ..data.datasets import batch_iterator, leading_size, map_arrays
 from ..device import DeviceLike, resolve_device
 from ..graph.graph import Graph, MultiLevelGraph
+from ..parallel import allreduce_grads, global_sum
 from ..utils.losses import LpLoss
 from .optim import adam_steplr
 
@@ -74,19 +75,29 @@ def _decoded_rel_l2(task: Task, lp: LpLoss, pred, y, mask, batch):
     return lp.rel(dec_p, dec_y)
 
 
-def make_loss_fn(task: Task, loss_type: str):
+def make_loss_fn(task: Task, loss_type: str, data_group=None):
     """loss_fn(params, batch) -> (loss, metrics): the backward loss and
-    the detached masked MSE, decoded rel-L2 sum and batch size."""
+    the detached masked MSE, decoded rel-L2 sum and batch size.
+
+    With ``data_group`` (the 'data' axis of a mesh), each rank holds its
+    block of the batch: the L1 and rel-L2 losses are sums over the batch,
+    so each rank's own sum is its share, while the MSE divides by the
+    mask count of the whole batch (summed over the group). The metrics
+    are the whole batch's; the returned loss is the rank's share."""
     if loss_type not in ("l1", "mse", "rel2"):
         raise ValueError(f"unknown loss {loss_type!r}")
     lp = LpLoss(size_average=False)
+
+    def total(v):
+        return v if data_group is None else global_sum(v, data_group)
 
     def loss_fn(params, batch):
         pred = task.forward(params, batch)        # [B, N, out]
         y = task.targets(batch)                   # [B, N, out]
         mask = task.mask(batch).to(pred.dtype)    # [B, N]
         diff = pred[..., 0] * mask - y[..., 0] * mask
-        mse = torch.sum(diff ** 2) / torch.clamp(torch.sum(mask), min=1.0)
+        mse = torch.sum(diff ** 2) / torch.clamp(total(torch.sum(mask)),
+                                                 min=1.0)
         if loss_type == "l1":
             loss = torch.sum(torch.abs(diff))
         elif loss_type == "mse":
@@ -95,16 +106,28 @@ def make_loss_fn(task: Task, loss_type: str):
             loss = _decoded_rel_l2(task, lp, pred, y, mask, batch)
         with torch.no_grad():
             l2 = _decoded_rel_l2(task, lp, pred, y, mask, batch)
+        batch_size = float(pred.shape[0])
+        if data_group is not None:
+            mse, l2 = total(mse), total(l2)
+            batch_size = float(total(torch.tensor(batch_size,
+                                                  device=pred.device)))
         return loss, {"mse": mse.detach(), "l2_sum": l2,
-                      "batch": float(pred.shape[0])}
+                      "batch": batch_size}
 
     return loss_fn
 
 
-def make_train_step(task: Task, optimizer: torch.optim.Optimizer):
+def make_train_step(task: Task, optimizer: torch.optim.Optimizer,
+                    data_group=None):
     """train_step(params, batch) -> metrics: one optimizer step on the
-    leaves of ``params`` (the tensors ``optimizer`` holds), in place."""
-    loss_fn = make_loss_fn(task, task.loss_type)
+    leaves of ``params`` (the tensors ``optimizer`` holds), in place.
+
+    Data parallel with ``data_group``: every rank passes its block of
+    the batch (parallel.batch_sharding) and the gradients are summed
+    over the group before the step (the losses are sums, or the MSE's
+    share of the global count; see make_loss_fn), so every rank takes
+    the step of the whole batch. The reported loss is the whole batch's."""
+    loss_fn = make_loss_fn(task, task.loss_type, data_group)
 
     def train_step(params, batch):
         optimizer.zero_grad(set_to_none=True)
@@ -114,10 +137,14 @@ def make_train_step(task: Task, optimizer: torch.optim.Optimizer):
         # convs) gets a zero gradient, as jax.grad gives it: Adam then
         # applies weight decay and its moment updates to it, as optax
         # does, instead of skipping it
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        leaves = [p for group in optimizer.param_groups
+                  for p in group["params"]]
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if data_group is not None:
+            allreduce_grads(leaves, data_group)
+            loss = global_sum(loss, data_group)
         optimizer.step()
         metrics["loss"] = loss.detach()
         return metrics

@@ -851,3 +851,83 @@ def test_gkn_fp8_grads_on_card_match_cpu(dev, k_storage, dtype, tol,
     assert _rel(out, want_out) <= (1e-4 if dtype is None else 5e-3)
     for j, (a, b) in enumerate(zip(grads, want)):
         assert _rel(a, b) <= tol, j
+
+
+_SHARDED_RANK = r'''
+import json, sys
+import numpy as np
+import torch
+from graph_pde_tpu_torch import parallel as par
+from graph_pde_tpu_torch.graph import build_graph
+from graph_pde_tpu_torch.models import GKNConfig, gkn_init
+from graph_pde_tpu_torch.ops.fused_edge_conv import fused_edge_messages
+
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+par.initialize(f"localhost:{port}", 2, rank)
+assert torch.distributed.get_backend() == "gloo"
+rng = np.random.default_rng(7)
+n, e = 500, 9000
+g = build_graph(rng.normal(size=(n, 6)), rng.integers(0, n, e),
+                rng.integers(0, n, e), rng.normal(size=(e, 6)))
+cfg = GKNConfig(width=64, ker_width=256, depth=2, impl="pallas",
+                kernel_layers=(6, 128, 256, 4096))
+p = gkn_init(torch.Generator().manual_seed(3), cfg, device="cuda")
+mesh = par.make_mesh((2,), ("data",))
+parts = par.partition_graph(g, 2)
+fused_edge_messages.launches = fused_edge_messages.simt_launches = 0
+with torch.no_grad():
+    y = par.gkn_apply_node_sharded(p, cfg, parts, mesh, impl="pallas")
+torch.cuda.synchronize()
+np.save(f"{out}/rank{rank}.npy", y.cpu().numpy())
+with open(f"{out}/rank{rank}.json", "w") as f:
+    json.dump([fused_edge_messages.launches,
+               fused_edge_messages.simt_launches], f)
+torch.distributed.destroy_process_group()
+'''
+
+
+def test_node_sharded_gkn_two_ranks_on_one_card(dev, tmp_path):
+    """Two ranks share cuda:0 over gloo through the node-sharded GKN
+    forward with impl='pallas': each launches K1 (SIMT form) once a
+    depth step on its edge bucket, whose senders index the all-gathered
+    features; the gathered output equals the single-process forward
+    within 1e-4 of its max-abs on the valid nodes."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SHARDED_RANK, str(r), str(port),
+         str(tmp_path)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out}"
+    rng = np.random.default_rng(7)
+    n, e = 500, 9000
+    g = build_graph(rng.normal(size=(n, 6)), rng.integers(0, n, e),
+                    rng.integers(0, n, e), rng.normal(size=(e, 6)))
+    cfg = GKNConfig(width=64, ker_width=256, depth=2, impl="pallas",
+                    kernel_layers=(6, 128, 256, 4096))
+    p = gkn_init(torch.Generator().manual_seed(3), cfg, device=dev)
+    with torch.no_grad():
+        want = gkn_apply(p, cfg, g.to(dev))[:n]
+    for r in range(2):
+        got = torch.from_numpy(np.load(tmp_path / f"rank{r}.npy"))[:n]
+        assert _rel(got, want.cpu()) <= 1e-4
+        with open(tmp_path / f"rank{r}.json") as f:
+            assert json.load(f) == [cfg.depth, cfg.depth]

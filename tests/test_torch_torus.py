@@ -229,6 +229,20 @@ def test_prefetch_to_device_matches_jax():
         assert t["a"].dtype == torch.float32
     with pytest.raises(RuntimeError, match="no CUDA"):
         next(tdata.prefetch_to_device(iter([stacked])))
+    # with a sharding (a function from a batch to this rank's part, as
+    # functools.partial(parallel.batch_sharding, mesh) is), each batch is
+    # cut on the host before its copy: the second half of each batch
+    order = np.random.default_rng(1)
+    part = list(tdata.prefetch_to_device(
+        tdata.batch_iterator(stacked, 2, order), size=2, device="cpu",
+        sharding=lambda b: tdata.map_arrays(lambda a: a[a.shape[0] // 2:],
+                                            b)))
+    assert len(part) == len(tb)
+    for p, t in zip(part, tb):
+        for k in ("a", "b"):
+            n = t[k].shape[0]
+            np.testing.assert_array_equal(p[k].numpy(),
+                                          t[k][n // 2:].numpy())
 
 
 def _dense_params(layers, seed):

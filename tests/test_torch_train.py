@@ -28,7 +28,8 @@ from graph_pde_tpu_torch.train import (GKNTask, MetricsLogger, TrainConfig,
                                        adam_steplr, evaluate, fit,
                                        latest_step, make_train_step,
                                        param_leaves, restore_checkpoint,
-                                       save_checkpoint, trainable)
+                                       save_checkpoint, step_lr,
+                                       trainable)
 from graph_pde_tpu_torch.utils import losses as tlosses
 
 
@@ -141,7 +142,8 @@ def test_batch_iterator_order_matches(fields):
 def test_adam_steplr_matches_optax():
     """Six steps over two epochs (3 steps each, the lr halves after the
     first): the torch Adam + StepLR trajectory equals the JAX optax
-    chain's, and the lr equals the JAX schedule at every step."""
+    chain's, and the lr equals the JAX schedule at every step; the
+    port's step_lr equals JAX's step_lr."""
     rng = np.random.default_rng(1)
     p0 = rng.normal(size=(5, 4)).astype(np.float32)
     grads = rng.normal(size=(6, 5, 4)).astype(np.float32)
@@ -164,6 +166,13 @@ def test_adam_steplr_matches_optax():
             sched.step()
         # Adam's float32 moments: 1e-6 of the parameters' max-abs
         assert _rel(tp.detach().numpy(), jp) <= 1e-6, t
+    # the port's step_lr schedule over 3 epochs of 4 steps, a step every
+    # 2 epochs
+    jsch, tsch = joptim.step_lr(1e-3, 4, 2, 0.5), step_lr(1e-3, 4, 2, 0.5)
+    for count in range(12):
+        assert tsch(count) == pytest.approx(float(jsch(count)), rel=1e-7)
+    assert tsch(11) == 0.5e-3 and tsch(7) == 1e-3
+
 
 
 # ----------------------------------------------------------- train steps
