@@ -1,0 +1,7 @@
+"""Percent of the traced serving window with no device operation
+running (torch.profiler's device events, their intervals' union)."""
+from benchmark import readers
+
+
+def read(ctx):
+    return readers.idle_share(ctx)
