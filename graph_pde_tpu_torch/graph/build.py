@@ -6,8 +6,11 @@ included, with ``edge[0] = sender`` and ``edge[1] = receiver``, sorted by
 (sender, receiver). ``method='tree'`` tries the compiled cell-list builder
 (``graph.native``, built with g++ at first use) and falls back to scipy's
 cKDTree where no toolchain exists; ``'dense'`` is the exact O(n^2)
-threshold. All three give the same edge set as the JAX package's builders
-after the final lexsort.
+threshold. All three give the same edge set as the JAX package's
+builders after the final lexsort. While a recording is open
+(``utils.tracing``) the counters ``radius_native`` and ``radius_tree``
+count the calls each builder answered, and ``radius_edges`` the edges
+returned.
 
 ``torus2d_connectivity`` keeps the true periodic metric on [0, 1]^2 (the
 minimum over all 9 shifted copies), where the reference's aliasing of its
@@ -19,6 +22,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils import tracing
 from . import native
 
 
@@ -63,8 +67,12 @@ def radius_connectivity(
             src, dst = native.native_radius(points, points_b, r)
         except RuntimeError:
             src, dst = _tree_radius(points, points_b, r)
+            tracing.count("radius_tree")
+        else:
+            tracing.count("radius_native")
     else:
         raise ValueError(f"unknown method {method!r}")
+    tracing.count("radius_edges", len(src))
     order = np.lexsort((dst, src))
     return np.stack([src[order], dst[order]])
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..utils import tracing
 
 # Edge-block size of the receiver-span bound (the JAX package's
 # ops/segment.py _SORTED_BLOCK_EB); also the edge padding multiple.
@@ -61,13 +62,21 @@ def _to_tensor(a, device: torch.device):
     if a is None:
         return None
     if isinstance(a, torch.Tensor):
-        return a.to(device)
-    a = np.asarray(a)
-    if a.dtype == np.bool_:
-        return torch.as_tensor(a, device=device)
-    if np.issubdtype(a.dtype, np.integer):
-        return torch.as_tensor(a.astype(np.int64), device=device)
-    return torch.as_tensor(a.astype(np.float32), device=device)
+        on_host = a.device.type == "cpu"
+        t = a.to(device)
+    else:
+        on_host = True
+        a = np.asarray(a)
+        if a.dtype == np.bool_:
+            t = torch.as_tensor(a, device=device)
+        elif np.issubdtype(a.dtype, np.integer):
+            t = torch.as_tensor(a.astype(np.int64), device=device)
+        else:
+            t = torch.as_tensor(a.astype(np.float32), device=device)
+    if on_host and device.type != "cpu":
+        tracing.count("h2d_copies")
+        tracing.count("h2d_bytes", t.nbytes)
+    return t
 
 
 _ARRAY_FIELDS = ("x", "senders", "receivers", "edge_attr", "n_node",

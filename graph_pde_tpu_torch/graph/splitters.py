@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import tracing
 from ..utils.filters import gaussian_filter
 from . import build
 from .graph import (Graph, MultiLevelGraph, build_graph,
@@ -136,64 +137,77 @@ class RandomMultiMeshSplitter:
         their (mid, down, up) capacities). theta_a: [n] field of the
         edge attributes; theta_all: [n, k] node features appended to the
         coordinates. ``caps`` are minimums: a split whose edges exceed
-        them grows them."""
-        theta_a = np.asarray(theta_a).reshape(self.n)
-        theta_all = np.asarray(theta_all).reshape(self.n, -1)
-        raw = []
-        index = 0
-        for i in range(self.splits):
-            idx, idx_all = self.sample(new_sample=(i == 0), index0=index)
-            index = (index + self.m) % self.n
-            grids = [self.grid[ids] for ids in idx]
-            grid_all = self.grid[idx_all]
-            th = theta_a[idx_all]
+        them grows them. Spans: ``split``, and inside it one
+        ``split.connect`` a window (its radius graphs and edge
+        attributes) and ``split.pad`` (every window padded to the
+        caps)."""
+        with tracing.span("split"):
+            theta_a = np.asarray(theta_a).reshape(self.n)
+            theta_all = np.asarray(theta_all).reshape(self.n, -1)
+            raw = []
+            index = 0
+            for i in range(self.splits):
+                with tracing.span("split.connect"):
+                    raw.append(self._connect(radius_inner, radius_inter,
+                                             theta_a, theta_all, i, index))
+                index = (index + self.m) % self.n
 
-            mid_e, mid_a = [], []
-            off = 0
-            for l in range(self.level):
-                ei = build.radius_connectivity(grids[l], radius_inner[l])
-                mid_e.append(ei + off)
-                mid_a.append(build.edge_attributes(grid_all, ei + off,
-                                                   theta=th))
-                off += grids[l].shape[0]
-            down_e, down_a, up_e, up_a = [], [], [], []
-            off = 0
-            for l in range(self.level - 1):
-                ei = build.radius_connectivity(
-                    grids[l], radius_inter[l], points_b=grids[l + 1])
-                ei = ei + off
-                ei[1] += grids[l].shape[0]
-                down_e.append(ei)
-                up_e.append(ei[[1, 0]])
-                down_a.append(build.edge_attributes(grid_all, ei, theta=th))
-                up_a.append(build.edge_attributes(grid_all, ei[[1, 0]],
-                                                  theta=th))
-                off += grids[l].shape[0]
-
-            x = np.concatenate([grid_all, theta_all[idx_all]], axis=1)
-            raw.append((x, mid_e, mid_a, down_e, down_a, up_e, up_a,
-                        idx[0]))
-
-        need_mid = tuple(
-            round_up(max(r[1][l].shape[1] for r in raw), edge_multiple)
-            for l in range(self.level))
-        need_down = tuple(
-            round_up(max(r[3][l].shape[1] for r in raw), edge_multiple)
-            for l in range(self.level - 1))
-        if caps is None:
-            caps = (need_mid, need_down, need_down)
-        else:
-            caps = (tuple(max(a, b) for a, b in zip(caps[0], need_mid)),
-                    tuple(max(a, b) for a, b in zip(caps[1], need_down)),
-                    tuple(max(a, b) for a, b in zip(caps[2], need_down)))
-        graphs = [
-            build_multilevel_graph(
-                x, self.ms, mid_e, mid_a, down_e, down_a, up_e, up_a,
-                sample_idx=si, mid_caps=caps[0], down_caps=caps[1],
-                up_caps=caps[2])
-            for (x, mid_e, mid_a, down_e, down_a, up_e, up_a, si) in raw
-        ]
+            need_mid = tuple(
+                round_up(max(r[1][l].shape[1] for r in raw), edge_multiple)
+                for l in range(self.level))
+            need_down = tuple(
+                round_up(max(r[3][l].shape[1] for r in raw), edge_multiple)
+                for l in range(self.level - 1))
+            if caps is None:
+                caps = (need_mid, need_down, need_down)
+            else:
+                caps = (tuple(max(a, b) for a, b in zip(caps[0], need_mid)),
+                        tuple(max(a, b) for a, b in zip(caps[1], need_down)),
+                        tuple(max(a, b) for a, b in zip(caps[2], need_down)))
+            with tracing.span("split.pad"):
+                graphs = [
+                    build_multilevel_graph(
+                        x, self.ms, mid_e, mid_a, down_e, down_a, up_e, up_a,
+                        sample_idx=si, mid_caps=caps[0], down_caps=caps[1],
+                        up_caps=caps[2])
+                    for (x, mid_e, mid_a, down_e, down_a, up_e, up_a, si)
+                    in raw
+                ]
         return graphs, caps
+
+    def _connect(self, radius_inner, radius_inter, theta_a, theta_all,
+                 i: int, index: int) -> tuple:
+        """Split i's node draws (from ``index``), node features and
+        unpadded per-level edge lists with their attributes."""
+        idx, idx_all = self.sample(new_sample=(i == 0), index0=index)
+        grids = [self.grid[ids] for ids in idx]
+        grid_all = self.grid[idx_all]
+        th = theta_a[idx_all]
+
+        mid_e, mid_a = [], []
+        off = 0
+        for l in range(self.level):
+            ei = build.radius_connectivity(grids[l], radius_inner[l])
+            mid_e.append(ei + off)
+            mid_a.append(build.edge_attributes(grid_all, ei + off,
+                                               theta=th))
+            off += grids[l].shape[0]
+        down_e, down_a, up_e, up_a = [], [], [], []
+        off = 0
+        for l in range(self.level - 1):
+            ei = build.radius_connectivity(
+                grids[l], radius_inter[l], points_b=grids[l + 1])
+            ei = ei + off
+            ei[1] += grids[l].shape[0]
+            down_e.append(ei)
+            up_e.append(ei[[1, 0]])
+            down_a.append(build.edge_attributes(grid_all, ei, theta=th))
+            up_a.append(build.edge_attributes(grid_all, ei[[1, 0]],
+                                              theta=th))
+            off += grids[l].shape[0]
+
+        x = np.concatenate([grid_all, theta_all[idx_all]], axis=1)
+        return (x, mid_e, mid_a, down_e, down_a, up_e, up_a, idx[0])
 
     def assembler(self, out_list: Sequence[np.ndarray],
                   sample_idx_list: Sequence[np.ndarray]) -> np.ndarray:

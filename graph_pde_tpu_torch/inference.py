@@ -23,6 +23,15 @@ to decoded solutions at the training resolution ``cfg.s`` (the level
 hierarchy is baked into the weights), all n samples as one batch.
 
 Predictors run on CUDA unless given ``device="cpu"``.
+
+Spans (``utils.tracing``): ``predict`` around each predictor's call,
+``predict.encode`` (auxiliary fields and input encoding) inside it; the
+general MGKN's windows add ``split`` (the splitter), one ``window`` a
+window with ``window.h2d`` (its graph to the device),
+``window.forward`` (the model's enqueue) and ``window.readback`` (the
+wait for the device and the copy back), and ``assemble`` (decode and
+stitch). Counters: ``readbacks`` and ``readback_bytes``, each device
+tensor copied back to the host.
 """
 from __future__ import annotations
 
@@ -41,10 +50,14 @@ from .models.mgkn_general import MGKNGeneralConfig, mgkn_general_apply
 from .models.mgkn_orthogonal import (MGKNOrthogonalConfig,
                                      mgkn_orthogonal_apply_batched,
                                      multipole_batch)
+from .utils import tracing
 
 
 def _np(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
+        if t.device.type == "cuda":
+            tracing.count("readbacks")
+            tracing.count("readback_bytes", t.nbytes)
         return t.detach().cpu().numpy()
     return np.asarray(t)
 
@@ -143,15 +156,17 @@ class GKNPredictor:
         """coeff (+ optional smoothed/gradient fields): [n, s, s].
         Missing auxiliary fields are derived. Returns decoded solutions
         [n, s*s]."""
-        coeff = np.asarray(coeff)
-        n, s = coeff.shape[0], coeff.shape[1]
-        _check_unit_norm_resolution(self.u_normalizer, s * s, "gkn")
-        kcoeff, kx, ky = derive_aux_fields(coeff, kcoeff, kx, ky, s)
-        fields = _encode_darcy(self.input_normalizers, coeff, kcoeff, kx,
-                               ky)
-        if s * s > self.split_threshold:
-            return self._predict_split(fields, s)
-        return self._predict_full(fields, s)
+        with tracing.span("predict"):
+            coeff = np.asarray(coeff)
+            n, s = coeff.shape[0], coeff.shape[1]
+            _check_unit_norm_resolution(self.u_normalizer, s * s, "gkn")
+            with tracing.span("predict.encode"):
+                kcoeff, kx, ky = derive_aux_fields(coeff, kcoeff, kx, ky, s)
+                fields = _encode_darcy(self.input_normalizers, coeff,
+                                       kcoeff, kx, ky)
+            if s * s > self.split_threshold:
+                return self._predict_split(fields, s)
+            return self._predict_full(fields, s)
 
     def _predict_full(self, fields, s) -> np.ndarray:
         n = fields["a"].shape[0]
@@ -226,28 +241,31 @@ class MGKNGeneralPredictor:
         """coeff (+ optional smoothed/gradient fields): [n, s, s]. Missing
         auxiliary fields are derived. Returns decoded solutions
         [n, s*s]."""
-        coeff = np.asarray(coeff)
-        n, s = coeff.shape[0], coeff.shape[1]
-        _check_unit_norm_resolution(self.u_normalizer, s * s,
-                                    "mgkn_general")
-        kcoeff, kx, ky = derive_aux_fields(coeff, kcoeff, kx, ky, s)
-        enc = _encode_darcy(self.input_normalizers, coeff, kcoeff, kx, ky)
-        if s not in self._splitters:
-            self._splitters[s] = RandomMultiMeshSplitter(
-                [[0, 1], [0, 1]], [s, s], level=len(self.cfg.points),
-                sample_sizes=list(self.cfg.points), seed=self.seed)
-        sp = self._splitters[s]
-        out = np.zeros((n, s * s), np.float32)
-        caps = None
-        for j in range(n):
-            theta_all = np.stack([enc["a"][j], enc["a_smooth"][j],
-                                  enc["a_gradx"][j], enc["a_grady"][j]],
-                                 axis=1)
-            out[j], caps = mgkn_split_predict(
-                self.params, self.cfg, sp, self.radius_inner,
-                self.radius_inter, theta_all, caps, self.u_normalizer,
-                self.device)
-        return out
+        with tracing.span("predict"):
+            coeff = np.asarray(coeff)
+            n, s = coeff.shape[0], coeff.shape[1]
+            _check_unit_norm_resolution(self.u_normalizer, s * s,
+                                        "mgkn_general")
+            with tracing.span("predict.encode"):
+                kcoeff, kx, ky = derive_aux_fields(coeff, kcoeff, kx, ky, s)
+                enc = _encode_darcy(self.input_normalizers, coeff, kcoeff,
+                                    kx, ky)
+            if s not in self._splitters:
+                self._splitters[s] = RandomMultiMeshSplitter(
+                    [[0, 1], [0, 1]], [s, s], level=len(self.cfg.points),
+                    sample_sizes=list(self.cfg.points), seed=self.seed)
+            sp = self._splitters[s]
+            out = np.zeros((n, s * s), np.float32)
+            caps = None
+            for j in range(n):
+                theta_all = np.stack([enc["a"][j], enc["a_smooth"][j],
+                                      enc["a_gradx"][j], enc["a_grady"][j]],
+                                     axis=1)
+                out[j], caps = mgkn_split_predict(
+                    self.params, self.cfg, sp, self.radius_inner,
+                    self.radius_inter, theta_all, caps, self.u_normalizer,
+                    self.device)
+            return out
 
 
 def mgkn_split_predict(params, cfg: MGKNGeneralConfig,
@@ -261,14 +279,21 @@ def mgkn_split_predict(params, cfg: MGKNGeneralConfig,
     decoded field [n], the window capacities, at least ``caps``)."""
     shards, caps = sp.splitter(list(radius_inner), list(radius_inter),
                                theta_all[:, 0], theta_all, caps=caps)
-    outs, idxs = [], []
+    preds = []
     with torch.inference_mode():
         for g in shards:
-            pred = _np(mgkn_general_apply(params, cfg, g.to(device))[:, 0])
-            idx = np.asarray(g.sample_idx)
-            outs.append(_decode_rows(u_normalizer, pred, idx))
-            idxs.append(idx)
-    return sp.assembler(outs, idxs), caps
+            with tracing.span("window"):
+                with tracing.span("window.h2d"):
+                    gd = g.to(device)
+                with tracing.span("window.forward"):
+                    out = mgkn_general_apply(params, cfg, gd)[:, 0]
+                with tracing.span("window.readback"):
+                    preds.append(_np(out))
+    with tracing.span("assemble"):
+        idxs = [np.asarray(g.sample_idx) for g in shards]
+        outs = [_decode_rows(u_normalizer, pred, idx)
+                for pred, idx in zip(preds, idxs)]
+        return sp.assembler(outs, idxs), caps
 
 
 @dataclasses.dataclass
@@ -292,23 +317,25 @@ class MGKNOrthogonalPredictor:
         Returns decoded solutions [n, s]."""
         from .data.datasets import BurgersArrays, burgers_multipole_data
 
-        a = np.asarray(a, np.float32)
-        n, s = a.shape
-        if s != self.cfg.s:
-            raise ValueError(
-                f"orthogonal MGKN serves at its training resolution "
-                f"s={self.cfg.s} (the level hierarchy is baked into the "
-                f"weights); got s={s}")
-        enc = _np(self.a_normalizer.encode(a))
-        arrays = BurgersArrays(a=enc, u=np.zeros_like(enc),
-                               a_normalizer=self.a_normalizer,
-                               u_normalizer=self.u_normalizer, s=s)
-        batch = multipole_batch(*burgers_multipole_data(arrays))
-        with torch.inference_mode():
-            pred = mgkn_orthogonal_apply_batched(
-                self.params, self.cfg, batch.to(self.device))
-            pred = _np(pred[:, :, 0])
-        return _np(self.u_normalizer.decode(pred))
+        with tracing.span("predict"):
+            a = np.asarray(a, np.float32)
+            n, s = a.shape
+            if s != self.cfg.s:
+                raise ValueError(
+                    f"orthogonal MGKN serves at its training resolution "
+                    f"s={self.cfg.s} (the level hierarchy is baked into "
+                    f"the weights); got s={s}")
+            with tracing.span("predict.encode"):
+                enc = _np(self.a_normalizer.encode(a))
+            arrays = BurgersArrays(a=enc, u=np.zeros_like(enc),
+                                   a_normalizer=self.a_normalizer,
+                                   u_normalizer=self.u_normalizer, s=s)
+            batch = multipole_batch(*burgers_multipole_data(arrays))
+            with torch.inference_mode():
+                pred = mgkn_orthogonal_apply_batched(
+                    self.params, self.cfg, batch.to(self.device))
+                pred = _np(pred[:, :, 0])
+            return _np(self.u_normalizer.decode(pred))
 
 
 def _largest_divisor_leq(n: int, m: int) -> int:

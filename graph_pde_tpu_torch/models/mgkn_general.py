@@ -31,6 +31,11 @@ A batch runs as one flattened graph per edge list: sample b's mid edges
 offset by b * n_l (local indices on the level's slice), its down and up
 edges by b * N_tot; each level's slice is taken on the [B, N_tot, w]
 view. The impl gate sees one sample's edge count.
+
+Spans (``utils.tracing``): ``kbuild`` around the kcached K build, and
+one ``conv.mid``, ``conv.down`` or ``conv.up`` around each conv (its
+gather, contraction, aggregation and root weight), 7 a V-cycle at
+three levels.
 """
 from __future__ import annotations
 
@@ -46,9 +51,11 @@ from ..ops.dense import (dense_apply, dense_init, linear_init,
                          pyg_uniform_init)
 from ..ops.edge_conv import _cast_params, _resolve_dtype, edge_kernel_conv
 from ..ops.segment import gather_rows, masked_segment_mean
+from ..utils import tracing
 from .gkn import params_to
 
 VARIANTS = ("mkgn", "induced", "single")
+_CONV_SPANS = {"mid": "conv.mid", "down": "conv.down", "up": "conv.up"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,12 +213,15 @@ def _forward(params, cfg: MGKNGeneralConfig, g: MultiLevelGraph):
         "up": [] if single else [_edges(g, "up", l, n_tot)
                                  for l in range(cfg.level - 1)],
     }
-    kks = (_precompute_kernels(params, cfg, edges, dtype)
-           if cfg.impl == "kcached" else None)
+    kks = None
+    if cfg.impl == "kcached":
+        with tracing.span("kbuild"):
+            kks = _precompute_kernels(params, cfg, edges, dtype)
 
     def conv(x, kind, l):
-        return _conv(x, edges[kind][l], params[f"conv_{kind}"][l], cfg,
-                     dtype, None if kks is None else kks[kind][l])
+        with tracing.span(_CONV_SPANS[kind]):
+            return _conv(x, edges[kind][l], params[f"conv_{kind}"][l], cfg,
+                         dtype, None if kks is None else kks[kind][l])
 
     def mid(x3, l):
         """K_ll on level l's slice of every sample: [B, n_l, w]."""

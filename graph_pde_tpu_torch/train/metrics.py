@@ -19,6 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 
 class MetricsLogger:
     """Per-epoch metric stream: stdout line + JSONL file + in-memory
@@ -69,14 +71,17 @@ class MetricsLogger:
 def profile_trace(log_dir: str):
     """Captures a ``torch.profiler`` trace of the enclosed block (CPU
     and, where there is one, CUDA activity) and writes it as
-    ``<log_dir>/trace.json`` (Chrome trace format). Yields the
-    profiler, whose ``key_averages()`` sums the time by operator."""
+    ``<log_dir>/trace.json`` (Chrome trace format). The program's spans
+    (``utils.tracing``) enter it as ranges above the operators and
+    kernels they launched. Yields the profiler, whose
+    ``key_averages()`` sums the time by operator and span."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with torch.profiler.profile(activities=acts) as prof:
-        yield prof
+        with tracing.recording(profiler_ranges=True):
+            yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 

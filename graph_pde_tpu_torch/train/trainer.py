@@ -34,6 +34,7 @@ from ..data.datasets import batch_iterator, leading_size, map_arrays
 from ..device import DeviceLike, resolve_device
 from ..graph.graph import Graph, MultiLevelGraph
 from ..parallel import allreduce_grads, global_sum
+from ..utils import tracing
 from ..utils.losses import LpLoss
 from .optim import adam_steplr
 
@@ -126,28 +127,37 @@ def make_train_step(task: Task, optimizer: torch.optim.Optimizer,
     the batch (parallel.batch_sharding) and the gradients are summed
     over the group before the step (the losses are sums, or the MSE's
     share of the global count; see make_loss_fn), so every rank takes
-    the step of the whole batch. The reported loss is the whole batch's."""
+    the step of the whole batch. The reported loss is the whole batch's.
+
+    Spans (``utils.tracing``): ``train_step`` around the call, and in it
+    ``forward`` (the loss), ``backward`` (``loss.backward()``) and
+    ``optimizer`` (the zero-gradient fill, the data-parallel sum and
+    the optimizer's step)."""
     loss_fn = make_loss_fn(task, task.loss_type, data_group)
 
     def train_step(params, batch):
-        optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(params, batch)
-        loss.backward()
-        # a leaf the forward never reached (the 'single' MGKN's other
-        # convs) gets a zero gradient, as jax.grad gives it: Adam then
-        # applies weight decay and its moment updates to it, as optax
-        # does, instead of skipping it
-        leaves = [p for group in optimizer.param_groups
-                  for p in group["params"]]
-        for p in leaves:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if data_group is not None:
-            allreduce_grads(leaves, data_group)
-            loss = global_sum(loss, data_group)
-        optimizer.step()
-        metrics["loss"] = loss.detach()
-        return metrics
+        with tracing.span("train_step"):
+            optimizer.zero_grad(set_to_none=True)
+            with tracing.span("forward"):
+                loss, metrics = loss_fn(params, batch)
+            with tracing.span("backward"):
+                loss.backward()
+            with tracing.span("optimizer"):
+                # a leaf the forward never reached (the 'single' MGKN's
+                # other convs) gets a zero gradient, as jax.grad gives
+                # it: Adam then applies weight decay and its moment
+                # updates to it, as optax does, instead of skipping it
+                leaves = [p for group in optimizer.param_groups
+                          for p in group["params"]]
+                for p in leaves:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if data_group is not None:
+                    allreduce_grads(leaves, data_group)
+                    loss = global_sum(loss, data_group)
+                optimizer.step()
+            metrics["loss"] = loss.detach()
+            return metrics
 
     return train_step
 
@@ -198,10 +208,20 @@ def _cpu_copy(params):
 
 def to_device(data, device: torch.device):
     """A stacked host dataset (Graph, MultiLevelGraph or tree of arrays)
-    on ``device``."""
+    on ``device``; each array's copy is counted as ``h2d_copies`` and
+    ``h2d_bytes`` where it leaves the host."""
     if isinstance(data, (Graph, MultiLevelGraph)):
         return data.to(device)
-    return map_arrays(lambda a: torch.as_tensor(a).to(device), data)
+    to_host = torch.device(device).type == "cpu"
+
+    def move(a):
+        t = torch.as_tensor(a)
+        if t.device.type == "cpu" and not to_host:
+            tracing.count("h2d_copies")
+            tracing.count("h2d_bytes", t.nbytes)
+        return t.to(device)
+
+    return map_arrays(move, data)
 
 
 @dataclasses.dataclass

@@ -931,3 +931,47 @@ def test_node_sharded_gkn_two_ranks_on_one_card(dev, tmp_path):
         assert _rel(got, want.cpu()) <= 1e-4
         with open(tmp_path / f"rank{r}.json") as f:
             assert json.load(f) == [cfg.depth, cfg.depth]
+
+
+def test_span_clock_matches_the_device_trace(dev):
+    """A program span (``utils.tracing``, stamped with time.time_ns())
+    around ``synchronize()`` after a ~2 ms device sleep ends just after
+    the sleep kernel does, as a device-only torch.profiler stamps it
+    (its raw events, read as ``benchmark/trace.py`` reads them).
+
+    The profiler converts the device's timestamps to the wall clock
+    with an error of its own in each session (0 to 0.45 ms on the H100,
+    the same for every event of one session). So the session's offset
+    is measured once as it opens, by the same probe after the session's
+    first launch, and taken out: then each of five later kernels ends
+    after its span opens and within 0.2 ms of the span's end."""
+    from torch.autograd import DeviceType
+
+    from graph_pde_tpu_torch.utils import tracing
+
+    def sleep_then_sync():
+        torch.cuda._sleep(4_000_000)
+        with tracing.span("sync"):
+            torch.cuda.synchronize()
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)        # the session's first launch
+        torch.cuda.synchronize()
+        with tracing.recording() as rec:
+            for _ in range(6):
+                sleep_then_sync()
+    kernels = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            f = getattr(e, "start_ns", None)
+            start = int(f()) if f else int(e.start_us() * 1e3)
+            kernels.append((start, int(e.duration_ns())))
+    ends = [start + dur for start, dur in sorted(kernels) if dur > 5e5]
+    assert len(ends) == len(rec.spans) == 6
+    raw = [t1 - end for end, (_, _, _, t1) in zip(ends, rec.spans)]
+    offset = raw[0]
+    print("span end - kernel end (ms): "
+          + ", ".join(f"{r * 1e-6:.4f}" for r in raw))
+    for end, (_, _, t0, t1) in zip(ends[1:], rec.spans[1:]):
+        assert t0 <= end + offset and abs(t1 - (end + offset)) <= 200_000
