@@ -82,8 +82,9 @@ Phases, each fatal on failure:
      B2-bwd dxj) within 1e-4 of float64, the kernels-plain distance
      logged;
   6. K1 (bf16, tensor cores beside the SIMT form on the same inputs),
-     B1-bwd (bf16 and fp32) and B2-bwd times at the full training
-     shapes, B3 (fp32 and bf16 K) at the uai1 full-graph shape, K2 and
+     B1-bwd (bf16 and fp32; bf16 with its tensor-core form's dx_dh, dw
+     and reduce kernels timed apart) and B2-bwd times at the full
+     training shapes, B3 (fp32 and bf16 K) at the uai1 full-graph shape, K2 and
      B2-bwd on the fp8 streams of the full uai1 graph: bounds, plain and
      library times, and the step time of each training path; beside the
      redesigned forms, the forms they replaced on the main path (K1 and
@@ -159,7 +160,8 @@ Phases, each fatal on failure:
      form) and B1-bwd (SIMT in fp32, tensor cores in bf16) at the torus
      conv (kappa (5, 32, 64, 1024), in = out = 32) on one shard (E_pad
      12,800) and a batch of 4 (51,200), every output, a second launch
-     bit-identical, timed beside bounds and plain versions; `run
+     bit-identical, timed beside bounds and plain versions (B1-bwd's
+     tensor-core kernels apart); `run
      grain_torus_timeseries` at full width (TORUS_EPOCHS epochs, not
      24) under the registry's kcached (no launch) and `--set impl=auto`
      (each step K1 general 3, B1-bwd simt 3; the evaluation K1 general
@@ -1973,19 +1975,46 @@ def phase_cli(warm_fused_uai1_ms: float) -> dict:
     return dict(launches=launches, uai1_unfused_warm_step_ms=warm)
 
 
-def profile_kernels(name, fn, phase=6) -> None:
-    """Device time of each CUDA kernel in one call of ``fn``, from a
-    torch.profiler trace (written under results/)."""
+def profile_kernels(name, fn, phase=6, reps=1) -> list:
+    """Device time of each CUDA kernel in ``reps`` calls of ``fn``, from
+    a torch.profiler trace (written under results/), logged and returned
+    as ``kernel_rows``. Calls of a few microseconds want several: late in
+    a run, the profile of such a call loses launches."""
     import torch
 
     from graph_pde_tpu_torch.train import profile_trace
 
     with profile_trace(f"results/profile_{name}") as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    for ms, count, key in kernel_rows(prof):
+    rows = kernel_rows(prof)
+    for ms, count, key in rows:
         log(f"phase {phase}: {name} profile: {key[:60]}: {ms:.3f} ms x "
             f"{count}")
+    return rows
+
+
+# B1-bwd's tensor-core kernels, by the names the benchmark's
+# b1_bwd_roofline.train reads, and their launches a call (reduce: dWl's
+# and dbl's)
+B1_TC_KERNELS = (("dx_dh", re.compile(r"tc::dx_dh_kernel"), 1),
+                 ("dw", re.compile(r"tc::dw_kernel"), 1),
+                 ("reduce",
+                  re.compile(r"^\(anonymous namespace\)::reduce_kernel"), 2))
+
+
+def b1_bwd_tc_kernels_ms(rows) -> dict:
+    """Device ms a call of each of B1-bwd's tensor-core kernels, from the
+    rows ``profile_kernels`` returns: its mean launch times its launches
+    a call, so that a profile that lost launches still reads true (None:
+    no launch of it in the profile)."""
+    out = {}
+    for name, pat, per_call in B1_TC_KERNELS:
+        hit = [(ms, count) for ms, count, key in rows if pat.search(key)]
+        n = sum(count for _, count in hit)
+        out[name] = per_call * sum(ms for ms, _ in hit) / n if n else None
+    return out
 
 
 def kernel_rows(prof) -> list:
@@ -2120,9 +2149,10 @@ def backward_times(g4, kp4, g1, kp1) -> dict:
                 old = lambda: b1_bwd_simt(x, g4.senders, h2, gg, wl, 64, dt)
                 t_old = [time_ms(old, 1), time_ms(old, 1)]
                 turns = [rec[key]["ms"], *t_old, time_ms(b1, 3)]
+                rows = profile_kernels("B1-bwd", b1)
                 rec[key].update(ms=(turns[0] + turns[3]) / 2, ms_turns=turns,
-                                previous_form_ms=sum(t_old) / 2)
-                profile_kernels("B1-bwd", b1)
+                                previous_form_ms=sum(t_old) / 2,
+                                kernels_ms=b1_bwd_tc_kernels_ms(rows))
         del h2
         e1, n1 = g1.senders.shape[0], g1.x.shape[0]
         mask = g1.edge_mask()
@@ -2155,7 +2185,8 @@ def backward_times(g4, kp4, g1, kp1) -> dict:
         log(f"phase 6: {name} ({r['shape']}): {r['ms']:.3f} ms, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}), library {r['library_ms']}, previous form "
-            f"{r.get('previous_form_ms')} ms, turns {r.get('ms_turns')}")
+            f"{r.get('previous_form_ms')} ms, turns {r.get('ms_turns')}, "
+            f"kernels {r.get('kernels_ms')}")
     return rec
 
 
@@ -3699,12 +3730,16 @@ def torus_kernels(batch, params, mcfg) -> tuple:
                            shape=f"{shape}, {tag}", **ops)
                 if not dt:
                     rec["grid"] = b1_simt_grid(e, kw, w, sms)
+                else:
+                    rec["kernels_ms"] = b1_bwd_tc_kernels_ms(profile_kernels(
+                        f"torus_E{e}_B1-bwd", b1, phase=11, reps=20))
                 times[f"B1-bwd {'tc' if dt else 'simt'} torus E{e}"] = rec
     for key, r in times.items():
         set_bound(r)
         log(f"phase 11: {key} ({r['shape']}): {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), grid {r.get('grid')}")
+            f"({r['bound_by']}), grid {r.get('grid')}, kernels "
+            f"{r.get('kernels_ms')}")
     return errs, times
 
 
@@ -5010,7 +5045,7 @@ def main(argv) -> int:
             # replaced design's time on the same inputs in this run
             rec["form"] = form
             for f in ("previous_form_ms", "device_ms",
-                      "previous_form_device_ms"):
+                      "previous_form_device_ms", "kernels_ms"):
                 if f in t:
                     rec[f] = t[f]
         rec.update(extra)
@@ -5121,8 +5156,8 @@ def main(argv) -> int:
             key = (f"{at} torus E{e} float32" if at == "K1 general"
                    else f"{at} torus E{e}")
             r["at_torus"][f"E{e}"] = {f: times[key][f] for f in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "grid")
-                if f in times[key]}
+                "ms", "plain_ms", "bound_ms", "bound_by", "grid",
+                "kernels_ms") if f in times[key]}
             if at == "K1 general":
                 bf = times[f"K1 general torus E{e} bfloat16"]
                 r["at_torus"][f"E{e} bf16"] = {

@@ -37,33 +37,52 @@
 //
 // The bf16 tensor-core form (compute_dtype='bfloat16'; kw % 8 == 0, out %
 // 8 == 0, out dividing 128; the GKN kappas) runs every product on the
-// bf16 tensor cores with fp32 accumulators, 128 x 128 block tiles fed by
-// a three-slab cp.async ring of 32-deep bf16 slabs in shared memory. The
-// caller casts h2 and Wl to bf16 once (and transposes Wl) so that their
-// slabs come by cp.async.
-//   tc::dx_dh_kernel, one block per 128 edges, keeps the tile's g and
-//     bf16(x[senders]) in shared memory; its two warpgroups issue wgmma
-//     m64n128k16 straight from the slabs, which are K-major in the
-//     64-byte swizzle the wgmma descriptors describe. (1) h3 = h2 @ Wl
-//     one 128-column tile at a time; a tile holds whole channels, so its
-//     epilogue multiplies the accumulators by g, meets the four lanes of
-//     a row by shuffles and sums each channel's n8 partials in a fixed
-//     order into dx_src. (2) dh2 = dpre @ Wl^T over the depth C, 128
-//     columns of dh2 at a time; each dpre slab is formed by the threads,
-//     rounded to bf16, into shared memory while the previous slab's
-//     products run.
+// bf16 tensor cores with fp32 accumulators, on Hopper's asynchronous
+// pipeline. The caller casts h2 and Wl to bf16 once (and transposes Wl);
+// the host entry re-encodes a TMA tensor map only where its tensor's
+// address or shape differs from the previous call's.
+// Each kernel is one block an SM of 384 threads: warp 8 is a TMA producer
+// that keeps a ring of up to eight 64-deep stages in the 128-byte
+// swizzle full (full/empty mbarriers), warps 9-11 load what TMA cannot
+// (gathers), and two consumer warpgroups (setmaxnreg 224) issue wgmma and
+// keep a group in flight (wgmma.wait_group 1 or 2, never 0 inside a loop).
+// No block-wide barrier runs after the start.
+//   tc::dx_dh_kernel, one block per 128 edges. The tile's h2 [128][kw]
+//     lands in shared memory once (streamed through the ring where it
+//     does not fit, kw > 448 at in = out = 64, with a ring of six stages
+//     at least, since a phase-1 slab then takes two); g and bf16(x[senders])
+//     are loaded by the loader warps. (1) h3 = h2 @ Wl, one 128-column
+//     tile at a time over the Wl^T stages, two accumulator sets in turn:
+//     the epilogue of tile t (times g, the four lanes of a row met by
+//     shuffles, each channel's columns folded in a fixed order into
+//     dx_src) runs while the second and third slabs of tile t + 1 are on
+//     the tensor cores. (2) dh2 = dpre @ Wl^T over the depth C, 256
+//     columns of dh2 a pass: dpre = bf16(bf16(x) * g) is formed in
+//     registers as the A fragments of wgmma m64n128k16 (A in registers,
+//     B the Wl stages), one set formed while the other set's products
+//     run.
 //   tc::dw_kernel: dWl = h2^T @ dpre split-K over edge ranges into
-//     partial slabs, on mma.sync m16n8k16 (eight warps of 64 x 32; both
-//     operands are edge-major in shared memory and ldmatrix.trans reads
-//     them); the blocks of the first kw tile also sum the fp32 dpre they
-//     form into a partial dbl, so dbl costs no pass of its own.
-//     reduce_kernel sums the partials in order s = 0, 1, ...:
-//     bit-repeatable, no atomics.
-// What holds it back (PERF.md): each slab's wgmma is waited on before
-// the next is issued, and the cp.async issue, the dpre formation and the
-// block barrier per 32-deep slab take the issue slots; dWl stays on
-// mma.sync. A warp-specialized TMA producer and MN-major wgmma for dWl
-// are the next steps.
+//     partial slabs (b1_bwd_tc_splits), block (kt, ct, s) a 128 x 256
+//     tile of dWl walked in 64-edge slabs: TMA brings h2 [64 e][128 k],
+//     g and the senders; the loader warps gather x[senders] (cp.async,
+//     completing on an mbarrier); the consumers form dpre [64 e][256 c]
+//     into one of three shared slots while the previous slab's products
+//     run, and issue wgmma m64n256k16 with both edge-major operands read
+//     through MN-major descriptors. The blocks of the first kw tile also
+//     sum the fp32 dpre they form into a partial dbl. reduce_kernel sums
+//     the partial slabs in order s = 0, 1, ...: bit-repeatable, no
+//     atomics.
+// What bounds it now, and what still holds it back: at the uai4 shape
+// (E 1.21 M, kw 256, C 4096) on an H100 the two kernels take about 14.5
+// and 7 ms against 5.2 and 2.6 ms of tensor-core time. Shared memory is
+// the tight resource: wgmma reading both operands from it, TMA writing
+// the stages and the threads reading g and writing dpre together ask
+// for about its 128 bytes a clock in phase 1 of dx_dh and in dw, so the
+// dx epilogue and the dpre formation cost nearly their full time even
+// where they overlap the products. Phase 2 runs at about 40 % of the
+// tensor rate with formation on its critical path. Next steps: dw with
+// dpre in registers (its A fragment is edge-transposed against g's
+// layout), a 2-CTA cluster multicasting the Wl stages, a persistent grid.
 // Neither h3 nor dpre ([E, C]) reaches device memory.
 //
 // The SIMT form (compute_dtype=None, and bf16 shapes outside the tiles):
@@ -96,6 +115,7 @@
 // 128 registers so that two blocks share an SM. ROUND_BF16 rounds as
 // above.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -104,6 +124,7 @@
 #include <type_traits>
 
 #include "sm90_tc.cuh"
+#include "sm90_async.cuh"
 
 namespace {
 
@@ -550,278 +571,421 @@ reduce_kernel(const float* __restrict__ part, int S, int64_t n,
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int BM = 128;      // block tile rows
-constexpr int BN = 128;      // block tile columns
-constexpr int BK = 32;       // depth of one slab (two k16 steps)
-constexpr int STAGES = 3;    // slabs in flight (cp.async ring)
-constexpr int SLAB = BM * BK * 2;    // bytes of a [128][32] or [32][128] slab
-constexpr int RED_LD = BN / 8 + 1;   // padded row of the dx partials
-// dx_dh_kernel's slab ring: phase 1's A and B slabs, or phase 2's B
-// slabs and two dpre slabs
-constexpr int RING = 2 * STAGES * SLAB;
+constexpr int BM = 128;          // edges of a dx/dh2 tile; dWl rows of a block
+constexpr int BN = 128;          // h3 columns of a dx tile
+constexpr int NT = 384;          // two consumer warpgroups, one producer
+constexpr int NC = 256;          // consumer threads
+constexpr int NF = 96;           // loader threads (producer warps 1-3)
+constexpr int TILE = BM * 64 * 2;     // a [128][64] bf16 tile: 16 KB
+constexpr int MAXST = 8;         // ring stages at most
+constexpr int XS = 4;            // dw's gathered-x buffers
+constexpr int SMEM_MAX = 232448;      // a block's shared memory on the H100
+constexpr int BAR_BYTES = 8 * (2 * MAXST + 2 * XS + 3);
+// named barriers (0 is __syncthreads)
+constexpr int BAR_LOAD = 1;      // the loader threads
+constexpr int BAR_CONS = 2;      // the consumer threads
 
-// A [32][128] bf16 slab: rows of sixteen chunks, XOR-ed with row % 8.
-__device__ __forceinline__ uint32_t off_n128(int row, int ch) {
-  return row * 256 + ((ch ^ (row & 7)) << 4);
-}
-
-__device__ __forceinline__ void ldsm4t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a . b on the bf16 tensor cores, fp32 accumulators (16 x 8 x 16)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A warp's accumulators: [m16 tile][n8 tile][fragment], fragment q at row
-// lane/4 + 8 * (q / 2), column 2 * (lane % 4) + q % 2 of its n8 tile.
-__device__ __forceinline__ void zero_acc(float (&acc)[4][4][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
-}
-
-// acc += A . B over one slab of depth 32 for this warp's 64 x 32 part of
-// a 128 x 128 tile (rows 64 * (warp % 2), columns 32 * (warp / 2)); A
-// [32 k][128 m] and B [32 k][128 n] slabs (m, n contiguous), read
-// transposed by ldmatrix.
-__device__ __forceinline__ void mma_slab_t(uint32_t sa, uint32_t sb,
-                                           float (&acc)[4][4][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int j = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    uint32_t a[4][4], b[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const int m = wm * 64 + mi * 16 + (j & 1) * 8;
-      ldsm4t(sa + off_n128(ks * 16 + (j >> 1) * 8 + r, m >> 3), a[mi]);
-    }
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-      const int n = wn * 32 + nj * 16 + (j >> 1) * 8;
-      ldsm4t(sb + off_n128(ks * 16 + (j & 1) * 8 + r, n >> 3), b[nj]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        mma16816(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2],
-                 b[ni >> 1][(ni & 1) * 2 + 1]);
-  }
-}
-
-constexpr size_t dx_dh_smem(int in_ch, int out_ch) {
-  return 512 + RING + sizeof(float) * BM * out_ch + sizeof(bf16) * BM * in_ch +
-         sizeof(float) * BM * RED_LD;
-}
-
-// in_ch bound of this form: with out_ch <= BN, the dx/dh2 kernel's shared
-// memory then fits one block's 227 KiB on the H100
+// in_ch bound of this form: with out_ch <= BN, the planners below still
+// find a pipeline for it (checked after them)
 constexpr int MAX_IN = 256;
-static_assert(dx_dh_smem(MAX_IN, BN) <= 232448,
+
+constexpr int up(int v, int a) { return (v + a - 1) / a * a; }
+
+// Shared memory of dx_dh_kernel, from its 1024-byte-aligned base: the ring
+// of `stages` TILE stages; the tile's h2 when it stays resident (`a_res`,
+// else it streams through the ring); g [BM][gld] fp32; bf16(x[senders])
+// [BM][in]; the barriers.
+struct DxDhPlan {
+  int stages, a_res, gld, region, g_off, x_off, bar_off, smem;
+};
+
+// Ring stages dx_dh_kernel holds at once. Phase 1 holds three slabs (the
+// previous tile's last two and the next tile's first, then slabs 0-2),
+// each one stage with h2 resident and two (h2 and Wl^T) with h2 streamed;
+// phase 2 holds two slabs of up to two stages. With fewer stages the
+// producer waits on a stage no consumer frees.
+constexpr int ring_need(int a_res) { return a_res ? 4 : 6; }
+constexpr bool plan_ok(const DxDhPlan& p) {
+  return p.stages >= ring_need(p.a_res);
+}
+
+constexpr DxDhPlan plan_dx_dh(int kw, int in_ch, int out_ch) {
+  for (int a_res = 1; a_res >= 0; --a_res) {
+    for (int pad = 8; pad >= 0; pad -= 8) {
+      DxDhPlan p{};
+      p.a_res = a_res;
+      p.gld = out_ch + pad;
+      const int h2 = (kw + 63) / 64 * TILE;
+      p.region = a_res ? h2 : 0;
+      const int fixed = p.region + up(BM * p.gld * 4, 1024) +
+                        up(BM * in_ch * 2, 1024) + BAR_BYTES + 1024;
+      const int st = (SMEM_MAX - fixed) / TILE;
+      p.stages = st < MAXST ? st : MAXST;
+      if (!plan_ok(p)) continue;
+      p.g_off = p.stages * TILE + p.region;
+      p.x_off = p.g_off + up(BM * p.gld * 4, 1024);
+      p.bar_off = p.x_off + up(BM * in_ch * 2, 1024);
+      p.smem = p.bar_off + BAR_BYTES + 1024;
+      return p;
+    }
+  }
+  return DxDhPlan{};
+}
+
+// Shared memory of dw_kernel: `stages` stages of {h2 [64 e][128 k] as two
+// 128-byte-swizzle tiles, g [64][out] fp32, senders [64]}, DW_SLOTS dpre
+// tiles [64 e][256 c] (four 64-column blocks of 8 KB each), XS gathered x
+// [64][256 / out] fp32, the dbl partials [8][256] and the barriers.
+struct DwPlan {
+  int stages, stage_bytes, g_off, s_off, slot_off, x_off, x_bytes, red_off,
+      bar_off, smem;
+};
+
+constexpr int DW_SLOT = 64 * 256 * 2;
+constexpr int DW_SLOTS = 3;
+
+constexpr DwPlan plan_dw(int out_ch) {
+  DwPlan p{};
+  p.g_off = 16384;
+  p.s_off = p.g_off + up(64 * out_ch * 4, 128);
+  p.stage_bytes = up(p.s_off + 64 * 8, 1024);
+  p.x_bytes = up(64 * (256 / out_ch) * 4, 128);
+  const int fixed =
+      DW_SLOTS * DW_SLOT + XS * p.x_bytes + 8 * 256 * 4 + BAR_BYTES + 1024;
+  const int st = (SMEM_MAX - fixed) / p.stage_bytes;
+  p.stages = st < MAXST ? st : MAXST;
+  p.slot_off = p.stages * p.stage_bytes;
+  p.x_off = p.slot_off + DW_SLOTS * DW_SLOT;
+  p.red_off = p.x_off + XS * p.x_bytes;
+  p.bar_off = p.red_off + 8 * 256 * 4;
+  p.smem = p.bar_off + BAR_BYTES + 1024;
+  return p;
+}
+
+// the widest g and x: h2 resident at a small kw, streamed at a large one
+// (the streamed ring does not depend on kw)
+static_assert(plan_ok(plan_dx_dh(8, MAX_IN, BN)) &&
+                  plan_dx_dh(8, MAX_IN, BN).a_res &&
+                  plan_ok(plan_dx_dh(2048, MAX_IN, BN)) &&
+                  plan_dw(BN).stages >= 2 && plan_dw(8).stages >= 2,
               "the tensor-core form's in_ch bound must fit shared memory");
 
-constexpr size_t kDwSmem = (STAGES + 2) * SLAB + sizeof(float) * 16 * BN;
+// The block's barriers: the ring's full/empty pairs, dw's gathered-x
+// full/empty pairs, and three of one use.
+struct Bars {
+  uint32_t base;
+  __device__ uint32_t full(int s) const { return base + 8 * s; }
+  __device__ uint32_t empty(int s) const { return base + 8 * (MAXST + s); }
+  __device__ uint32_t xfull(int b) const {
+    return base + 8 * (2 * MAXST + b);
+  }
+  __device__ uint32_t xempty(int b) const {
+    return base + 8 * (2 * MAXST + XS + b);
+  }
+  __device__ uint32_t one(int k) const {
+    return base + 8 * (2 * MAXST + 2 * XS + k);
+  }
+};
 
 // dx_src and dh2 for one tile of BM = 128 edges (see the file's note).
-// h2b [M, kw], wlt = Wl^T [C, kw] and wlb = Wl [kw, C] in bf16. Each of
-// the two warpgroups owns 64 of the tile's edges and issues m64n128k16
-// wgmma on the slabs in shared memory (A and B both K-major, 64-byte
-// swizzle), accumulators in registers in the m16n8 fragment order (n8
-// tile j at d[4j .. 4j+3]). Dynamic shared memory (dx_dh_smem): 512
-// bytes of alignment slack, the slab ring, g [BM][out] fp32,
-// bf16(x[senders]) [BM][in] and the dx partials [BM][RED_LD].
-__global__ void __launch_bounds__(256, 2)
-dx_dh_kernel(const bf16* __restrict__ h2b, const bf16* __restrict__ wlt,
-                const bf16* __restrict__ wlb, const float* __restrict__ x,
-                const int64_t* __restrict__ senders,
-                const float* __restrict__ g, float* __restrict__ dx_src,
-                float* __restrict__ dh2, int64_t M, int kw, int in_ch,
-                int out_ch) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+// Warps 0-7 are two consumer warpgroups, each owning 64 of the tile's
+// edges; warp 8 issues the TMA loads; warps 9-11 load g and bf16(x) of
+// the tile. tm_h2: h2b [M, kw], tm_wlt: Wl^T [C, kw], tm_wl: Wl [kw, C],
+// all bf16 with 64 x 128 boxes in the 128-byte swizzle.
+__global__ void __launch_bounds__(NT, 1)
+dx_dh_kernel(const __grid_constant__ CUtensorMap tm_h2,
+             const __grid_constant__ CUtensorMap tm_wlt,
+             const __grid_constant__ CUtensorMap tm_wl,
+             const float* __restrict__ x, const int64_t* __restrict__ senders,
+             const float* __restrict__ g, float* __restrict__ dx_src,
+             float* __restrict__ dh2, int64_t M, int kw, int in_ch,
+             int out_ch, DxDhPlan p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw_s = smem_u32(smem_raw);
-  const uint32_t pad = ((raw_s + 511) & ~511u) - raw_s;   // swizzle atoms
+  const uint32_t pad = ((raw_s + 1023) & ~1023u) - raw_s;
   unsigned char* smem = smem_raw + pad;
   const uint32_t ring = raw_s + pad;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int wg = tid >> 7;                     // warpgroup: rows 64 * wg
-  const int wrow = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const uint32_t region = ring + p.stages * TILE;
+  float* gs = reinterpret_cast<float*>(smem + p.g_off);
+  bf16* xs = reinterpret_cast<bf16*>(smem + p.x_off);
+  const Bars bar{ring + p.bar_off};
+  const uint32_t h2_full = bar.one(0), g_full = bar.one(1),
+                 x_full = bar.one(2);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int C = in_ch * out_ch;
   const int64_t m0 = (int64_t)blockIdx.x * BM;
-  float* gs = reinterpret_cast<float*>(smem + RING);
-  bf16* xs = reinterpret_cast<bf16*>(gs + BM * out_ch);
-  float* red = reinterpret_cast<float*>(xs + BM * in_ch);
+  const int nk1 = (kw + 63) / 64;    // 64-deep slabs of phase 1
+  const int nct = C / BN;            // 128-column tiles of h3
+  // an even number of them: an odd count's last one reads zeros (past C)
+  // and writes nothing, so that no wgmma is issued under a branch
+  const int nct2 = (nct + 1) & ~1;
+  const int nk2 = C / 64;            // 64-deep slabs of phase 2
+  const int npass = (kw + 255) / 256;    // 256-column passes of dh2
 
-  for (int q = tid; q < BM * out_ch; q += 256) {
-    const int r = q / out_ch;
-    const int64_t e = m0 + r;
-    gs[q] = e < M ? __ldg(g + e * out_ch + (q - r * out_ch)) : 0.f;
-  }
-  for (int q = tid; q < BM * in_ch; q += 256) {
-    const int r = q / in_ch;
-    const int64_t e = m0 + r;
-    xs[q] = __float2bfloat16_rn(
-        e < M ? __ldg(x + senders[e] * in_ch + (q - r * in_ch)) : 0.f);
-  }
-
-  float d[64];
-#pragma unroll
-  for (int q = 0; q < 64; ++q) d[q] = 0.f;
-
-  // d (+)= A . B over one 32-deep slab pair: two k16 steps, the
-  // descriptors advanced by 32 bytes inside the swizzle atom
-  auto mma = [&](uint32_t sa, uint32_t sb, bool first) {
-    const uint64_t da = wg_desc(sa + wg * 64 * 64), db = wg_desc(sb);
-    wg_fence();
-    wgmma_64x128(d, da, db, first ? 0 : 1);
-    wgmma_64x128(d, da + 2, db + 2, 1);
-    wg_commit_wait();
-  };
-
-  // 1. h3 = h2 @ Wl per 128-column tile, dx_src in its epilogue
-  const int nka = (kw + BK - 1) / BK;
-  const int total_a = (C / BN) * nka;
-  auto load_a = [&](int it) {
-    if (it < total_a) {
-      const int ct = it / nka, kt = it - ct * nka;
-      const uint32_t sa = ring + (it % STAGES) * 2 * SLAB, sb = sa + SLAB;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int idx = tid + q * 256, r = idx >> 2, ch = idx & 3;
-        const int k = kt * BK + ch * 8;
-        const int64_t e = m0 + r;
-        const bool oka = e < M && k < kw;
-        cp16(sa + off_k32(r, ch), oka ? h2b + e * kw + k : h2b, oka);
-        const bool okb = k < kw;
-        cp16(sb + off_k32(r, ch),
-             okb ? wlt + (int64_t)(ct * BN + r) * kw + k : wlt, okb);
-      }
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(bar.full(s), 1);
+      mbar_init(bar.empty(s), 2);
     }
-    cp_commit();
-  };
+    mbar_init(h2_full, 1);
+    mbar_init(g_full, 1);
+    mbar_init(x_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    regs_dec<56>();
+    if (warp == 8) {
+      if (lane != 0) return;
+      // the TMA producer: h2 once, then the ring in the consumers' order
+      uint32_t it = 0;
+      auto next = [&](const CUtensorMap* tm, int c0, int c1) {
+        const int s = (int)(it % p.stages);
+        mbar_wait(bar.empty(s), ((it / p.stages) & 1) ^ 1);
+        mbar_expect_tx(bar.full(s), TILE);
+        tma_load_2d(ring + s * TILE, tm, bar.full(s), c0, c1);
+        ++it;
+      };
+      if (p.a_res) {
+        mbar_expect_tx(h2_full, nk1 * TILE);
+        for (int kb = 0; kb < nk1; ++kb) {
+          tma_load_2d(region + kb * TILE, &tm_h2, h2_full, kb * 64, (int)m0);
+        }
+      }
+      for (int ct = 0; ct < nct2; ++ct) {
+        for (int kb = 0; kb < nk1; ++kb) {
+          if (!p.a_res) next(&tm_h2, kb * 64, (int)m0);
+          next(&tm_wlt, kb * 64, ct * BN);
+        }
+      }
+      for (int pass = 0; pass < npass; ++pass) {
+        const int halves = kw - pass * 256 > 128 ? 2 : 1;
+        for (int kc = 0; kc < nk2; ++kc) {
+          for (int h = 0; h < halves; ++h) {
+            next(&tm_wl, kc * 64, pass * 256 + h * 128);
+          }
+        }
+      }
+      return;
+    }
+    // loaders: g (for the dx epilogue and dpre), then bf16(x[senders])
+    const int ft = tid - 9 * 32;
+    const int q4 = out_ch / 4;
+    for (int q = ft; q < BM * q4; q += NF) {
+      const int r = q / q4, c4 = q - r * q4;
+      const int64_t e = m0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < M) v = __ldg(reinterpret_cast<const float4*>(g + e * out_ch) + c4);
+      *reinterpret_cast<float4*>(gs + r * p.gld + 4 * c4) = v;
+    }
+    bar_sync(BAR_LOAD, NF);
+    if (ft == 0) mbar_arrive(g_full);
+#pragma unroll 8
+    for (int q = ft; q < BM * in_ch; q += NF) {
+      const int r = q / in_ch;
+      const int64_t e = m0 + r;
+      xs[q] = __float2bfloat16_rn(
+          e < M ? __ldg(x + senders[e] * in_ch + (q - r * in_ch)) : 0.f);
+    }
+    bar_sync(BAR_LOAD, NF);
+    if (ft == 0) mbar_arrive(x_full);
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63
+  regs_inc<224>();
+  const int wg = warp >> 2;
+  const int row0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const bool leader = (tid & 127) == 0;
+  float acc0[64], acc1[64];
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) load_a(s);
-  for (int it = 0; it < total_a; ++it) {
-    cp_wait<STAGES - 2>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    load_a(it + STAGES - 1);
-    const int kt = it % nka;
-    const uint32_t sa = ring + (it % STAGES) * 2 * SLAB;
-    mma(sa, sa + SLAB, kt == 0);
-    if (kt != nka - 1) continue;
-    const int c0 = (it / nka) * BN;
+  for (int q = 0; q < 64; ++q) acc0[q] = acc1[q] = 0.f;
+  pin(acc0);
+  pin(acc1);
+
+  uint32_t it = 0;          // ring stages taken
+  uint32_t freed = 0;       // ring stages handed back to the producer
+  auto take = [&]() {
+    const int s = (int)(it % p.stages);
+    mbar_wait(bar.full(s), (it / p.stages) & 1);
+    ++it;
+    return ring + s * TILE;
+  };
+  // hands back every stage before `upto` (its products are done)
+  auto free_upto = [&](uint32_t upto) {
+    for (; freed < upto; ++freed) {
+      if (leader) mbar_arrive(bar.empty((int)(freed % p.stages)));
+    }
+  };
+
+  // 1. h3 = h2 @ Wl per 128-column tile; dx_src in the epilogue of each
+  // tile, run while the second and third slabs of the next tile are on
+  // the tensor cores (the first one's stage already handed back)
+  if (p.a_res) mbar_wait(h2_full, 0);
+  auto issue1 = [&](float (&acc)[64], int kb) {
+    const uint32_t first = it;
+    const uint32_t a = (p.a_res ? region + kb * TILE : take()) + wg * 8192;
+    const uint32_t b = take();
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wgmma_64x128(acc, desc_k128(a + 32 * k), desc_k128(b + 32 * k),
+                   (kb > 0 || k > 0) ? 1 : 0);
+    }
+    wg_commit();
+    return first;
+  };
+  // dx_src[e, i] = sum_o h3[e, i*out + o] * g[e, o]: each thread folds its
+  // columns of a channel in order, then the four lanes of a row meet
+  const int per = out_ch >> 3;            // n8 tiles of a channel
+  const int lper = __ffs(per) - 1;
+  const int nch = BN / out_ch;
+  auto epilogue = [&](const float (&acc)[64], int ct) {
+    if (ct < 0 || ct >= nct) return;
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      const int row = wrow + hi * 8;
+      const int row = row0 + hi * 8;
+      const int64_t e = m0 + row;
+      const float* gr = gs + row * p.gld;
+      float s = 0.f;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const int col = j * 8 + (lane & 3) * 2;
-        const int o = (c0 + col) % out_ch;
-        const float2 gv =
-            *reinterpret_cast<const float2*>(gs + row * out_ch + o);
-        float p = d[4 * j + 2 * hi] * gv.x + d[4 * j + 2 * hi + 1] * gv.y;
-        p += __shfl_xor_sync(0xffffffffu, p, 1);
-        p += __shfl_xor_sync(0xffffffffu, p, 2);
-        if ((lane & 3) == 0) red[row * RED_LD + j] = p;
+        const int o = (j * 8 + (lane & 3) * 2) & (out_ch - 1);
+        const float2 gv = *reinterpret_cast<const float2*>(gr + o);
+        s = fmaf(acc[4 * j + 2 * hi], gv.x, s);
+        s = fmaf(acc[4 * j + 2 * hi + 1], gv.y, s);
+        if (((j + 1) & (per - 1)) == 0) {
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          if ((lane & 3) == 0 && e < M) {
+            dx_src[e * in_ch + ct * nch + (j >> lper)] = s;
+          }
+          s = 0.f;
+        }
       }
     }
-    __syncthreads();
-    const int per = out_ch / 8, nch = BN / out_ch;
-    for (int q = tid; q < BM * nch; q += 256) {
-      const int row = q % BM, ch = q / BM;
-      const int64_t e = m0 + row;
-      if (e < M) {
-        float s = 0.f;
-        for (int j = 0; j < per; ++j) s += red[row * RED_LD + ch * per + j];
-        dx_src[e * in_ch + c0 / out_ch + ch] = s;
+  };
+  // Slab 0 is peeled (the compiler sees the previous tile's accumulators
+  // complete where the epilogue reads them); then two slabs in flight.
+  auto tile = [&](float (&acc)[64], int ct, const float (&prev)[64]) {
+    const uint32_t f0 = issue1(acc, 0);
+    wg_wait<1>();   // the previous tile's last groups are done
+    free_upto(f0);
+    if (ct == 1) mbar_wait(g_full, 0);   // before the first epilogue
+    if (nk1 < 3) {
+      epilogue(prev, ct - 1);
+      if (nk1 == 2) {
+        const uint32_t f1 = issue1(acc, 1);
+        wg_wait<1>();
+        free_upto(f1);
       }
+      return;
     }
+    const uint32_t f1 = issue1(acc, 1);
+    uint32_t f = issue1(acc, 2);
+    wg_wait<2>();   // slab 0 is done
+    free_upto(f1);
+    epilogue(prev, ct - 1);
+    for (int kb = 3; kb < nk1; ++kb) {
+      const uint32_t fn = issue1(acc, kb);
+      wg_wait<2>();
+      free_upto(f);
+      f = fn;
+    }
+  };
+  for (int ct = 0; ct < nct2; ct += 2) {
+    tile(acc0, ct, acc1);
+    tile(acc1, ct + 1, acc0);
   }
-  __syncthreads();   // every warp is done with the ring
+  wg_wait<0>();
+  free_upto(it);
+  epilogue(acc1, nct2 - 1);
 
-  // 2. dh2 = dpre @ Wl^T per 128-column tile of dh2, depth C
-  const int nkb = C / BK;
-  const int total_b = ((kw + BN - 1) / BN) * nkb;
-  const uint32_t gen = ring + STAGES * SLAB;   // two dpre slabs
-  auto load_b = [&](int it) {
-    if (it < total_b) {
-      const int nt = it / nkb, kt = it - nt * nkb;
-      const uint32_t sb = ring + (it % STAGES) * SLAB;
+  // 2. dh2 = dpre @ Wl^T, 256 columns of dh2 a pass (two accumulators of
+  // 128), depth C in 64-deep slabs. dpre = bf16(bf16(x) * g) is formed in
+  // registers as the wgmma's A fragments: rows row0 and row0 + 8, columns
+  // 2 (lane % 4) + {0, 1, 8, 9} of each k16 step.
+  mbar_wait(x_full, 0);
+  const int lout = __ffs(out_ch) - 1;
+  const float* gr0 = gs + row0 * p.gld;
+  const float* gr1 = gr0 + 8 * p.gld;
+  const bf16* xr0 = xs + row0 * in_ch;
+  const bf16* xr1 = xr0 + 8 * in_ch;
+  uint32_t fa[16], fb[16];
+  auto form = [&](uint32_t (&f)[16], int kc) {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int idx = tid + q * 256, r = idx >> 2, ch = idx & 3;
-        const int kout = nt * BN + r;
-        const bool ok = kout < kw;
-        cp16(sb + off_k32(r, ch),
-             ok ? wlb + (int64_t)kout * C + kt * BK + ch * 8 : wlb, ok);
-      }
-    }
-    cp_commit();
-  };
-  auto form = [&](int it) {
-    if (it >= total_b) return;
-    const int kt = it % nkb;
-    unsigned char* sa = smem + STAGES * SLAB + (it & 1) * SLAB;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int idx = tid + q * 256, r = idx >> 2, ch = idx & 3;
-      const int c = kt * BK + ch * 8;
-      const int i = c / out_ch, o = c - i * out_ch;
-      const float xv = __bfloat162float(xs[r * in_ch + i]);
-      const float4 g0 = *reinterpret_cast<const float4*>(gs + r * out_ch + o);
-      const float4 g1 =
-          *reinterpret_cast<const float4*>(gs + r * out_ch + o + 4);
-      uint4 v;
-      v.x = pack_bf16(xv * g0.x, xv * g0.y);
-      v.y = pack_bf16(xv * g0.z, xv * g0.w);
-      v.z = pack_bf16(xv * g1.x, xv * g1.y);
-      v.w = pack_bf16(xv * g1.z, xv * g1.w);
-      *reinterpret_cast<uint4*>(sa + off_k32(r, ch)) = v;
+    for (int t = 0; t < 8; ++t) {   // k16 step t / 2, columns + 8 (t % 2)
+      const int c = kc * 64 + t * 8;
+      const int i = c >> lout;
+      const int o = c - (i << lout) + (lane & 3) * 2;
+      const float x0 = __bfloat162float(xr0[i]);
+      const float x1 = __bfloat162float(xr1[i]);
+      const float2 g0 = *reinterpret_cast<const float2*>(gr0 + o);
+      const float2 g1 = *reinterpret_cast<const float2*>(gr1 + o);
+      f[2 * t] = pack_bf16(x0 * g0.x, x0 * g0.y);
+      f[2 * t + 1] = pack_bf16(x1 * g1.x, x1 * g1.y);
     }
   };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) load_b(s);
-  form(0);
-  for (int it = 0; it < total_b; ++it) {
-    cp_wait<STAGES - 2>();
-    // the generated slab (generic stores) and the copied one, before the
-    // tensor cores read them through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    load_b(it + STAGES - 1);
-    form(it + 1);
-    const int kt = it % nkb;
-    mma(gen + (it & 1) * SLAB, ring + (it % STAGES) * SLAB, kt == 0);
-    if (kt != nkb - 1) continue;
-    const int n0 = (it / nkb) * BN;
+  auto store = [&](const float (&acc)[64], int n0) {
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      const int64_t e = m0 + wrow + hi * 8;
+      const int64_t e = m0 + row0 + hi * 8;
       if (e >= M) continue;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int col = n0 + j * 8 + (lane & 3) * 2;
         if (col < kw) {
           *reinterpret_cast<float2*>(dh2 + e * kw + col) =
-              make_float2(d[4 * j + 2 * hi], d[4 * j + 2 * hi + 1]);
+              make_float2(acc[4 * j + 2 * hi], acc[4 * j + 2 * hi + 1]);
         }
       }
+    }
+  };
+  // One slab of a pass; TWO: both 128-column halves (kw beyond 128). Its
+  // fragments are formed while the previous slab's products run; their set
+  // was last read two slabs back.
+  auto slab2 = [&](uint32_t (&f)[16], int kc, auto two_c) {
+    constexpr bool TWO = decltype(two_c)::value;
+    form(f, kc);
+    const uint32_t first = it;
+    const uint32_t b0 = take();
+    const uint32_t b1 = TWO ? take() : b0;
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wgmma_64x128_rs(acc0, f[4 * k], f[4 * k + 1], f[4 * k + 2],
+                      f[4 * k + 3], desc_k128(b0 + 32 * k),
+                      (kc > 0 || k > 0) ? 1 : 0);
+    }
+    if constexpr (TWO) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        wgmma_64x128_rs(acc1, f[4 * k], f[4 * k + 1], f[4 * k + 2],
+                        f[4 * k + 3], desc_k128(b1 + 32 * k),
+                        (kc > 0 || k > 0) ? 1 : 0);
+      }
+    }
+    wg_commit();
+    wg_wait<1>();
+    free_upto(first);   // the previous slab's stages
+  };
+  // nk2 = C / 64 is even (C % 128 == 0): the slabs alternate fa and fb
+  auto pass_run = [&](int pass, auto two_c) {
+    for (int kc = 0; kc < nk2; kc += 2) {
+      slab2(fa, kc, two_c);
+      slab2(fb, kc + 1, two_c);
+    }
+    wg_wait<0>();
+    free_upto(it);
+    store(acc0, pass * 256);
+    if constexpr (decltype(two_c)::value) store(acc1, pass * 256 + 128);
+  };
+  for (int pass = 0; pass < npass; ++pass) {
+    if (kw - pass * 256 > 128) {
+      pass_run(pass, std::true_type{});
+    } else {
+      pass_run(pass, std::false_type{});
     }
   }
 }
@@ -829,143 +993,190 @@ dx_dh_kernel(const bf16* __restrict__ h2b, const bf16* __restrict__ wlt,
 // Partial dWl (and, in the blocks of the first kw tile, partial dbl) of
 // edge range s: part_w[s][k][c] = sum_e bf16(h2[e, k]) * bf16(dpre[e, c])
 // and part_b[s][c] = sum_e dpre[e, c] with dpre in fp32. Block (kt, ct, s)
-// owns a BM x BN tile of dWl; its eight warps hold 64 x 32 parts of it
-// and run mma.sync m16n8k16 on operands read by ldmatrix.trans (both are
-// edge-major in shared memory). Dynamic shared memory (kDwSmem): STAGES
-// h2 slabs [32 e][128 k], two dpre slabs [32 e][128 c] and the dbl
-// partials [16][BN].
-__global__ void __launch_bounds__(256, 2)
-dw_kernel(const bf16* __restrict__ h2b, const float* __restrict__ x,
-          const int64_t* __restrict__ senders, const float* __restrict__ g,
-          float* __restrict__ part_w, float* __restrict__ part_b, int64_t M,
-          int kw, int in_ch, int out_ch, int64_t per_split) {
-  constexpr int CR = BN / 8;           // chunks of a dpre row (16)
-  constexpr int RG = 256 / CR;         // row groups of the threads (16)
-  constexpr int RPT = BK / RG;         // dpre rows a thread forms (2)
-  extern __shared__ __align__(128) unsigned char smem[];
+// owns 128 rows of dWl (64 per consumer warpgroup) by 256 columns and
+// walks its edges in 64-deep slabs: warp 8 loads h2 [64 e][128 k], g and
+// the senders by TMA; warps 9-11 gather x[senders] (cp.async); the
+// consumers form dpre [64 e][256 c] while the previous slab's products
+// run, then issue wgmma m64n256k16 with both operands edge-major
+// (MN-major descriptors). tm_h2: h2b, 64 x 64 boxes in the 128-byte
+// swizzle; tm_g: g [M, out] fp32, out x 64 boxes; tm_s: senders, 64-long
+// boxes.
+__global__ void __launch_bounds__(NT, 1)
+dw_kernel(const __grid_constant__ CUtensorMap tm_h2,
+          const __grid_constant__ CUtensorMap tm_g,
+          const __grid_constant__ CUtensorMap tm_s,
+          const float* __restrict__ x, float* __restrict__ part_w,
+          float* __restrict__ part_b, int64_t M, int kw, int in_ch,
+          int out_ch, int64_t per_split, DwPlan p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t pad = ((raw_s + 1023) & ~1023u) - raw_s;
+  unsigned char* smem = smem_raw + pad;
+  const uint32_t base = raw_s + pad;
+  const Bars bar{base + p.bar_off};
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
   const int C = in_ch * out_ch;
-  const int k0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
+  const int k0 = blockIdx.x * BM, c0 = blockIdx.y * 256;
   const int64_t e0 = (int64_t)blockIdx.z * per_split;
   const int64_t e1 = e0 + per_split < M ? e0 + per_split : M;
-  const int nk = e1 > e0 ? (int)((e1 - e0 + BK - 1) / BK) : 0;
-  const bool with_dbl = blockIdx.x == 0;
-  const uint32_t ring = smem_u32(smem);
-  const uint32_t gen = ring + STAGES * SLAB;
-  float* dbl_red = reinterpret_cast<float*>(smem + (STAGES + 2) * SLAB);
+  const int nk = e1 > e0 ? (int)((e1 - e0 + 63) / 64) : 0;
+  const int i0 = c0 / out_ch;
+  const int ncmax = 256 / out_ch;
+  const int nci = (C - c0 < 256 ? C - c0 : 256) / out_ch;
 
-  auto load_a = [&](int kt) {
-    if (kt < nk) {
-      const uint32_t sa = ring + (kt % STAGES) * SLAB;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int idx = tid + q * 256, r = idx >> 4, ch = idx & 15;
-        const int64_t e = e0 + (int64_t)kt * BK + r;
-        const int k = k0 + ch * 8;
-        const bool ok = e < e1 && k < kw;
-        cp16(sa + off_n128(r, ch), ok ? h2b + e * kw + k : h2b, ok);
-      }
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(bar.full(s), 1);
+      mbar_init(bar.empty(s), 3);
     }
-    cp_commit();
-  };
+    for (int b = 0; b < XS; ++b) {
+      mbar_init(bar.xfull(b), NF);
+      mbar_init(bar.xempty(b), 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  // The thread forms dpre on columns c0 + 8 * cq .. + 8 (one channel) of
-  // slab rows RPT * (tid / CR) + rr. Its operands for slab kt + 1 are
-  // fetched before the products of slab kt and stored after them; the
-  // senders one slab earlier still.
-  const int cq = tid % CR;
-  const int ci = (c0 + cq * 8) / out_ch, co = c0 + cq * 8 - ci * out_ch;
-  const int r0 = (tid / CR) * RPT;
-  float fx[RPT];
-  float4 fg[RPT][2];
-  int64_t sn[RPT];
+  if (warp >= 8) {
+    regs_dec<56>();
+    if (warp == 8) {
+      if (lane != 0) return;
+      const uint32_t bytes = 16384 + 64 * out_ch * 4 + 64 * 8;
+      for (int n = 0; n < nk; ++n) {
+        const int s = n % p.stages;
+        const uint32_t st = base + s * p.stage_bytes;
+        const int eb = (int)(e0 + (int64_t)n * 64);
+        mbar_wait(bar.empty(s), ((n / p.stages) & 1) ^ 1);
+        mbar_expect_tx(bar.full(s), bytes);
+        tma_load_2d(st, &tm_h2, bar.full(s), k0, eb);
+        tma_load_2d(st + 8192, &tm_h2, bar.full(s), k0 + 64, eb);
+        tma_load_2d(st + p.g_off, &tm_g, bar.full(s), 0, eb);
+        tma_load_1d(st + p.s_off, &tm_s, bar.full(s), eb);
+      }
+      return;
+    }
+    // loaders: x[senders[e], i0 + c] of each slab, for its channels
+    const int ft = tid - 9 * 32;
+    for (int n = 0; n < nk; ++n) {
+      const int s = n % p.stages, b = n % XS;
+      mbar_wait(bar.full(s), (n / p.stages) & 1);
+      mbar_wait(bar.xempty(b), ((n / XS) & 1) ^ 1);
+      const int64_t* sn =
+          reinterpret_cast<const int64_t*>(smem + s * p.stage_bytes + p.s_off);
+      const uint32_t dst = base + p.x_off + b * p.x_bytes;
+      for (int q = ft; q < 64 * nci; q += NF) {
+        const int r = q / nci, c = q - r * nci;
+        cp4(dst + (r * ncmax + c) * 4, x + sn[r] * in_ch + i0 + c);
+      }
+      cp_arrive(bar.xfull(b));   // once this thread's copies have landed
+      bar_sync(BAR_LOAD, NF);
+      if (ft == 0) mbar_arrive(bar.empty(s));
+    }
+    cp_commit();   // every copy issued, before the thread leaves
+    cp_wait<0>();
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns dWl rows k0 + 64 wg .. + 63; thread
+  // tid forms the 8 columns cl .. cl + 7 (one channel) of rows
+  // tid / 32 + 8 j of each dpre tile
+  regs_inc<224>();
+  const int wg = warp >> 2;
+  const bool leader = (tid & 127) == 0;
+  const int cl = (tid & 31) * 8, rg = tid >> 5;
+  // a thread past C forms zeros from column 0's operands
+  const float live = c0 + cl < C ? 1.f : 0.f;
+  const int ci = live != 0.f ? cl / out_ch : 0;
+  const int o = live != 0.f ? cl - ci * out_ch : 0;
+  const uint32_t slot0 = base + p.slot_off + (cl >> 6) * 8192 +
+                         off_sw128(rg, (cl & 63) >> 3);
   float dsum[8];
 #pragma unroll
   for (int v = 0; v < 8; ++v) dsum[v] = 0.f;
-  auto senders_of = [&](int kt) {
+  float acc[128];
 #pragma unroll
-    for (int rr = 0; rr < RPT; ++rr) {
-      const int64_t e = e0 + (int64_t)kt * BK + r0 + rr;
-      sn[rr] = kt < nk && e < e1 ? senders[e] : 0;
-    }
-  };
-  auto fetch = [&](int kt) {
+  for (int q = 0; q < 128; ++q) acc[q] = 0.f;
+  pin(acc);
+  // dpre rows of slab n into slot n % DW_SLOTS; DBL: also sum them in fp32
+  auto form = [&](int n, auto dbl_c) {
+    constexpr bool DBL = decltype(dbl_c)::value;
+    const float* gt = reinterpret_cast<const float*>(
+        smem + (n % p.stages) * p.stage_bytes + p.g_off);
+    const float* xg =
+        reinterpret_cast<const float*>(smem + p.x_off + (n % XS) * p.x_bytes);
+    const uint32_t dst = slot0 + (n % DW_SLOTS) * DW_SLOT;
 #pragma unroll
-    for (int rr = 0; rr < RPT; ++rr) {
-      const int64_t e = e0 + (int64_t)kt * BK + r0 + rr;
-      if (kt < nk && e < e1) {
-        fx[rr] = __ldg(x + sn[rr] * in_ch + ci);
-        const float4* gp = reinterpret_cast<const float4*>(g + e * out_ch + co);
-        fg[rr][0] = __ldg(gp);
-        fg[rr][1] = __ldg(gp + 1);
-      } else {
-        fx[rr] = 0.f;
-        fg[rr][0] = fg[rr][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < 8; ++j) {
+      const int r = rg + 8 * j;
+      const float xv =
+          __bfloat162float(__float2bfloat16_rn(xg[r * ncmax + ci])) * live;
+      const float4 g0 = *reinterpret_cast<const float4*>(gt + r * out_ch + o);
+      const float4 g1 = *reinterpret_cast<const float4*>(gt + r * out_ch + o + 4);
+      float v8[8];
+      v8[0] = xv * g0.x; v8[1] = xv * g0.y; v8[2] = xv * g0.z;
+      v8[3] = xv * g0.w; v8[4] = xv * g1.x; v8[5] = xv * g1.y;
+      v8[6] = xv * g1.z; v8[7] = xv * g1.w;
+      if constexpr (DBL) {
+#pragma unroll
+        for (int v = 0; v < 8; ++v) dsum[v] += v8[v];
       }
-    }
-    senders_of(kt + 1);
-  };
-  auto put = [&](int kt) {
-    if (kt >= nk) return;
-    const uint32_t sb = gen + (kt & 1) * SLAB;
-#pragma unroll
-    for (int rr = 0; rr < RPT; ++rr) {
-      const float xv = __bfloat162float(__float2bfloat16_rn(fx[rr]));
-      const float gv[8] = {fg[rr][0].x, fg[rr][0].y, fg[rr][0].z, fg[rr][0].w,
-                           fg[rr][1].x, fg[rr][1].y, fg[rr][1].z, fg[rr][1].w};
-      float p[8];
-#pragma unroll
-      for (int v = 0; v < 8; ++v) {
-        p[v] = xv * gv[v];
-        dsum[v] += p[v];
-      }
-      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                       sb + off_n128(r0 + rr, cq)),
-                   "r"(pack_bf16(p[0], p[1])), "r"(pack_bf16(p[2], p[3])),
-                   "r"(pack_bf16(p[4], p[5])), "r"(pack_bf16(p[6], p[7]))
-                   : "memory");
+      st_shared_v4(dst + j * 8 * 128, pack_bf16(v8[0], v8[1]),
+                   pack_bf16(v8[2], v8[3]), pack_bf16(v8[4], v8[5]),
+                   pack_bf16(v8[6], v8[7]));
     }
   };
-
-  float acc[4][4][4];
-  zero_acc(acc);
-  senders_of(0);
+  for (int n = 0; n < nk; ++n) {
+    const int s = n % p.stages;
+    mbar_wait(bar.full(s), (n / p.stages) & 1);
+    mbar_wait(bar.xfull(n % XS), (n / XS) & 1);
+    // slot n % 3's last reader, three slabs back, is done in both
+    // warpgroups: each passed the barrier of slab n - 1 after waiting for
+    // its products of slab n - 3
+    if (blockIdx.x == 0) {
+      form(n, std::true_type{});
+    } else {
+      form(n, std::false_type{});
+    }
+    fence_proxy_async();   // generic stores, then the wgmma reads
+    bar_sync(BAR_CONS, NC);
+    if (tid == 0) mbar_arrive(bar.xempty(n % XS));
+    const uint32_t a = base + s * p.stage_bytes + wg * 8192;
+    const uint32_t b = base + p.slot_off + (n % DW_SLOTS) * DW_SLOT;
+    wg_fence();
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) load_a(s);
-  fetch(0);
-  put(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_wait<STAGES - 2>();
-    __syncthreads();
-    load_a(kt + STAGES - 1);
-    fetch(kt + 1);
-    mma_slab_t(ring + (kt % STAGES) * SLAB, gen + (kt & 1) * SLAB, acc);
-    put(kt + 1);
+    for (int k = 0; k < 4; ++k) {
+      wgmma_64x256_tt(acc, desc_mn128(a + 2048 * k, 8192),
+                      desc_mn128(b + 2048 * k, 8192),
+                      (n > 0 || k > 0) ? 1 : 0);
+    }
+    wg_commit();
+    wg_wait<1>();
+    if (leader && n > 0) mbar_arrive(bar.empty((n - 1) % p.stages));
   }
-
+  wg_wait<0>();
   float* out = part_w + (int64_t)blockIdx.z * kw * C;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+  for (int hi = 0; hi < 2; ++hi) {
+    const int k = k0 + wg * 64 + (warp & 3) * 16 + (lane >> 2) + hi * 8;
+    if (k >= kw) continue;
 #pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int k = k0 + wm * 64 + mi * 16 + (lane >> 2) + hi * 8;
-      if (k >= kw) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = c0 + wn * 32 + ni * 8 + (lane & 3) * 2;
+    for (int j = 0; j < 32; ++j) {
+      const int col = c0 + j * 8 + (lane & 3) * 2;
+      if (col < C) {
         *reinterpret_cast<float2*>(out + (int64_t)k * C + col) =
-            make_float2(acc[mi][ni][hi * 2], acc[mi][ni][hi * 2 + 1]);
+            make_float2(acc[4 * j + 2 * hi], acc[4 * j + 2 * hi + 1]);
       }
     }
   }
-  if (with_dbl) {   // the RG row groups of each column, summed in order
+  if (blockIdx.x == 0) {   // the eight row groups of each column, in order
+    float* red = reinterpret_cast<float*>(smem + p.red_off);
 #pragma unroll
-    for (int v = 0; v < 8; ++v) dbl_red[(tid / CR) * BN + cq * 8 + v] = dsum[v];
-    __syncthreads();
-    if (tid < BN) {
+    for (int v = 0; v < 8; ++v) red[rg * 256 + cl + v] = dsum[v];
+    bar_sync(BAR_CONS, NC);
+    if (c0 + tid < C) {
       float t = 0.f;
-      for (int q = 0; q < RG; ++q) t += dbl_red[q * BN + tid];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) t += red[q * 256 + tid];
       part_b[(int64_t)blockIdx.z * C + c0 + tid] = t;
     }
   }
@@ -1035,32 +1246,129 @@ int launch(const float* h2, const float* x, const int64_t* senders,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime: the
+// library links no driver library of its own.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static std::atomic<EncodeTiled> fn{nullptr};
+  EncodeTiled f = fn.load(std::memory_order_acquire);
+  if (f != nullptr) return f;
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+  if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+  f = reinterpret_cast<EncodeTiled>(p);
+  fn.store(f, std::memory_order_release);
+  return f;
+}
+
+// A row-major [rows, cols] tensor map with [box_rows, box_cols] boxes;
+// what lies outside the tensor reads as zeros.
+// rank 1 reads only cols and box_cols.
+bool tensor_map(EncodeTiled enc, CUtensorMap* map, CUtensorMapDataType type,
+                int elem_bytes, const void* ptr, int rank, uint64_t rows,
+                uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+                bool swizzle) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims,
+             strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One tensor map of launch_tc and what it was last encoded from: a call
+// that passes a slot the tensor of the call before (the steady state of a
+// training loop) reuses its map and skips the encoder.
+struct MapSlot {
+  const void* ptr = nullptr;
+  uint64_t rows = 0, cols = 0;
+  uint32_t box_rows = 0, box_cols = 0;
+  CUtensorMap map;
+};
+
+bool slot_map(MapSlot& slot, EncodeTiled enc, CUtensorMapDataType type,
+              int elem_bytes, const void* ptr, int rank, uint64_t rows,
+              uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+              bool swizzle) {
+  if (slot.ptr == ptr && slot.rows == rows && slot.cols == cols &&
+      slot.box_rows == box_rows && slot.box_cols == box_cols) {
+    return true;
+  }
+  slot.ptr = nullptr;
+  if (!tensor_map(enc, &slot.map, type, elem_bytes, ptr, rank, rows, cols,
+                  box_rows, box_cols, swizzle)) {
+    return false;
+  }
+  slot.ptr = ptr;
+  slot.rows = rows;
+  slot.cols = cols;
+  slot.box_rows = box_rows;
+  slot.box_cols = box_cols;
+  return true;
+}
+
 int launch_tc(const __nv_bfloat16* h2b, const __nv_bfloat16* wlt,
               const __nv_bfloat16* wlb, const float* x, const int64_t* senders,
               const float* g, float* dx_src, float* dh2, float* dwl,
               float* dbl, float* part_w, float* part_b, int64_t M, int kw,
               int in_ch, int out_ch, int splits, cudaStream_t stream) {
   const int C = in_ch * out_ch;
-  const size_t smem1 = tc::dx_dh_smem(in_ch, out_ch);
-  cudaError_t err = cudaFuncSetAttribute(
-      tc::dx_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem1);
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  // h2 (dx_dh's boxes), Wl^T, Wl, h2 (dw's boxes), g, senders
+  thread_local MapSlot tm[6];
+  const auto BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!slot_map(tm[0], enc, BF, 2, h2b, 2, M, kw, tc::BM, 64, true) ||
+      !slot_map(tm[1], enc, BF, 2, wlt, 2, C, kw, tc::BN, 64, true) ||
+      !slot_map(tm[2], enc, BF, 2, wlb, 2, kw, C, tc::BN, 64, true) ||
+      !slot_map(tm[3], enc, BF, 2, h2b, 2, M, kw, 64, 64, true) ||
+      !slot_map(tm[4], enc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, g, 2, M,
+                out_ch, 64, out_ch, false) ||
+      !slot_map(tm[5], enc, CU_TENSOR_MAP_DATA_TYPE_INT64, 8, senders, 1, 1,
+                M, 1, 64, false)) {
+    return (int)cudaErrorInvalidValue;
+  }
+
+  const tc::DxDhPlan p1 = tc::plan_dx_dh(kw, in_ch, out_ch);
+  const tc::DwPlan p2 = tc::plan_dw(out_ch);
+  if (!tc::plan_ok(p1) || p2.stages < 2) return (int)cudaErrorInvalidValue;
+  static std::atomic<uint64_t> ready1{0}, ready2{0};
+  cudaError_t err = smem_once(reinterpret_cast<const void*>(tc::dx_dh_kernel),
+                              tc::SMEM_MAX, ready1);
   if (err != cudaSuccess) return (int)err;
-  tc::dx_dh_kernel<<<(unsigned)((M + tc::BM - 1) / tc::BM), 256, smem1,
-                     stream>>>(h2b, wlt, wlb, x, senders, g, dx_src, dh2, M,
-                               kw, in_ch, out_ch);
+  err = smem_once(reinterpret_cast<const void*>(tc::dw_kernel), tc::SMEM_MAX,
+                  ready2);
+  if (err != cudaSuccess) return (int)err;
+  tc::dx_dh_kernel<<<(unsigned)((M + tc::BM - 1) / tc::BM), tc::NT, p1.smem,
+                     stream>>>(tm[0].map, tm[1].map, tm[2].map, x, senders,
+                               g, dx_src, dh2, M, kw, in_ch, out_ch, p1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  err = cudaFuncSetAttribute(tc::dw_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)tc::kDwSmem);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t per_split = (M + splits - 1) / splits;
+  // whole 64-edge slabs a split, so that only the last one is ragged
+  const int64_t per_split = ((M + splits - 1) / splits + 63) / 64 * 64;
   const dim3 wgrid((unsigned)((kw + tc::BM - 1) / tc::BM),
-                   (unsigned)(C / tc::BN), (unsigned)splits);
-  tc::dw_kernel<<<wgrid, 256, tc::kDwSmem, stream>>>(
-      h2b, x, senders, g, part_w, part_b, M, kw, in_ch, out_ch, per_split);
+                   (unsigned)((C + 255) / 256), (unsigned)splits);
+  tc::dw_kernel<<<wgrid, tc::NT, p2.smem, stream>>>(
+      tm[3].map, tm[4].map, tm[5].map, x, part_w, part_b, M, kw, in_ch,
+      out_ch, per_split, p2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -1126,9 +1434,10 @@ int gpde_edge_messages_bwd(const float* h2, const float* x,
 // = Wl [kw, C] and wlt = Wl^T [C, kw] in bf16 (rounded to nearest even
 // by the caller); x, senders, g as above. kw % 8 == 0, out_ch % 8 == 0,
 // out_ch dividing 128, C % 128 == 0, in_ch <= tc::MAX_IN (256), every
-// tensor 16-byte aligned. dx_src [M, in_ch], dh2, dWl and dbl are written (nothing needs
-// zeroing); part_w [splits, kw, C] and part_b [splits, C] are scratch.
-// Returns a cudaError_t.
+// tensor (senders too: TMA reads it) 16-byte aligned, M < 2^31. dx_src
+// [M, in_ch], dh2, dWl and dbl are written (nothing needs zeroing);
+// part_w [splits, kw, C] and part_b [splits, C] are scratch. Returns a
+// cudaError_t.
 int gpde_edge_messages_bwd_tc(const void* h2b, const void* wlt,
                               const void* wlb, const float* x,
                               const int64_t* senders, const float* g,
@@ -1139,7 +1448,8 @@ int gpde_edge_messages_bwd_tc(const void* h2b, const void* wlt,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int C = in_ch * out_ch;
   if (kw % 8 != 0 || out_ch % 8 != 0 || tc::BN % out_ch != 0 ||
-      C % tc::BN != 0 || in_ch > tc::MAX_IN || splits < 1) {
+      C % tc::BN != 0 || in_ch > tc::MAX_IN || splits < 1 ||
+      M >= (int64_t(1) << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   if (M == 0) {

@@ -435,6 +435,15 @@ def bwd_splits(e: int, kw: int, c: int, sms: int):
     return splits, max(1, -(-e // 4096))
 
 
+def b1_bwd_tc_splits(e: int, kw: int, c: int, sms: int) -> int:
+    """dWl splits of B1-bwd's tensor-core form on a card with ``sms``
+    multiprocessors: its dw kernel runs one block an SM over 128 x 256
+    tiles of dWl, so as many edge ranges as keep the grid at or under
+    four waves, no more than one per 1024 edges, at most 32."""
+    tiles = -(-kw // 128) * -(-c // 256)
+    return max(1, min(32, 4 * sms // tiles, -(-e // 1024)))
+
+
 def b1_bwd_simt_grid(e: int, kw: int, in_ch: int, out_ch: int, sms: int):
     """(Gx, x_per, S, depth) of B1-bwd's SIMT form on ``e`` edges and a
     card of ``sms`` SMs, each grid chosen by ``_split``: the dx kernel's
@@ -497,8 +506,11 @@ def _launch_bwd(x, senders, h2, g, wl, in_channels, out_channels,
         raise ValueError("edge-message backward kernel needs 16-byte "
                          "aligned tensors")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, dbl_splits = bwd_splits(e, kw, c, sms)
     form = b1_bwd_form(kw, in_channels, out_channels, compute_dtype)
+    if form == "tc":
+        splits = b1_bwd_tc_splits(e, kw, c, sms)
+    else:
+        splits, dbl_splits = bwd_splits(e, kw, c, sms)
 
     def new(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -508,9 +520,12 @@ def _launch_bwd(x, senders, h2, g, wl, in_channels, out_channels,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if form == "tc":
-            # bf16 operands, rounded to nearest even once per call
+            # bf16 operands, rounded to nearest even once per call; the
+            # senders are read by TMA, which wants 16-byte alignment
             h2b, wlb = h2.to(torch.bfloat16), wl.to(torch.bfloat16)
             wlt = wlb.t().contiguous()
+            if senders.data_ptr() % 16:
+                senders = senders.clone()
             dx_src, part_b = new(e, in_channels), new(splits, c)
             fn = kernels.fn("fused_edge_conv_bwd", "gpde_edge_messages_bwd_tc",
                             _BWD_TC_ARGS)
@@ -639,6 +654,7 @@ fused_edge_messages.general_launches = 0
 __all__ = ["fused_edge_messages", "edge_messages_plain",
            "fused_edge_messages_bwd", "edge_messages_bwd_plain",
            "fused_path_supported", "kernel_shape_supported", "bwd_splits",
-           "b1_bwd_form", "b1_bwd_simt_grid", "k1_form", "k1_general_groups",
+           "b1_bwd_tc_splits", "b1_bwd_form", "b1_bwd_simt_grid", "k1_form",
+           "k1_general_groups",
            "k1_simt_groups", "k1_simt_clusters", "simt_edge_messages",
            "C_CHUNK"]

@@ -526,9 +526,10 @@ def test_b1_bwd_matches_plain(dev, dtype, tol, e, kw, w_in, w_out):
 
 # (kw, in, out) of the tensor-core form: the GKN kappa, kw not a multiple
 # of the 32-deep slab nor of the 128-wide tile, a narrow kappa, out 128
-# (one channel per tile), out 8 (sixteen channels per tile)
+# (one channel per tile), out 8 (sixteen channels per tile), the widest g
+# and x (the tile's h2 streamed through the ring, not resident)
 B1_TC_SHAPES = [(256, 64, 64), (1000, 64, 64), (32, 16, 16), (96, 4, 128),
-                (128, 16, 8)]
+                (128, 16, 8), (256, 256, 128)]
 
 
 @pytest.mark.parametrize("e", [1, 50, 300])
@@ -546,6 +547,37 @@ def test_b1_bwd_tc_ragged(dev, e, kw, w_in, w_out):
     kw_args = dict(in_channels=w_in, out_channels=w_out,
                    compute_dtype="bfloat16")
     assert b1_bwd_form(kw, w_in, w_out, "bfloat16") == "tc"
+    before = fused_edge_messages_bwd.tc_launches
+    got = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
+    torch.cuda.synchronize()
+    assert fused_edge_messages_bwd.tc_launches == before + 1
+    want = edge_messages_bwd_plain(x, s, h2, gg, wl, **kw_args)
+    for name, a, b in zip(("dx_src", "dh2", "dWl", "dbl"), got, want):
+        assert _rel(a, b) <= 5e-3, name
+    again = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("e,shifted", [(37, False), (20011, False),
+                                       (20011, True)])
+def test_b1_bwd_tc_uai4_shape(dev, e, shifted):
+    """The bf16 tensor-core form at the uai4 kappa (kw 256, in = out = 64)
+    on fewer edges than one 128-edge tile and on a ragged last tile, once
+    with the senders an 8-byte-aligned view (TMA reads them 16-byte
+    aligned, so the wrapper copies them): all four outputs within 5e-3 of
+    the plain version, counted as a tc launch, a second launch
+    bit-identical (fixed-order sums, no atomics)."""
+    g = torch.Generator().manual_seed(e + 7)
+    x = torch.randn(2000, 64, generator=g).to(dev)
+    s = torch.randint(0, 2000, (e + 1,), generator=g).to(dev)
+    s = s[1:] if shifted else s[:e].clone()
+    assert (s.data_ptr() % 16 != 0) == shifted
+    h2 = torch.relu(torch.randn(e, 256, generator=g)).to(dev)
+    gg = torch.randn(e, 64, generator=g).to(dev)
+    wl = (torch.randn(256, 64 * 64, generator=g) / 16.0).to(dev)
+    kw_args = dict(in_channels=64, out_channels=64, compute_dtype="bfloat16")
+    assert b1_bwd_form(256, 64, 64, "bfloat16") == "tc"
     before = fused_edge_messages_bwd.tc_launches
     got = fused_edge_messages_bwd(x, s, h2, gg, wl, **kw_args)
     torch.cuda.synchronize()

@@ -358,6 +358,26 @@ def test_general_grids(e, kw, i, o):
         assert blocks >= 2 * SMS and et * 8 * hs >= two_waves
 
 
+@pytest.mark.parametrize("e,kw,c,want", [(1209117, 256, 4096, 16),
+                                         (51200, 64, 1024, 32),
+                                         (12800, 64, 1024, 13),
+                                         (20011, 256, 4096, 16),
+                                         (37, 256, 4096, 1),
+                                         (5000, 1024, 4096, 4),
+                                         (300, 8, 32768, 1)])
+def test_b1_bwd_tc_splits(e, kw, c, want):
+    """The dWl splits of B1-bwd's tensor-core form on an H100: its dw
+    kernel runs one block an SM over 128 x 256 tiles of dWl, so at most
+    four waves of them, no more splits than 1024-edge runs, at most 32;
+    the uai4 graph takes 16 (512 blocks)."""
+    splits = fe.b1_bwd_tc_splits(e, kw, c, SMS)
+    assert splits == want
+    tiles = -(-kw // 128) * -(-c // 256)
+    assert 1 <= splits <= 32
+    assert splits == 1 or splits * tiles <= 4 * SMS
+    assert splits <= -(-e // 1024)
+
+
 @pytest.mark.parametrize("layers,i,o", [((4, 32, 32, 32 * 8), 32, 8),
                                         ((6, 16, 3 * 100), 3, 100),
                                         ((6, 20, 2 * 200), 2, 200)])
