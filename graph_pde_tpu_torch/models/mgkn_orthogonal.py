@@ -24,6 +24,14 @@ JAX gate admits, and B1-bwd in the backward.
 A batch runs as one flattened graph per edge list (node offsets b * s_l,
 the same messages and means as JAX's per-sample vmap); the impl gate
 sees one sample's edge count.
+
+Spans (``utils.tracing``): ``kbuild`` around the kcached K build;
+``conv.fine`` around each conv on edge lists 0 and 1 (the finest
+level's nearest-neighbour and interactive edges) and ``conv.coarse``
+around each conv on lists 2 and up (its gather, contraction, mean, root
+and bias); ``pool`` and ``upsample`` around each inter-level transfer.
+The counter ``k_bytes`` adds the bytes of the K matrices each kcached
+forward builds, from their shapes.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from ..ops.dense import (dense_apply, dense_init, linear_init,
 from ..ops.edge_conv import _cast_params, _resolve_dtype, edge_kernel_conv
 from ..ops.pooling import avg_pool_1d, upsample_nearest_1d
 from ..ops.segment import gather_rows, masked_segment_mean
+from ..utils import tracing
 from .gkn import params_to
 
 
@@ -167,23 +176,29 @@ def _forward(params, cfg: MGKNOrthogonalConfig, x, senders, receivers,
              attrs, gate_edges) -> torch.Tensor:
     level, w = cfg.level, cfg.width
     dtype = _resolve_dtype(cfg.compute_dtype)
-    kks = (_cached_kernels(params, cfg, attrs, dtype)
-           if cfg.impl == "kcached" else None)
+    kks = None
+    if cfg.impl == "kcached":
+        with tracing.span("kbuild"):
+            kks = _cached_kernels(params, cfg, attrs, dtype)
+        tracing.count("k_bytes", sum(k.numel() * k.element_size()
+                                     for k in kks))
 
     def conv(h, idx):
-        cp = params["conv"][idx]
-        e = senders[idx].shape[0]
-        mask = torch.ones(e, dtype=torch.bool, device=h.device)
-        if kks is not None:
-            msg = apply_cached_kernel(gather_rows(h, senders[idx]),
-                                      kks[idx], w, w)
-            out = masked_segment_mean(msg, receivers[idx], mask, h.shape[0])
-            return out + h @ cp["root"] + cp["bias"]
-        return edge_kernel_conv(
-            h, senders[idx], receivers[idx], attrs[idx], mask, cp["kernel"],
-            in_channels=w, out_channels=w, aggr="mean", root=cp["root"],
-            bias=cp["bias"], impl=cfg.impl, compute_dtype=dtype,
-            gate_edges=gate_edges[idx])
+        with tracing.span("conv.fine" if idx < 2 else "conv.coarse"):
+            cp = params["conv"][idx]
+            e = senders[idx].shape[0]
+            mask = torch.ones(e, dtype=torch.bool, device=h.device)
+            if kks is not None:
+                msg = apply_cached_kernel(gather_rows(h, senders[idx]),
+                                          kks[idx], w, w)
+                out = masked_segment_mean(msg, receivers[idx], mask,
+                                          h.shape[0])
+                return out + h @ cp["root"] + cp["bias"]
+            return edge_kernel_conv(
+                h, senders[idx], receivers[idx], attrs[idx], mask,
+                cp["kernel"], in_channels=w, out_channels=w, aggr="mean",
+                root=cp["root"], bias=cp["bias"], impl=cfg.impl,
+                compute_dtype=dtype, gate_edges=gate_edges[idx])
 
     x = x @ params["fc1"]["w"] + params["fc1"]["b"]
     for _ in range(cfg.depth):
@@ -191,12 +206,14 @@ def _forward(params, cfg: MGKNOrthogonalConfig, x, senders, receivers,
         for l in range(level):
             phi[l] = x
             if l != level - 1:
-                x = avg_pool_1d(x, 2)
+                with tracing.span("pool"):
+                    x = avg_pool_1d(x, 2)
         # coarsest: the interactive edges of the deepest level
         x = torch.relu(x + conv(phi[-1], level))
         for l in reversed(range(level)):
             if l != 0:
-                x = upsample_nearest_1d(x, 2)
+                with tracing.span("upsample"):
+                    x = upsample_nearest_1d(x, 2)
                 x = torch.relu(x + conv(phi[l - 1], l))
             else:
                 x = torch.relu(x + conv(phi[0], 0))
