@@ -7,8 +7,9 @@ shared across the depth steps.
 
 ``impl='kcached'`` computes the kernel matrices K once per forward and
 reuses them at every depth step, either through the unfused plain path
-(gather, ``apply_cached_kernel``, masked mean) or, with
-``kcached_fused``, through the K2 kernel (ops/fused_iterate.py).
+(gather, ``apply_cached_kernel``, masked mean; B3 on a float32 K on
+CUDA) or, with ``kcached_fused``, through the K2 kernel
+(ops/fused_iterate.py).
 ``k_storage`` ('float8_e4m3' / 'float8_e5m2') stores K in fp8: the fused
 path hands both kernels a 1-byte copy k8 and its dK lands on the
 full-precision K; the unfused path quantizes K behind a straight-through

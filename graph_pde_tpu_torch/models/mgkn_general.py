@@ -22,10 +22,11 @@ never sees a saved tensor written to.
 ``impl='kcached'`` evaluates every conv's kappa once per forward
 (optionally in bf16, then ``k_storage``'s fp8 behind the straight-through
 estimator) and runs the convs through the plain gather,
-``apply_cached_kernel`` and masked mean, as the JAX package does. Every
-other impl goes through ``edge_kernel_conv``: on CUDA, 'auto' takes the
-K1 kernel (ops/fused_edge_conv.py) at every conv the JAX gate admits,
-and B1-bwd in the backward.
+``apply_cached_kernel`` (B3 on a float32 K on CUDA) and masked mean, as
+the JAX package does. Every other impl goes through
+``edge_kernel_conv``: on CUDA, 'auto' takes the K1 kernel
+(ops/fused_edge_conv.py) at every conv the JAX gate admits, and B1-bwd
+in the backward.
 
 A batch runs as one flattened graph per edge list: sample b's mid edges
 offset by b * n_l (local indices on the level's slice), its down and up

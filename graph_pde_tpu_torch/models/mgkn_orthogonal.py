@@ -16,10 +16,11 @@ root weight and bias.
 ``impl='kcached'`` evaluates each level's kernel MLP once per forward
 (optionally in bf16, then ``k_storage``'s fp8 behind the
 straight-through estimator) and runs every conv through the plain
-gather, ``apply_cached_kernel`` and masked mean, as the JAX package
-does. Every other impl goes through ``edge_kernel_conv``: on CUDA,
-'auto' takes the K1 kernel (ops/fused_edge_conv.py) at every level the
-JAX gate admits, and B1-bwd in the backward.
+gather, ``apply_cached_kernel`` (B3 on a float32 K on CUDA) and masked
+mean, as the JAX package does. Every other impl goes through
+``edge_kernel_conv``: on CUDA, 'auto' takes the K1 kernel
+(ops/fused_edge_conv.py) at every level the JAX gate admits, and B1-bwd
+in the backward.
 
 A batch runs as one flattened graph per edge list (node offsets b * s_l,
 the same messages and means as JAX's per-sample vmap); the impl gate

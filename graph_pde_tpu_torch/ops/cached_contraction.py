@@ -14,7 +14,9 @@ take the plain versions ``cached_contraction_plain`` and
 upcast exactly and x is not rounded to K's dtype.
 
 ``apply_cached_kernel`` is the unfused kcached path's contraction (XLA
-in JAX, plain PyTorch here), which multiplies in K's dtype.
+in JAX). A float32 K on CUDA goes through B3, which takes the same
+float32 products; every other K (CPU, bf16, fp8) takes plain PyTorch
+(``apply_cached_kernel_plain``), which multiplies in K's dtype.
 
 fp8 storage (``k_storage``): ``to_fp8`` is the one place the port rounds
 to fp8, ``quantize_ste`` the straight-through estimator of the unfused
@@ -26,6 +28,7 @@ import ctypes
 
 import torch
 
+from ..utils import tracing
 from . import kernels
 
 C_CHUNK = 1024   # the JAX kernel's column chunk (its shape gate)
@@ -101,6 +104,29 @@ def maybe_quantize_k(kk: torch.Tensor, k_storage) -> torch.Tensor:
 def apply_cached_kernel(x_src: torch.Tensor, kk2d: torch.Tensor,
                         in_channels: int, out_channels: int) -> torch.Tensor:
     """msg[e, o] = sum_i K[e, i, o] * x[e, i], float32 [E, out].
+
+    A float32 K on CUDA, in a shape the contraction's gate admits, goes
+    through B3 (``cached_contraction``): the same float32 products and
+    float32 sums, in the kernel's order, one pass over the whole K each
+    way and no [E, in, out] product. Every other K (CPU, bf16, fp8)
+    takes ``apply_cached_kernel_plain``. The counters ``contract_b3`` and
+    ``contract_plain`` count the calls of each.
+    """
+    if (kk2d.is_cuda and kk2d.dtype == torch.float32
+            and contraction_supported(x_src.shape[0], in_channels,
+                                      out_channels)):
+        tracing.count("contract_b3")
+        return cached_contraction(x_src.to(torch.float32), kk2d,
+                                  in_channels=in_channels,
+                                  out_channels=out_channels)
+    tracing.count("contract_plain")
+    return apply_cached_kernel_plain(x_src, kk2d, in_channels, out_channels)
+
+
+def apply_cached_kernel_plain(x_src: torch.Tensor, kk2d: torch.Tensor,
+                              in_channels: int,
+                              out_channels: int) -> torch.Tensor:
+    """The plain path of ``apply_cached_kernel``, in edge chunks.
 
     Products are taken in K's dtype (a bf16 K rounds x to bf16 and each
     product to bf16) and summed in float32, as the JAX formulation does.
@@ -279,5 +305,6 @@ cached_contraction.launches = 0
 
 __all__ = ["cached_contraction", "cached_contraction_plain",
            "cached_contraction_bwd", "cached_contraction_bwd_plain",
-           "contraction_supported", "apply_cached_kernel", "to_fp8",
+           "contraction_supported", "apply_cached_kernel",
+           "apply_cached_kernel_plain", "to_fp8",
            "quantize_ste", "maybe_quantize_k", "FP8_DTYPES"]

@@ -24,7 +24,9 @@ The JAX package measured this slower than plain autodiff on the TPU, so
 ``GKNConfig.loop_vjp`` defaults to False there and here. Supported:
 kernel_type='full' on flat receiver-sorted edge lists (blocked graphs
 keep the autograd path), aggr 'mean' or 'add', optional root and bias,
-float32 or bfloat16 K. Plain torch: no kernel.
+float32 or bfloat16 K. The forward contracts through
+``apply_cached_kernel`` (B3 on a float32 K on CUDA); the backward is
+plain torch.
 """
 from __future__ import annotations
 

@@ -17,6 +17,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from graph_pde_tpu_torch.utils import tracing
+
 # the modules (each package's ops/ exports a function of the same name)
 jcc = importlib.import_module("graph_pde_tpu.ops.cached_contraction")
 tcc = importlib.import_module("graph_pde_tpu_torch.ops.cached_contraction")
@@ -249,3 +251,26 @@ def test_cached_contraction_plain_does_not_round_x():
     _close(got.numpy(), want, 1e-6)
     rounded = tcc.apply_cached_kernel(torch.from_numpy(x), tk, 8, 8)
     assert not torch.allclose(rounded, got, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("e", [1, 129, 300])
+def test_apply_cached_kernel_float32_equals_b3(e):
+    """The equivalence that sends a float32 K on CUDA through B3: on
+    float32 K, the plain path's forward and its autograd gradients in x
+    and K equal B3's plain versions (what B3-fwd and B3-bwd compute) to
+    float32 rounding (the sums of msg and dx in another order; dK the
+    same products, bit for bit). On the CPU every call takes the plain
+    path, and ``contract_plain`` counts it while a recording is open."""
+    w = 64
+    x, kk, g = (torch.from_numpy(a) for a in _case(e, e, w, w))
+    xs, ks = x.clone().requires_grad_(True), kk.clone().requires_grad_(True)
+    with tracing.recording() as rec:
+        got = tcc.apply_cached_kernel(xs, ks, w, w)
+        (got * g).sum().backward()
+    assert rec.counters == {"contract_plain": 1}
+    kw = dict(in_channels=w, out_channels=w)
+    _close(got.detach().numpy(),
+           tcc.cached_contraction_plain(x, kk, **kw).numpy(), 1e-6, "msg")
+    dx, dk = tcc.cached_contraction_bwd_plain(x, kk, g, **kw)
+    _close(xs.grad.numpy(), dx.numpy(), 1e-6, "dx")
+    assert torch.equal(ks.grad, dk)

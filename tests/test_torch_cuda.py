@@ -1007,3 +1007,62 @@ def test_span_clock_matches_the_device_trace(dev):
           + ", ".join(f"{r * 1e-6:.4f}" for r in raw))
     for end, (_, _, t0, t1) in zip(ends[1:], rec.spans[1:]):
         assert t0 <= end + offset and abs(t1 - (end + offset)) <= 200_000
+
+
+def test_orthogonal_kcached_contracts_on_b3(dev):
+    """impl='kcached' in float32 on the card: every conv's contraction
+    takes B3, so B3-fwd and B3-bwd each launch edge lists x depth times
+    a forward and backward, and the output and every parameter gradient
+    equal the same model's on CPU tensors (the plain path) within 1e-5
+    of their max-abs. With compute_dtype='bfloat16' (a bf16 K) no B3
+    launches and every contraction counts on the plain path."""
+    from types import SimpleNamespace
+
+    from graph_pde_tpu_torch.data import burgers_multipole_data
+    from graph_pde_tpu_torch.models import (MGKNOrthogonalConfig,
+                                            mgkn_orthogonal_apply_batched,
+                                            mgkn_orthogonal_init,
+                                            multipole_batch)
+    from graph_pde_tpu_torch.utils import tracing
+
+    cfg = MGKNOrthogonalConfig(width=64, ker_width=64, depth=2, s=32,
+                               impl="kcached")
+    rng = np.random.default_rng(19)
+    a, u = rng.standard_normal((2, 2, cfg.s)).astype(np.float32)
+    host = multipole_batch(*burgers_multipole_data(SimpleNamespace(a=a,
+                                                                   u=u)))
+    params = mgkn_orthogonal_init(torch.Generator().manual_seed(19), cfg,
+                                  device="cpu")
+    cot = torch.randn(2, cfg.s, 1, generator=torch.Generator().manual_seed(3))
+
+    def run(c, device):
+        p = trainable(params, device)
+        with tracing.recording() as rec:
+            out = mgkn_orthogonal_apply_batched(p, c, host.to(device))
+            (out * cot.to(device)).sum().backward()
+        return (out.detach().cpu(), [t.grad.cpu() for t in param_leaves(p)],
+                rec.counters)
+
+    uses = (cfg.level + 1) * cfg.depth
+    before = (cached_contraction.launches, cached_contraction_bwd.launches)
+    out, grads, counters = run(cfg, dev)
+    torch.cuda.synchronize()
+    assert (cached_contraction.launches - before[0],
+            cached_contraction_bwd.launches - before[1]) == (uses, uses)
+    assert counters.get("contract_b3") == uses
+    assert "contract_plain" not in counters
+    want_out, want, cpu_counters = run(cfg, "cpu")
+    assert cpu_counters.get("contract_plain") == uses
+    assert _rel(out, want_out) <= 1e-5
+    errs = [_rel(g, w) for g, w in zip(grads, want)]
+    print("gradient errors " + " ".join(f"{v:.2e}" for v in errs))
+    assert max(errs) <= 1e-5
+
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    before = (cached_contraction.launches, cached_contraction_bwd.launches)
+    _, _, counters = run(bf16, dev)
+    torch.cuda.synchronize()
+    assert (cached_contraction.launches,
+            cached_contraction_bwd.launches) == before
+    assert counters.get("contract_plain") == uses
+    assert "contract_b3" not in counters

@@ -132,7 +132,9 @@ def test_spans_and_counter_in_a_recording(setup):
         "upsample": 6}
     assert all(t1 is not None and t1 >= t0 for _, _, t0, t1 in rec.spans)
     edges = sum(int(se.shape[1]) for se in data.batches[0].senders)
-    assert rec.counters == {"k_bytes": edges * 3 * CFG["width"] ** 2 * 4}
+    # every conv's contraction on the CPU takes the plain path
+    assert rec.counters == {"k_bytes": edges * 3 * CFG["width"] ** 2 * 4,
+                            "contract_plain": 10}
 
 
 def test_nothing_recorded_when_off(setup, monkeypatch):
