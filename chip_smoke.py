@@ -960,7 +960,7 @@ def phase_times(g, h, params) -> dict:
     """Kernel, plain and library times at the s=61 serving shapes."""
     import torch
 
-    from graph_pde_tpu_torch.models.gkn import _cached_kernel
+    from graph_pde_tpu_torch.ops.kcached_loop import build_cached_k
     from graph_pde_tpu_torch.ops.dense import dense_init, layer_dims
     from graph_pde_tpu_torch.ops.fused_edge_conv import (
         edge_messages_plain, fused_edge_messages, simt_edge_messages)
@@ -1007,7 +1007,7 @@ def phase_times(g, h, params) -> dict:
                 g.edge_attr[:GENERAL_TIME_SLICE], 2)
 
         k_dtype = torch.bfloat16   # the s=61 serving dtype of the cached K
-        K = _cached_kernel(kp, g.edge_attr, k_dtype)
+        K = build_cached_k(kp, g.edge_attr, k_dtype=k_dtype)
         setup = sorted_iterate_setup(g.receivers, mask, n)
         k2 = lambda: fused_iterate_total(h, g.senders, K, setup,
                                          in_channels=64, out_channels=64)
@@ -1144,7 +1144,7 @@ def phase_backward_vs_plain(g4, kp4, g1, kp1) -> dict:
     h2 the recomputed small layers, g and dtotal from a seed."""
     import torch
 
-    from graph_pde_tpu_torch.models.gkn import _cached_kernel
+    from graph_pde_tpu_torch.ops.kcached_loop import build_cached_k
     from graph_pde_tpu_torch.ops.dense import dense_apply
     from graph_pde_tpu_torch.ops.fused_iterate import sorted_iterate_setup
 
@@ -1163,7 +1163,8 @@ def phase_backward_vs_plain(g4, kp4, g1, kp1) -> dict:
         n1 = g1.x.shape[0]
         setup = sorted_iterate_setup(g1.receivers[:SLICE],
                                      g1.edge_mask()[:SLICE], n1)
-        kk = _cached_kernel(kp1, g1.edge_attr[:SLICE], torch.float32)
+        kk = build_cached_k(kp1, g1.edge_attr[:SLICE],
+                            k_dtype=torch.float32)
         dt = torch.randn(n1, 64, generator=gen).to(dev)
         for k_dtype in (torch.float32, torch.bfloat16):
             name = f"B2-bwd K={str(k_dtype).split('.')[-1]}"
@@ -1566,7 +1567,7 @@ def op_tape(tape: dict):
 
     Fn = fi._FusedIterateTotal
     launch, launch_bwd, outer, cached, bwd = (
-        fi._launch, fi._launch_bwd, fi._outer, gkn._cached_kernel,
+        fi._launch, fi._launch_bwd, fi._outer, gkn.build_cached_k,
         Fn.backward)
 
     def rec(key, val):
@@ -1590,8 +1591,8 @@ def op_tape(tape: dict):
         rec("dK step", dk)
         return dk
 
-    def cached_(kp, attr, k_dtype):
-        kk = cached(kp, attr, k_dtype)
+    def cached_(kp, attr, **kw):
+        kk = cached(kp, attr, **kw)
         rec("kk", kk)
         kk.register_hook(lambda g: rec("dK sum", g))
         return kk
@@ -1602,13 +1603,13 @@ def op_tape(tape: dict):
         return grads
 
     fi._launch, fi._launch_bwd, fi._outer = k2, b2, outer_
-    gkn._cached_kernel = cached_
+    gkn.build_cached_k = cached_
     Fn.backward = staticmethod(backward)
     try:
         yield
     finally:
         fi._launch, fi._launch_bwd, fi._outer = launch, launch_bwd, outer
-        gkn._cached_kernel = cached
+        gkn.build_cached_k = cached
         Fn.backward = staticmethod(bwd)
 
 
@@ -1667,10 +1668,10 @@ def kappa_bwd64(kp, attr, dk) -> list:
     bf16 roundings. (dW0, db0, dW1, ...)."""
     import torch
 
-    from graph_pde_tpu_torch.ops.edge_conv import _cast_params
+    from graph_pde_tpu_torch.ops.edge_conv import cast_params
 
     with torch.no_grad():
-        kp = _cast_params(kp, torch.bfloat16)
+        kp = cast_params(kp, torch.bfloat16)
         h, hs, ys = attr.to(torch.bfloat16), [], []
         for layer in kp:
             hs.append(h)
@@ -2102,7 +2103,7 @@ def backward_times(g4, kp4, g1, kp1) -> dict:
     graph: kernel, plain and library times, operations, bytes."""
     import torch
 
-    from graph_pde_tpu_torch.models.gkn import _cached_kernel
+    from graph_pde_tpu_torch.ops.kcached_loop import build_cached_k
     from graph_pde_tpu_torch.ops.dense import dense_apply
     from graph_pde_tpu_torch.ops.fused_edge_conv import (
         edge_messages_bwd_plain, edge_messages_plain, fused_edge_messages,
@@ -2171,7 +2172,7 @@ def backward_times(g4, kp4, g1, kp1) -> dict:
         e1, n1 = g1.senders.shape[0], g1.x.shape[0]
         mask = g1.edge_mask()
         valid = int(mask.sum())
-        K = _cached_kernel(kp1, g1.edge_attr, torch.bfloat16)
+        K = build_cached_k(kp1, g1.edge_attr, k_dtype=torch.bfloat16)
         setup = sorted_iterate_setup(g1.receivers, mask, n1)
         dt = torch.randn(n1, 64, generator=gen).to(dev)
         b2 = lambda: fused_iterate_bwd(K, setup, dt, in_channels=64,
@@ -2213,13 +2214,13 @@ def b3_operands(g1, kp1, k_dtype, w=64):
     (6, 32, w*w) kappa on the first GENERAL_SLICE edges."""
     import torch
 
-    from graph_pde_tpu_torch.models.gkn import _cached_kernel
+    from graph_pde_tpu_torch.ops.kcached_loop import build_cached_k
     from graph_pde_tpu_torch.ops.dense import dense_apply, dense_init
 
     dev = g1.x.device
     gen = torch.Generator().manual_seed(SEED + 9 + w)
     if w == 64:
-        K = _cached_kernel(kp1, g1.edge_attr, k_dtype)
+        K = build_cached_k(kp1, g1.edge_attr, k_dtype=k_dtype)
     else:
         kp = dense_init(gen, (6, 32, w * w), device=dev)
         K = dense_apply(kp, g1.edge_attr[:GENERAL_SLICE]).to(k_dtype)
@@ -2282,14 +2283,14 @@ def fp8_operands(g1, kp1, name):
     rounded to fp8), its iteration setup, x and dtotal from a seed."""
     import torch
 
-    from graph_pde_tpu_torch.models.gkn import _cached_kernel
+    from graph_pde_tpu_torch.ops.kcached_loop import build_cached_k
     from graph_pde_tpu_torch.ops.cached_contraction import to_fp8
     from graph_pde_tpu_torch.ops.fused_iterate import sorted_iterate_setup
 
     dev = g1.x.device
     gen = torch.Generator().manual_seed(SEED + 10)
     n1 = g1.x.shape[0]
-    K = _cached_kernel(kp1, g1.edge_attr, torch.bfloat16)
+    K = build_cached_k(kp1, g1.edge_attr, k_dtype=torch.bfloat16)
     k8 = to_fp8(K, name)
     setup = sorted_iterate_setup(g1.receivers, g1.edge_mask(), n1)
     x = torch.randn(n1, 64, generator=gen).to(dev)

@@ -6,20 +6,20 @@ after the last step unless relu_last]; decode. The conv weights are
 shared across the depth steps.
 
 ``impl='kcached'`` computes the kernel matrices K once per forward and
-reuses them at every depth step, either through the unfused plain path
-(gather, ``apply_cached_kernel``, masked mean; B3 on a float32 K on
-CUDA) or, with ``kcached_fused``, through the K2 kernel
+reuses them at every depth step, either through the port's kcached layer
+(ops/kcached_loop.py: ``build_cached_k`` and ``edge_kernel_conv``'s
+kcached path) or, with ``kcached_fused``, through the K2 kernel
 (ops/fused_iterate.py).
 ``k_storage`` ('float8_e4m3' / 'float8_e5m2') stores K in fp8: the fused
 path hands both kernels a 1-byte copy k8 and its dK lands on the
 full-precision K; the unfused path quantizes K behind a straight-through
 estimator. Every path is differentiable: the fused ops are autograd
 Functions with backward kernels, and autograd differentiates the cached
-K's chunked build. ``loop_vjp`` (unfused path, flat graphs) runs the
-depth loop as one autograd Function whose backward builds dK once
-(ops/kcached_loop.py). A batch runs as one flattened graph, but its gates
-read one graph's sizes (as the JAX package's per-graph vmap does), so a
-config takes the same branch and the same K dtype in both packages.
+K's build. ``loop_vjp`` (unfused path, flat graphs) runs the depth loop
+as one autograd Function whose backward builds dK once. A batch runs as
+one flattened graph, but its gates read one graph's sizes (as the JAX
+package's per-graph vmap does), so a config takes the same branch and
+the same K dtype in both packages.
 """
 from __future__ import annotations
 
@@ -30,21 +30,18 @@ import torch
 
 from ..device import DeviceLike
 from ..graph.graph import Graph, flatten_stacked
-from ..ops.cached_contraction import maybe_quantize_k, to_fp8
-from ..ops.dense import (dense_apply, dense_init, linear_init,
-                         pyg_uniform_init)
-from ..ops.edge_conv import _cast_params, _resolve_dtype, edge_kernel_conv
+from ..ops.cached_contraction import to_fp8
+from ..ops.dense import dense_init, linear_init, pyg_uniform_init
+from ..ops.edge_conv import edge_kernel_conv
 from ..ops.fused_iterate import (fused_iterate_supported,
                                  fused_iterate_total, sorted_iterate_setup)
-from ..ops.kcached_loop import kcached_depth_loop, kcached_iterate
+from ..ops.kcached_loop import build_cached_k, kcached_depth_loop
 
 # The JAX package's one-hot gate (ops/segment.py _ONEHOT_MAX_BYTES): the
 # kcached_fused='auto' rule fuses only where that one-hot would not apply.
 _ONEHOT_MAX_BYTES = 64 * 1024 * 1024
 # Above this many bytes of float32 K per graph, the cached K is bf16.
 _KCACHED_F32_MAX_BYTES = 2 * 1024 ** 3
-# Edges per step when building the cached K (bounds the float32 peak).
-_K_BUILD_CHUNK = 65536
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,33 +119,16 @@ def _relu_after(cfg: GKNConfig, t: int) -> bool:
     return t != cfg.depth - 1 or cfg.relu_last
 
 
-def _cached_kernel(kp, attr, k_dtype) -> torch.Tensor:
-    """K = kappa(attr) in edge chunks, each cast to the storage dtype:
-    the numbers of one large dense_apply without its float32 peak.
-    Autograd differentiates the chunks in attr and every kappa parameter,
-    as JAX differentiates dense_apply(...).astype; it keeps each chunk's
-    hidden activations for the backward."""
-    e = attr.shape[0]
-    kk = torch.empty((e, kp[-1]["w"].shape[1]), dtype=k_dtype,
-                     device=attr.device)
-    for s0 in range(0, e, _K_BUILD_CHUNK):
-        s1 = min(e, s0 + _K_BUILD_CHUNK)
-        kk[s0:s1] = dense_apply(kp, attr[s0:s1]).to(k_dtype)
-    return kk
-
-
-def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask, dtype,
+def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask,
              gate_e: int, gate_n: int):
+    """impl='kcached': builds K and runs the fused or loop_vjp depth loop
+    where the config takes one, returning (its output, None); otherwise
+    (x, K) for the model's depth loop."""
     w = cfg.width
     big = gate_e * w * w * 4 > _KCACHED_F32_MAX_BYTES
-    k_dtype = torch.bfloat16 if (dtype is not None or big) else torch.float32
-    kp, attr = params["kernel"], graph.edge_attr
-    if dtype is not None:
-        kp, attr = _cast_params(kp, dtype), attr.to(dtype)
-    # fp32 kappa -> k_dtype -> fp8, the JAX package's rounding order
-    kk = _cached_kernel(kp, attr, k_dtype)
+    k_dtype = (torch.bfloat16 if (cfg.compute_dtype is not None or big)
+               else torch.float32)
     n = x.shape[0]
-
     use_fused = (not graph.node_block and not cfg.loop_vjp
                  and graph.sorted_span > 0
                  and cfg.aggr in ("mean", "add")
@@ -156,6 +136,9 @@ def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask, dtype,
                  and (cfg.kcached_fused == "on"
                       or (cfg.kcached_fused == "auto"
                           and gate_e * gate_n * 4 > _ONEHOT_MAX_BYTES)))
+    kk = build_cached_k(params["kernel"], graph.edge_attr,
+                        compute_dtype=cfg.compute_dtype, k_dtype=k_dtype,
+                        k_storage=None if use_fused else cfg.k_storage)
     if use_fused:
         # fp8 storage: both kernels stream the 1-byte copy; dK lands on
         # the full-precision kk (gkn.py:185-195 in JAX)
@@ -171,22 +154,14 @@ def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask, dtype,
             x = _root_bias(params, x, out)
             if _relu_after(cfg, t):
                 x = torch.relu(x)
-        return x
-
-    kk = maybe_quantize_k(kk, cfg.k_storage)
+        return x, None
     if cfg.loop_vjp and not graph.node_block:
         # one backward for the whole depth loop, dK built once
         return kcached_depth_loop(
             x, kk, params.get("root"), params.get("bias"), graph.senders,
             graph.receivers, edge_mask, depth=cfg.depth, width=w,
-            aggr=cfg.aggr, relu_last=cfg.relu_last)
-    for t in range(cfg.depth):
-        x = kcached_iterate(x, kk, params.get("root"), params.get("bias"),
-                            graph.senders, graph.receivers, edge_mask, w,
-                            cfg.aggr)
-        if _relu_after(cfg, t):
-            x = torch.relu(x)
-    return x
+            aggr=cfg.aggr, relu_last=cfg.relu_last), None
+    return x, kk
 
 
 def _root_bias(params, x, out):
@@ -202,20 +177,19 @@ def _forward(params, cfg: GKNConfig, graph: Graph, gate_e: int,
     params = params_to(params, graph.device)
     x = graph.x @ params["fc1"]["w"] + params["fc1"]["b"]
     edge_mask = graph.edge_mask()
-    dtype = _resolve_dtype(cfg.compute_dtype)
-
+    kk = None
     if cfg.impl == "kcached":
-        x = _kcached(params, cfg, graph, x, edge_mask, dtype, gate_e,
-                     gate_n)
-        return _gkn_decode(params, cfg, x)
+        x, kk = _kcached(params, cfg, graph, x, edge_mask, gate_e, gate_n)
+        if kk is None:
+            return _gkn_decode(params, cfg, x)
 
     for t in range(cfg.depth):
         x = edge_kernel_conv(
             x, graph.senders, graph.receivers, graph.edge_attr, edge_mask,
             params["kernel"], in_channels=cfg.width, out_channels=cfg.width,
             aggr=cfg.aggr, root=params.get("root"), bias=params.get("bias"),
-            impl=cfg.impl, compute_dtype=dtype, node_block=graph.node_block,
-            gate_edges=gate_e)
+            impl=cfg.impl, compute_dtype=cfg.compute_dtype,
+            node_block=graph.node_block, gate_edges=gate_e, cached_k=kk)
         if _relu_after(cfg, t):
             x = torch.relu(x)
     return _gkn_decode(params, cfg, x)

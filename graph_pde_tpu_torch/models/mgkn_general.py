@@ -19,14 +19,11 @@ two hidden layers, down and up kappas one (MGKN_general_darcy2d.py:
 level's slice concatenated between the untouched rows), so autograd
 never sees a saved tensor written to.
 
-``impl='kcached'`` evaluates every conv's kappa once per forward
-(optionally in bf16, then ``k_storage``'s fp8 behind the straight-through
-estimator) and runs the convs through the plain gather,
-``apply_cached_kernel`` (B3 on a float32 K on CUDA) and masked mean, as
-the JAX package does. Every other impl goes through
-``edge_kernel_conv``: on CUDA, 'auto' takes the K1 kernel
-(ops/fused_edge_conv.py) at every conv the JAX gate admits, and B1-bwd
-in the backward.
+Every conv is one ``edge_kernel_conv``. ``impl='kcached'`` evaluates
+every conv's kappa once per forward and hands each conv its K, through
+the port's kcached layer (ops/kcached_loop.py). On CUDA, 'auto' takes
+the K1 kernel (ops/fused_edge_conv.py) at every conv the JAX gate
+admits, and B1-bwd in the backward.
 
 A batch runs as one flattened graph per edge list: sample b's mid edges
 offset by b * n_l (local indices on the level's slice), its down and up
@@ -47,11 +44,9 @@ import torch
 
 from ..device import DeviceLike
 from ..graph.graph import MultiLevelGraph
-from ..ops.cached_contraction import apply_cached_kernel, maybe_quantize_k
-from ..ops.dense import (dense_apply, dense_init, linear_init,
-                         pyg_uniform_init)
-from ..ops.edge_conv import _cast_params, _resolve_dtype, edge_kernel_conv
-from ..ops.segment import gather_rows, masked_segment_mean
+from ..ops.dense import dense_init, linear_init, pyg_uniform_init
+from ..ops.edge_conv import edge_kernel_conv
+from ..ops.kcached_loop import build_cached_k
 from ..utils import tracing
 from .gkn import params_to
 
@@ -153,41 +148,12 @@ def _edges(g: MultiLevelGraph, kind: str, l: int, stride: int) -> _Edges:
                   per_graph=r1 - r0)
 
 
-def _conv(x, ed: _Edges, conv_params, cfg, dtype, kk=None):
-    """One edge-kernel conv (mean aggregation, the conv's root weight
-    where it has one, no bias) on a flattened node array."""
-    if kk is not None:
-        msg = apply_cached_kernel(gather_rows(x, ed.senders), kk, cfg.width,
-                                  cfg.width)
-        out = masked_segment_mean(msg, ed.receivers, ed.mask, x.shape[0])
-        if "root" in conv_params:
-            out = out + x @ conv_params["root"]
-        return out
-    return edge_kernel_conv(
-        x, ed.senders, ed.receivers, ed.attr, ed.mask, conv_params["kernel"],
-        in_channels=cfg.width, out_channels=cfg.width, aggr="mean",
-        root=conv_params.get("root"), bias=None, impl=cfg.impl,
-        compute_dtype=dtype, gate_edges=ed.per_graph)
-
-
-def _precompute_kernels(params, cfg, edges, dtype) -> dict:
-    """impl='kcached': every conv's K = kappa(attr) [E, width^2],
-    evaluated once per forward (bf16 kappa and K where compute_dtype
-    asks, then fp8 storage). 'single' caches only K_00, the one conv it
-    runs."""
-    k_dtype = torch.float32 if dtype is None else dtype
-
-    def kap(conv_params, ed):
-        kp, a = conv_params["kernel"], ed.attr
-        if dtype is not None:
-            kp, a = _cast_params(kp, dtype), a.to(dtype)
-        return maybe_quantize_k(dense_apply(kp, a).to(k_dtype),
-                                cfg.k_storage)
-
-    if cfg.variant == "single":
-        return {"down": [], "up": [],
-                "mid": [kap(params["conv_mid"][0], edges["mid"][0])]}
-    return {kind: [kap(params[f"conv_{kind}"][l], ed)
+def _precompute_kernels(params, cfg, edges) -> dict:
+    """impl='kcached': the K of every conv that runs ('single' runs only
+    K_00, and ``edges`` holds only its list), once per forward."""
+    return {kind: [build_cached_k(params[f"conv_{kind}"][l]["kernel"],
+                                  ed.attr, compute_dtype=cfg.compute_dtype,
+                                  k_storage=cfg.k_storage)
                    for l, ed in enumerate(edges[kind])]
             for kind in ("down", "mid", "up")}
 
@@ -203,7 +169,6 @@ def _forward(params, cfg: MGKNGeneralConfig, g: MultiLevelGraph):
         raise ValueError(f"unknown variant {cfg.variant!r}")
     offs = cfg.offsets()
     b, n_tot, w = g.x.shape[0], offs[-1], cfg.width
-    dtype = _resolve_dtype(cfg.compute_dtype)
     single = cfg.variant == "single"
     levels = 1 if single else cfg.level
     edges = {
@@ -217,12 +182,19 @@ def _forward(params, cfg: MGKNGeneralConfig, g: MultiLevelGraph):
     kks = None
     if cfg.impl == "kcached":
         with tracing.span("kbuild"):
-            kks = _precompute_kernels(params, cfg, edges, dtype)
+            kks = _precompute_kernels(params, cfg, edges)
 
     def conv(x, kind, l):
+        """One conv (mean aggregation, the conv's root weight where it
+        has one, no bias) on a flattened node array."""
+        ed, cp = edges[kind][l], params[f"conv_{kind}"][l]
         with tracing.span(_CONV_SPANS[kind]):
-            return _conv(x, edges[kind][l], params[f"conv_{kind}"][l], cfg,
-                         dtype, None if kks is None else kks[kind][l])
+            return edge_kernel_conv(
+                x, ed.senders, ed.receivers, ed.attr, ed.mask, cp["kernel"],
+                in_channels=w, out_channels=w, aggr="mean",
+                root=cp.get("root"), bias=None, impl=cfg.impl,
+                compute_dtype=cfg.compute_dtype, gate_edges=ed.per_graph,
+                cached_k=None if kks is None else kks[kind][l])
 
     def mid(x3, l):
         """K_ll on level l's slice of every sample: [B, n_l, w]."""

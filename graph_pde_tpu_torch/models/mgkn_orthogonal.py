@@ -13,14 +13,11 @@ way up apply a residual conv with ReLU. Kernel widths halve per level
 with a floor of 16. Convs are PyG NNConv defaults: mean aggregation,
 root weight and bias.
 
-``impl='kcached'`` evaluates each level's kernel MLP once per forward
-(optionally in bf16, then ``k_storage``'s fp8 behind the
-straight-through estimator) and runs every conv through the plain
-gather, ``apply_cached_kernel`` (B3 on a float32 K on CUDA) and masked
-mean, as the JAX package does. Every other impl goes through
-``edge_kernel_conv``: on CUDA, 'auto' takes the K1 kernel
-(ops/fused_edge_conv.py) at every level the JAX gate admits, and B1-bwd
-in the backward.
+Every conv is one ``edge_kernel_conv``. ``impl='kcached'`` evaluates
+each level's kernel MLP once per forward and hands each conv its K,
+through the port's kcached layer (ops/kcached_loop.py). On CUDA, 'auto'
+takes the K1 kernel (ops/fused_edge_conv.py) at every level the JAX
+gate admits, and B1-bwd in the backward.
 
 A batch runs as one flattened graph per edge list (node offsets b * s_l,
 the same messages and means as JAX's per-sample vmap); the impl gate
@@ -43,12 +40,10 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike
-from ..ops.cached_contraction import apply_cached_kernel, maybe_quantize_k
-from ..ops.dense import (dense_apply, dense_init, linear_init,
-                         pyg_uniform_init)
-from ..ops.edge_conv import _cast_params, _resolve_dtype, edge_kernel_conv
+from ..ops.dense import dense_init, linear_init, pyg_uniform_init
+from ..ops.edge_conv import edge_kernel_conv
+from ..ops.kcached_loop import build_cached_k
 from ..ops.pooling import avg_pool_1d, upsample_nearest_1d
-from ..ops.segment import gather_rows, masked_segment_mean
 from ..utils import tracing
 from .gkn import params_to
 
@@ -158,29 +153,16 @@ def _flatten(g: MultipoleGraph1D, s: int):
     return g.x.reshape(-1, g.x.shape[-1]), senders, receivers, attrs
 
 
-def _cached_kernels(params, cfg, attrs, dtype) -> list:
-    """Each level's K = kappa(attrs) [E_l, width^2], evaluated once per
-    forward: bf16 kappa and K where compute_dtype asks, then fp8
-    storage."""
-    k_dtype = torch.float32 if dtype is None else dtype
-    kks = []
-    for idx, a in enumerate(attrs):
-        kp = params["conv"][idx]["kernel"]
-        if dtype is not None:
-            kp, a = _cast_params(kp, dtype), a.to(dtype)
-        kks.append(maybe_quantize_k(dense_apply(kp, a).to(k_dtype),
-                                    cfg.k_storage))
-    return kks
-
-
 def _forward(params, cfg: MGKNOrthogonalConfig, x, senders, receivers,
              attrs, gate_edges) -> torch.Tensor:
     level, w = cfg.level, cfg.width
-    dtype = _resolve_dtype(cfg.compute_dtype)
     kks = None
     if cfg.impl == "kcached":
         with tracing.span("kbuild"):
-            kks = _cached_kernels(params, cfg, attrs, dtype)
+            kks = [build_cached_k(cp["kernel"], a,
+                                  compute_dtype=cfg.compute_dtype,
+                                  k_storage=cfg.k_storage)
+                   for cp, a in zip(params["conv"], attrs)]
         tracing.count("k_bytes", sum(k.numel() * k.element_size()
                                      for k in kks))
 
@@ -189,17 +171,12 @@ def _forward(params, cfg: MGKNOrthogonalConfig, x, senders, receivers,
             cp = params["conv"][idx]
             e = senders[idx].shape[0]
             mask = torch.ones(e, dtype=torch.bool, device=h.device)
-            if kks is not None:
-                msg = apply_cached_kernel(gather_rows(h, senders[idx]),
-                                          kks[idx], w, w)
-                out = masked_segment_mean(msg, receivers[idx], mask,
-                                          h.shape[0])
-                return out + h @ cp["root"] + cp["bias"]
             return edge_kernel_conv(
                 h, senders[idx], receivers[idx], attrs[idx], mask,
                 cp["kernel"], in_channels=w, out_channels=w, aggr="mean",
                 root=cp["root"], bias=cp["bias"], impl=cfg.impl,
-                compute_dtype=dtype, gate_edges=gate_edges[idx])
+                compute_dtype=cfg.compute_dtype, gate_edges=gate_edges[idx],
+                cached_k=None if kks is None else kks[idx])
 
     x = x @ params["fc1"]["w"] + params["fc1"]["b"]
     for _ in range(cfg.depth):

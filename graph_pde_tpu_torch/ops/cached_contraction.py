@@ -14,9 +14,8 @@ take the plain versions ``cached_contraction_plain`` and
 upcast exactly and x is not rounded to K's dtype.
 
 ``apply_cached_kernel`` is the unfused kcached path's contraction (XLA
-in JAX). A float32 K on CUDA goes through B3, which takes the same
-float32 products; every other K (CPU, bf16, fp8) takes plain PyTorch
-(``apply_cached_kernel_plain``), which multiplies in K's dtype.
+in JAX); its docstring says which K takes B3 and which plain PyTorch
+(``apply_cached_kernel_plain``).
 
 fp8 storage (``k_storage``): ``to_fp8`` is the one place the port rounds
 to fp8, ``quantize_ste`` the straight-through estimator of the unfused

@@ -17,6 +17,10 @@ Paths (``impl``), named as in the JAX package so configs carry over:
     fused-path gate holds (the CUDA kernel takes every shape it admits);
     otherwise the JAX rule, 'reference' up to 64 M kernel elements and
     'scan' above. A shape decision only.
+  - 'kcached': the kernel matrices ``cached_k`` [E, w_in*w_out], built
+    once a forward by ops/kcached_loop.py's ``build_cached_k``, contracted
+    by ``apply_cached_kernel``; edge_attr, kernel_params and compute_dtype
+    are already in K.
 
 A kappa split over tensor-parallel ranks (parallel.TPKernel) computes
 its own messages: ``messages`` on the plain paths, ``fused_messages``
@@ -28,13 +32,16 @@ from typing import Optional
 
 import torch
 
+from .cached_contraction import apply_cached_kernel
 from .dense import dense_apply
 from .segment import gather_rows, masked_segment_mean, masked_segment_sum
 
 _REFERENCE_MAX_KERNEL_ELEMS = 64 * 1024 * 1024  # E * w_in * w_out
 
 
-def _cast_params(kernel_params, dtype):
+def cast_params(kernel_params, dtype):
+    """The kappa parameters (a tuple of {'w', 'b'} layers) cast to
+    ``dtype``."""
     return tuple({k: v.to(dtype) for k, v in p.items()}
                  for p in kernel_params)
 
@@ -49,7 +56,7 @@ def _kernel_messages(x_src, edge_attr, kernel_params, in_channels,
     if compute_dtype is not None:
         x_src = x_src.to(compute_dtype)
         edge_attr = edge_attr.to(compute_dtype)
-        kernel_params = _cast_params(kernel_params, compute_dtype)
+        kernel_params = cast_params(kernel_params, compute_dtype)
     k = dense_apply(kernel_params, edge_attr)
     if kernel_type == "diag":
         return x_src * k
@@ -58,7 +65,9 @@ def _kernel_messages(x_src, edge_attr, kernel_params, in_channels,
                         w.to(torch.float32))
 
 
-def _resolve_dtype(compute_dtype):
+def resolve_dtype(compute_dtype):
+    """A config's compute_dtype as a torch dtype: None (float32) or
+    torch.bfloat16."""
     if compute_dtype in ("bfloat16", torch.bfloat16):
         return torch.bfloat16
     if compute_dtype is None:
@@ -85,25 +94,34 @@ def edge_kernel_conv(
     compute_dtype=None,
     node_block: int = 0,
     gate_edges: Optional[int] = None,
+    cached_k: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The edge-conditioned convolution on one padded graph, [N, w_out]
     float32. ``node_block`` graphs need no special handling here (their
     mask is explicit); ``gate_edges`` is the per-graph edge count the
-    'auto' rule sees when several graphs are flattened into one."""
+    'auto' rule sees when several graphs are flattened into one;
+    ``cached_k`` is the K of impl='kcached', and only of it."""
     n = x.shape[0]
     e = senders.shape[0]
     if aggr not in ("mean", "add"):
         raise ValueError(f"aggr must be 'mean' or 'add', not {aggr!r}")
     if kernel_type not in ("full", "diag"):
         raise ValueError(f"unknown kernel_type {kernel_type!r}")
-    dtype = _resolve_dtype(compute_dtype)
+    if (impl == "kcached") != (cached_k is not None):
+        raise ValueError(f"impl {impl!r} with cached_k "
+                         f"{'None' if cached_k is None else 'given'}: "
+                         "cached_k goes with impl='kcached' only")
+    dtype = resolve_dtype(compute_dtype)
 
     if impl == "auto":
         impl = _pick_impl(e if gate_edges is None else gate_edges,
                           in_channels, out_channels, kernel_type,
                           kernel_params, x.is_cuda)
 
-    if impl == "pallas":
+    if impl == "kcached":
+        msg = apply_cached_kernel(gather_rows(x, senders), cached_k,
+                                  in_channels, out_channels)
+    elif impl == "pallas":
         from .fused_edge_conv import fused_edge_messages
 
         kw = dict(in_channels=in_channels, out_channels=out_channels,
@@ -187,4 +205,5 @@ def _pick_impl(e, in_channels, out_channels, kernel_type, kernel_params,
     return "scan"
 
 
-__all__ = ["edge_kernel_conv", "edge_conv_gaussian"]
+__all__ = ["edge_kernel_conv", "edge_conv_gaussian", "cast_params",
+           "resolve_dtype"]

@@ -1,10 +1,15 @@
-"""The kcached depth loop as one autograd Function (counterpart of
+"""The port's kcached layer: the cached-K build, and the kcached depth
+loop as one autograd Function (counterpart of
 graph_pde_tpu/ops/kcached_loop.py).
 
-The kcached GKN forward runs its depth-T iteration against kernel
-matrices K = kappa(edge_attr) built once a forward. Under autograd each
-iteration's backward adds its own dK_t = x_t[s] (x) g_t, an [E, w^2]
-tensor. ``kcached_depth_loop`` differentiates the whole loop at once:
+impl='kcached' evaluates each conv's kernel MLP once a forward,
+K = kappa(edge_attr) [E, w_in*w_out] (``build_cached_k``), and hands K to
+``edge_kernel_conv(..., impl='kcached', cached_k=K)`` at every conv that
+reuses it: the GKN's depth steps, each MGKN conv of every V-cycle.
+
+Under autograd, each step of the kcached GKN's depth-T loop adds its
+own dK_t = x_t[s] (x) g_t, an [E, w^2] tensor, in the backward.
+``kcached_depth_loop`` differentiates the whole loop at once:
 
   forward : per iteration, gather, the contraction against K, the masked
             segment mean or sum, root and bias, ReLU. It saves the T
@@ -24,9 +29,8 @@ The JAX package measured this slower than plain autodiff on the TPU, so
 ``GKNConfig.loop_vjp`` defaults to False there and here. Supported:
 kernel_type='full' on flat receiver-sorted edge lists (blocked graphs
 keep the autograd path), aggr 'mean' or 'add', optional root and bias,
-float32 or bfloat16 K. The forward contracts through
-``apply_cached_kernel`` (B3 on a float32 K on CUDA); the backward is
-plain torch.
+float32 or bfloat16 K. The forward runs ``edge_kernel_conv``'s kcached
+path; the backward is plain torch.
 """
 from __future__ import annotations
 
@@ -34,12 +38,47 @@ from typing import Optional
 
 import torch
 
-from .cached_contraction import apply_cached_kernel
-from .segment import (gather_rows, masked_segment_mean, masked_segment_sum,
-                      segment_counts)
+from .cached_contraction import maybe_quantize_k
+from .dense import dense_apply
+from .edge_conv import cast_params, edge_kernel_conv, resolve_dtype
+from .segment import gather_rows, segment_counts
 
 # Edges per chunk of the transposed contraction and of dK's build.
 _CHUNK = 65536
+# Edges per step when building the cached K (bounds the float32 peak).
+_K_BUILD_CHUNK = 65536
+
+
+def build_cached_k(kernel_params, attr: torch.Tensor, *, compute_dtype=None,
+                   k_dtype: Optional[torch.dtype] = None,
+                   k_storage: Optional[str] = None) -> torch.Tensor:
+    """K = kappa(attr) [E, w_in*w_out] for impl='kcached'.
+
+    The kappa parameters and ``attr`` are cast to ``compute_dtype``
+    ('bfloat16') where it is given; the MLP's output is cast to
+    ``k_dtype`` (default: the compute dtype, else float32), then
+    ``k_storage`` ('float8_e4m3' / 'float8_e5m2') stores it in fp8 behind
+    the straight-through estimator: fp32 kappa -> k_dtype -> fp8, the JAX
+    package's rounding order. Up to ``_K_BUILD_CHUNK`` edges K is the one
+    ``dense_apply`` itself; above, each chunk is built and cast on its
+    own into one K, the same numbers without one large float32 peak.
+    Autograd differentiates either form in attr and every kappa
+    parameter, as JAX differentiates dense_apply(...).astype."""
+    dtype = resolve_dtype(compute_dtype)
+    if dtype is not None:
+        kernel_params, attr = cast_params(kernel_params, dtype), attr.to(dtype)
+    if k_dtype is None:
+        k_dtype = torch.float32 if dtype is None else dtype
+    e = attr.shape[0]
+    if e <= _K_BUILD_CHUNK:
+        kk = dense_apply(kernel_params, attr).to(k_dtype)
+    else:
+        kk = torch.empty((e, kernel_params[-1]["w"].shape[1]),
+                         dtype=k_dtype, device=attr.device)
+        for s0 in range(0, e, _K_BUILD_CHUNK):
+            s1 = min(e, s0 + _K_BUILD_CHUNK)
+            kk[s0:s1] = dense_apply(kernel_params, attr[s0:s1]).to(k_dtype)
+    return maybe_quantize_k(kk, k_storage)
 
 
 def _contract_t(gmsg: torch.Tensor, kk2d: torch.Tensor,
@@ -56,24 +95,6 @@ def _contract_t(gmsg: torch.Tensor, kk2d: torch.Tensor,
     return out
 
 
-def kcached_iterate(x, kk, root, bias, senders, receivers, edge_mask,
-                    width: int, aggr: str) -> torch.Tensor:
-    """One kcached depth step before its ReLU: gather, the contraction
-    against the cached K [E, w*w], the masked segment mean or sum, then
-    root and bias (either may be None)."""
-    n = x.shape[0]
-    msg = apply_cached_kernel(gather_rows(x, senders), kk, width, width)
-    if aggr == "mean":
-        out = masked_segment_mean(msg, receivers, edge_mask, n)
-    else:
-        out = masked_segment_sum(msg, receivers, edge_mask, n)
-    if root is not None:
-        out = out + x @ root
-    if bias is not None:
-        out = out + bias
-    return out
-
-
 class _DepthLoop(torch.autograd.Function):
 
     @staticmethod
@@ -82,8 +103,10 @@ class _DepthLoop(torch.autograd.Function):
         xs = []
         for t in range(depth):
             xs.append(x)
-            x = kcached_iterate(x, kk, root, bias, senders, receivers,
-                                edge_mask, width, aggr)
+            x = edge_kernel_conv(x, senders, receivers, None, edge_mask,
+                                 None, in_channels=width,
+                                 out_channels=width, aggr=aggr, root=root,
+                                 bias=bias, impl="kcached", cached_k=kk)
             if t != depth - 1 or relu_last:
                 x = torch.relu(x)
         ctx.save_for_backward(torch.stack(xs), x, kk, root, bias, senders,
@@ -155,4 +178,4 @@ def kcached_depth_loop(x: torch.Tensor, kk: torch.Tensor,
                             edge_mask, depth, width, aggr, relu_last)
 
 
-__all__ = ["kcached_depth_loop", "kcached_iterate"]
+__all__ = ["build_cached_k", "kcached_depth_loop"]

@@ -21,7 +21,7 @@ from graph_pde_tpu.ops.fused_iterate import (fused_iterate_total as
                                              j_iterate_setup)
 from graph_pde_tpu.ops.pallas_edge_conv import fused_edge_messages as j_fused
 
-from graph_pde_tpu_torch.models.gkn import _cached_kernel
+from graph_pde_tpu_torch.ops.kcached_loop import build_cached_k
 from graph_pde_tpu_torch.ops.cached_contraction import to_fp8
 from graph_pde_tpu_torch.ops.dense import dense_apply
 from graph_pde_tpu_torch.ops.fused_edge_conv import (edge_messages_bwd_plain,
@@ -217,13 +217,16 @@ def test_fused_iterate_k8_grads_match_jax(name, k_dtype):
                             in_channels=w, out_channels=w, k8=tk)
 
 
+@pytest.mark.parametrize("chunked", [True, False])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_cached_kernel_grads_match_jax(bf16, monkeypatch):
-    """The chunked cached-K build, differentiated by autograd, is
-    jax.grad of dense_apply(...).astype(K dtype), over several chunks."""
-    import graph_pde_tpu_torch.models.gkn as tgkn
+def test_cached_kernel_grads_match_jax(bf16, chunked, monkeypatch):
+    """The cached-K build, differentiated by autograd, is jax.grad of
+    dense_apply(...).astype(K dtype), over several chunks or in one, where
+    K is the one dense_apply itself (no slice write)."""
+    import graph_pde_tpu_torch.ops.kcached_loop as tloop
 
-    monkeypatch.setattr(tgkn, "_K_BUILD_CHUNK", 128)
+    if chunked:
+        monkeypatch.setattr(tloop, "_K_BUILD_CHUNK", 128)
     rng = np.random.default_rng(4)
     layers = [6, 16, 16, 64]
     jp = jdense.dense_init(jax.random.PRNGKey(4), layers)
@@ -246,7 +249,9 @@ def test_cached_kernel_grads_match_jax(bf16, monkeypatch):
         kp = tuple({k: v.to(torch.bfloat16) for k, v in p.items()}
                    for p in tp)
         at = ta.to(torch.bfloat16)
-    kk = _cached_kernel(kp, at, getattr(torch, k_dtype))
+    kk = build_cached_k(tp, ta, compute_dtype="bfloat16" if bf16 else None,
+                        k_dtype=getattr(torch, k_dtype))
+    assert (type(kk.grad_fn).__name__ == "CopySlices") == chunked
     (kk.float() * torch.as_tensor(cot)).sum().backward()
     # in bf16 the kappa's gradients are bf16 tensors in both packages,
     # reduced over 300 edges in bf16 (XLA) or per chunk (torch): they

@@ -24,6 +24,7 @@ from graph_pde_tpu_torch.ops.cached_contraction import (
     cached_contraction, cached_contraction_bwd, cached_contraction_bwd_plain,
     cached_contraction_plain, to_fp8)
 from graph_pde_tpu_torch.ops.dense import dense_apply, dense_init, layer_dims
+from graph_pde_tpu_torch.ops.edge_conv import cast_params
 from graph_pde_tpu_torch.ops.fused_edge_conv import (b1_bwd_form,
                                                      b1_bwd_simt_grid,
                                                      edge_messages_bwd_plain,
@@ -856,13 +857,17 @@ def test_gkn_fp8_grads_on_card_match_cpu(dev, k_storage, dtype, tol,
     value lies near a rounding edge; so both sides build K in float64
     here (rounded to K's dtype from nearly the same value), and the
     comparison holds the fp8 kernels, not the K build."""
-    def k_build_f64(kp, attr, k_dtype):
+    def k_build_f64(kp, attr, *, compute_dtype, k_dtype, k_storage):
+        assert k_storage is None    # the fused path rounds its own k8
+        if compute_dtype is not None:
+            kp = cast_params(kp, torch.bfloat16)
+            attr = attr.to(torch.bfloat16)
         kp64 = tuple({k: v.double() for k, v in layer.items()}
                      for layer in kp)
         return dense_apply(kp64, attr.double()).to(k_dtype)
 
     monkeypatch.setattr(importlib.import_module(
-        "graph_pde_tpu_torch.models.gkn"), "_cached_kernel", k_build_f64)
+        "graph_pde_tpu_torch.models.gkn"), "build_cached_k", k_build_f64)
     rng = np.random.default_rng(0)
     n, e = 200, 3000
     host = build_graph(rng.normal(size=(n, 6)), rng.integers(0, n, e),

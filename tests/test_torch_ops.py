@@ -42,6 +42,7 @@ from graph_pde_tpu_torch.ops.fused_iterate import (b2_bwd_form,
                                                    fused_iterate_supported,
                                                    fused_iterate_total,
                                                    sorted_iterate_setup)
+from graph_pde_tpu_torch.ops.kcached_loop import build_cached_k
 
 F32_TOL = 1e-5
 BF16_TOL = 1e-2
@@ -122,8 +123,12 @@ def _conv_inputs(seed, n=60, e=700, w=8, kernel_type="full"):
 @pytest.mark.parametrize("kernel_type,impl,aggr", [
     ("full", "reference", "mean"), ("diag", "reference", "mean"),
     ("full", "scan", "mean"), ("full", "reference", "add"),
-    ("full", "auto", "mean"), ("full", "pallas", "mean")])
+    ("full", "auto", "mean"), ("full", "pallas", "mean"),
+    ("full", "kcached", "mean")])
 def test_edge_kernel_conv_matches(kernel_type, impl, aggr):
+    """Each impl against JAX's; 'kcached' (K built once by
+    build_cached_k) against JAX's 'reference', and its K goes with
+    impl='kcached' only."""
     w = 8
     jp, tp, x, s, r, a, m, root, bias = _conv_inputs(2, w=w,
                                                      kernel_type=kernel_type)
@@ -132,11 +137,18 @@ def test_edge_kernel_conv_matches(kernel_type, impl, aggr):
     want = jconv.edge_kernel_conv(
         jnp.asarray(x), jnp.asarray(s), jnp.asarray(r), jnp.asarray(a),
         jnp.asarray(m), jp, root=jnp.asarray(root), bias=jnp.asarray(bias),
-        **kw)
-    got = tconv.edge_kernel_conv(
-        _t(x), _t(s).long(), _t(r).long(), _t(a), _t(m), tp,
-        root=_t(root), bias=_t(bias), **kw)
+        **dict(kw, impl="reference" if impl == "kcached" else impl))
+    args = (_t(x), _t(s).long(), _t(r).long(), _t(a), _t(m), tp)
+    kk = build_cached_k(tp, _t(a)) if impl == "kcached" else None
+    got = tconv.edge_kernel_conv(*args, root=_t(root), bias=_t(bias),
+                                 cached_k=kk, **kw)
     _close(got.numpy(), want, F32_TOL)
+    if impl == "kcached":
+        with pytest.raises(ValueError, match="cached_k goes with"):
+            tconv.edge_kernel_conv(*args, **kw)
+        with pytest.raises(ValueError, match="cached_k goes with"):
+            tconv.edge_kernel_conv(*args, cached_k=kk,
+                                   **dict(kw, impl="reference"))
 
 
 def _k1_inputs(seed, e, w=16):
