@@ -3194,22 +3194,35 @@ def mgkn_times(graphs, params, cfg) -> dict:
     return rec
 
 
+def window_forwards(rec, n_windows: int, name: str) -> int:
+    """The stacked window forwards a recording counted: at least one,
+    and at most one a splitter window."""
+    n = rec.counters.get("window_forwards", 0)
+    require(1 <= n <= n_windows,
+            f"{name}: {n} stacked forwards for {n_windows} windows")
+    return n
+
+
 def mgkn_run(name, args, cfg, n_windows) -> dict:
     """One `cli run mgkn_general_darcy2d` (MGKN_RUN's size) with its
     steps and evaluation counted: each step launches expected_mgkn(cfg,
     1, 1), the test evaluation expected_mgkn(cfg, 1, 0), and the
-    split_random evaluation one forward a splitter window. Logs step
-    times, the rel-L2s and the peak device memory."""
+    split_random evaluation one forward a group of stacked splitter
+    windows (`window_forwards`, at most n_windows). Logs step times, the
+    rel-L2s and the peak device memory."""
     import numpy as np
     import torch
+
+    from graph_pde_tpu_torch.utils import tracing
 
     steps, evals = [], []
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    with counted_steps(steps, evals):
+    with counted_steps(steps, evals), tracing.recording() as rec:
         lines = cli_call(["run", "mgkn_general_darcy2d", *MGKN_RUN, *args],
                          phase=9)
     torch.cuda.synchronize()
+    forwards = window_forwards(rec, n_windows, name)
     # the counters still hold the last counted evaluation's launches,
     # then those of the runner's split_random evaluation
     rest = {k: v - evals[-1]["launches"][k] if evals else v
@@ -3223,9 +3236,9 @@ def mgkn_run(name, args, cfg, n_windows) -> dict:
         require(bool(np.isfinite(st["loss"])), f"{name} loss finite")
     require(evals[0]["launches"] == expected_mgkn(cfg, 1, 0),
             f"{name} evaluation launches {evals[0]['launches']}")
-    require(rest == expected_mgkn(cfg, n_windows, 0),
+    require(rest == expected_mgkn(cfg, forwards, 0),
             f"{name} split_random evaluation launches {rest} "
-            f"({n_windows} windows)")
+            f"({n_windows} windows, {forwards} stacked forwards)")
     summary = json.loads(lines[-1])
     require(np.isfinite(summary["final_test_l2"])
             and np.isfinite(summary["full_field_l2"]),
@@ -3333,6 +3346,7 @@ def phase_mgkn() -> dict:
     from graph_pde_tpu_torch.inference import MGKNGeneralPredictor
     from graph_pde_tpu_torch.models import mgkn_general_init
     from graph_pde_tpu_torch.train import MGKNGeneralTask, load_bundle
+    from graph_pde_tpu_torch.utils import tracing
     from graph_pde_tpu_torch.utils.matio import MatReader
 
     here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_mgkn_")
@@ -3371,12 +3385,16 @@ def phase_mgkn() -> dict:
                 run["steps"][-1]["params"], graphs, phase=9)
 
         zero_counts()
-        lines = cli_call(["predict", "mgkn_b", "--synthetic", "1", "--res",
-                          str(S_MGKN), "--output", "mgkn_pred.mat"], phase=9)
+        with tracing.recording() as rec:
+            lines = cli_call(["predict", "mgkn_b", "--synthetic", "1",
+                              "--res", str(S_MGKN), "--output",
+                              "mgkn_pred.mat"], phase=9)
         torch.cuda.synchronize()
         got = read_counts()
-        require(got == expected_mgkn(cfg, n_windows, 0),
-                f"mgkn predict launches {got} ({n_windows} windows)")
+        forwards = window_forwards(rec, n_windows, "mgkn predict")
+        require(got == expected_mgkn(cfg, forwards, 0),
+                f"mgkn predict launches {got} ({n_windows} windows, "
+                f"{forwards} stacked forwards)")
         summary = json.loads(lines[-1])
         require(summary["s"] == S_MGKN and np.isfinite(summary["rel_l2"]),
                 f"mgkn predict summary {summary}")
@@ -3398,14 +3416,16 @@ def phase_mgkn() -> dict:
                          torch.from_numpy(plain))
         require(pred.shape == (1, S_MGKN, S_MGKN) and rel <= F32_TOL,
                 f"mgkn predict vs plain predictor {rel:.3e}")
-        log(f"phase 9: predict s={S_MGKN} ({n_windows} splitter windows) on "
+        log(f"phase 9: predict s={S_MGKN} ({n_windows} splitter windows in "
+            f"{forwards} stacked forwards) on "
             f"the auto bundle: {summary['wall_time_s']} s a request "
             f"(predictor wall time), plain predictor (impl='reference') "
             f"{plain_s:.3f} s; rel-L2 {summary['rel_l2']}, against the plain "
             f"predictor {rel:.3e} relative max-abs (tol {F32_TOL:g}); "
             f"launches {({k: v for k, v in got.items() if v})}")
         out["predict"] = dict(latency_s=summary["wall_time_s"],
-                              plain_latency_s=plain_s, windows=n_windows)
+                              plain_latency_s=plain_s, windows=n_windows,
+                              forwards=forwards)
         out["launches"]["cli predict mgkn_general"] = got
 
         out["launches"]["grad mgkn_general"] = mgkn_grads(

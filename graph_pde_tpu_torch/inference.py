@@ -14,9 +14,10 @@ predictor's device once per batch, and run by ``gkn_apply_batched``.
 
 ``MGKNGeneralPredictor`` maps raw Darcy coefficient fields to decoded
 solution fields through the reference's full-field protocol: windows of
-``RandomMultiMeshSplitter`` cover every grid node, each window's
-multilevel graph runs forward on its own, and the assembler stitches the
-finest levels' predictions back.
+``RandomMultiMeshSplitter`` cover every grid node, the windows' multilevel
+graphs run forward stacked (as many a forward as ``window_group_size``
+lets fit the device's free memory: every window at once on the host),
+and the assembler stitches the finest levels' predictions back.
 
 ``MGKNOrthogonalPredictor`` maps raw Burgers initial conditions a [n, s]
 to decoded solutions at the training resolution ``cfg.s`` (the level
@@ -27,16 +28,17 @@ Predictors run on CUDA unless given ``device="cpu"``.
 Spans (``utils.tracing``): ``predict`` around each predictor's call,
 ``predict.encode`` (auxiliary fields and input encoding) inside it; the
 general MGKN's windows add ``split`` (the splitter), one ``window`` a
-window with ``window.h2d`` (its graph to the device),
-``window.forward`` (the model's enqueue) and ``window.readback`` (the
-wait for the device and the copy back), and ``assemble`` (decode and
-stitch). Counters: ``readbacks`` and ``readback_bytes``, each device
-tensor copied back to the host.
+group of stacked windows with ``window.h2d`` (their graphs stacked and
+moved to the device), ``window.forward`` (the model's enqueue) and
+``window.readback`` (the wait for the device and the copy back), and
+``assemble`` (decode and stitch). Counters: ``readbacks`` and
+``readback_bytes``, each device tensor copied back to the host;
+``window_forwards``, each stacked forward of a group of windows.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -46,10 +48,12 @@ from .graph import (RandomGridSplitter, RandomMultiMeshSplitter,
                     SquareMeshGenerator, build_graph, edge_attributes,
                     make_box_grid, round_up, stack_graphs)
 from .models.gkn import GKNConfig, gkn_apply_batched, params_to
-from .models.mgkn_general import MGKNGeneralConfig, mgkn_general_apply
+from .models.mgkn_general import (MGKNGeneralConfig,
+                                  mgkn_general_apply_batched)
 from .models.mgkn_orthogonal import (MGKNOrthogonalConfig,
                                      mgkn_orthogonal_apply_batched,
                                      multipole_batch)
+from .ops.edge_conv import resolve_dtype
 from .utils import tracing
 
 
@@ -219,7 +223,7 @@ class MGKNGeneralPredictor:
     """Serves a general-MGKN bundle on raw Darcy coefficient fields
     through the reference's full-field protocol (MGKN_general_darcy2d.py:
     306-333): RandomMultiMeshSplitter windows covering every grid node,
-    each window's multilevel forward, the assembler's stitch. The graph
+    their multilevel forwards stacked, the assembler's stitch. The graph
     always subsamples to cfg.points, so this is the serving path at any
     grid size."""
 
@@ -268,27 +272,63 @@ class MGKNGeneralPredictor:
             return out
 
 
+def window_k_bytes(caps, cfg: MGKNGeneralConfig) -> int:
+    """The bytes of kernel matrices one window's forward holds at once,
+    from its edge capacities ``caps`` (mid, down, up): under
+    impl='kcached' every conv's K [E, width**2] in its stored dtype (fp8
+    ``k_storage``, else the compute dtype); under 'reference' the
+    largest conv's, which the einsum reads in float32 (a bf16 K beside
+    its float32 copy). The other impls build no K: 0."""
+    lists = [c for part in caps for c in part]
+    w2 = cfg.width ** 2
+    bf16 = resolve_dtype(cfg.compute_dtype) is not None
+    if cfg.impl == "kcached":
+        return sum(lists) * w2 * (1 if cfg.k_storage else 2 if bf16 else 4)
+    if cfg.impl == "reference":
+        return max(lists) * w2 * (6 if bf16 else 4)
+    return 0
+
+
+def window_group_size(caps, cfg: MGKNGeneralConfig, n_windows: int,
+                      free_bytes: Optional[int]) -> int:
+    """The windows one stacked forward takes: as many as hold their K
+    (``window_k_bytes``) in half of ``free_bytes``, the device's free
+    memory, and at least one; every window where ``free_bytes`` is None
+    (the host) or the impl builds no K."""
+    k = window_k_bytes(caps, cfg)
+    if free_bytes is None or k == 0:
+        return n_windows
+    return max(1, min(n_windows, free_bytes // 2 // k))
+
+
 def mgkn_split_predict(params, cfg: MGKNGeneralConfig,
                        sp: RandomMultiMeshSplitter, radius_inner,
                        radius_inter, theta_all, caps, u_normalizer,
                        device) -> tuple:
     """One sample through the splitter's windows: theta_all [n, 4] its
-    encoded fields (a first, the edge attributes' field). Each window's
-    forward runs on ``device``, is decoded with its own points' stats
+    encoded fields (a first, the edge attributes' field). The windows,
+    padded to one set of capacities, run in order as stacked forwards on
+    ``device`` (``window_group_size`` a group: one copy in and one
+    readback each); each window is decoded with its own points' stats
     and scattered back (MGKN_general_darcy2d.py:306-332). Returns (the
     decoded field [n], the window capacities, at least ``caps``)."""
     shards, caps = sp.splitter(list(radius_inner), list(radius_inter),
                                theta_all[:, 0], theta_all, caps=caps)
+    device = torch.device(device)
+    free = (torch.cuda.mem_get_info(device)[0] if device.type == "cuda"
+            else None)
+    size = window_group_size(caps, cfg, len(shards), free)
     preds = []
     with torch.inference_mode():
-        for g in shards:
+        for i in range(0, len(shards), size):
             with tracing.span("window"):
                 with tracing.span("window.h2d"):
-                    gd = g.to(device)
+                    gd = stack_graphs(shards[i:i + size]).to(device)
                 with tracing.span("window.forward"):
-                    out = mgkn_general_apply(params, cfg, gd)[:, 0]
+                    out = mgkn_general_apply_batched(params, cfg, gd)[..., 0]
+                    tracing.count("window_forwards")
                 with tracing.span("window.readback"):
-                    preds.append(_np(out))
+                    preds.extend(_np(out))
     with tracing.span("assemble"):
         idxs = [np.asarray(g.sample_idx) for g in shards]
         outs = [_decode_rows(u_normalizer, pred, idx)
@@ -351,4 +391,5 @@ def _largest_divisor_leq(n: int, m: int) -> int:
 
 
 __all__ = ["GKNPredictor", "MGKNGeneralPredictor", "MGKNOrthogonalPredictor",
-           "derive_aux_fields", "mgkn_split_predict"]
+           "derive_aux_fields", "mgkn_split_predict", "window_group_size",
+           "window_k_bytes"]

@@ -2,8 +2,12 @@
 nothing recorded while off, outputs bit-equal with recording on and off,
 the spans of a general-MGKN request and training step nested where the
 work happens, the counters, the recording of a profiler session, and the
-operator's exporter. At toy sizes (s=16, points (24, 12, 6), width 8,
-depth 2, kcached): a few seconds on the CPU, no JAX."""
+operator's exporter; and the general-MGKN request's stacked windows
+(inference.py): the group-size rule, and a request equal to a loop of
+single-window forwards at any group size. At toy sizes (s=16, points
+(24, 12, 6), width 8, depth 2, kcached): a few seconds on the CPU, no
+JAX."""
+import dataclasses
 import time
 
 import numpy as np
@@ -15,6 +19,8 @@ from graph_pde_tpu_torch.data.datasets import (darcy_mgkn_graphs,
                                                map_arrays, prepare_darcy)
 from graph_pde_tpu_torch.graph import build, native
 from graph_pde_tpu_torch.graph.graph import _to_tensor
+from graph_pde_tpu_torch import inference
+from graph_pde_tpu_torch.graph import RandomMultiMeshSplitter
 from graph_pde_tpu_torch.inference import MGKNGeneralPredictor, _np
 from graph_pde_tpu_torch.models import mgkn_general as mg
 from graph_pde_tpu_torch.train import (MGKNGeneralTask, adam_steplr,
@@ -89,7 +95,8 @@ def test_predict_bit_equal_and_spans_nest(darcy):
     assert name == "predict"
     top = [n for _, n in _children(rec, root)]
     windows = -(-S * S // CFG.points[0])
-    assert top == ["predict.encode", "split"] + ["window"] * windows + [
+    groups = 1      # on the host every window is in one stacked forward
+    assert top == ["predict.encode", "split"] + ["window"] * groups + [
         "assemble"]
     split = next(i for i, n in _children(rec, root) if n == "split")
     assert [n for _, n in _children(rec, split)] == (
@@ -105,6 +112,109 @@ def test_predict_bit_equal_and_spans_nest(darcy):
         assert starts == sorted(starts)
         inner = [k for _, k in _children(rec, kids[1][0])]
         assert inner[0] == "kbuild" and len(inner) == 1 + convs
+    assert rec.counters["window_forwards"] == groups
+
+
+def _request(darcy, j: int = 0):
+    """Sample j's encoded fields and the predictor's parts, and a fresh
+    splitter of the predictor's seed."""
+    fields, _, _ = darcy
+    pred = _predictor(darcy)
+    enc = inference._encode_darcy(
+        pred.input_normalizers, fields["coeff"][j:j + 1],
+        fields["Kcoeff"][j:j + 1], fields["Kcoeff_x"][j:j + 1],
+        fields["Kcoeff_y"][j:j + 1])
+    theta = np.stack([enc[k][0] for k in ("a", "a_smooth", "a_gradx",
+                                          "a_grady")], axis=1)
+    sp = RandomMultiMeshSplitter([[0, 1], [0, 1]], [S, S],
+                                 level=len(CFG.points),
+                                 sample_sizes=list(CFG.points),
+                                 seed=pred.seed)
+    return pred, theta, sp
+
+
+def _stacked(darcy, monkeypatch, size=None):
+    """One request through mgkn_split_predict, with ``size`` windows a
+    group where given, and its recording. Each forward output the
+    predictor reads back (an inference-mode tensor; the normalizer's
+    host tensors are not) counts as a readback, as a device tensor does
+    on the card."""
+    pred, theta, sp = _request(darcy)
+    if size is not None:
+        monkeypatch.setattr(inference, "window_group_size",
+                            lambda caps, cfg, n, free: size)
+    host = inference._np
+
+    def read(t):
+        if isinstance(t, torch.Tensor) and t.is_inference():
+            tracing.count("readbacks")
+        return host(t)
+
+    monkeypatch.setattr(inference, "_np", read)
+    with tracing.recording() as rec:
+        out, caps = inference.mgkn_split_predict(
+            pred.params, CFG, sp, R_INNER, R_INTER, theta, None,
+            pred.u_normalizer, CPU)
+    monkeypatch.undo()
+    return out, caps, rec
+
+
+@pytest.mark.parametrize("size", [1, 7])
+def test_stacked_request_equals_window_loop(darcy, monkeypatch, size):
+    """A request's stacked forwards give the field of one forward a
+    window (same splitter seed, same caps, the same decode and stitch),
+    at one group and at forced groups of ``size`` windows; readbacks and
+    stacked forwards are one a group."""
+    pred, theta, sp = _request(darcy)
+    shards, caps = sp.splitter(list(R_INNER), list(R_INTER), theta[:, 0],
+                               theta)
+    with torch.no_grad():
+        rows = [mg.mgkn_general_apply(pred.params, CFG, g.to(CPU))[:, 0]
+                .numpy() for g in shards]
+    idxs = [np.asarray(g.sample_idx) for g in shards]
+    loop = sp.assembler([inference._decode_rows(pred.u_normalizer, r, i)
+                         for r, i in zip(rows, idxs)], idxs)
+    tol = 1e-6 * np.abs(loop).max()
+    one, caps1, rec1 = _stacked(darcy, monkeypatch)
+    assert caps1 == caps
+    assert np.abs(one - loop).max() <= tol
+    assert rec1.counters["readbacks"] == 1 == rec1.counters[
+        "window_forwards"]
+    out, _, rec = _stacked(darcy, monkeypatch, size)
+    groups = -(-len(shards) // size)
+    assert groups > 1
+    assert np.abs(out - one).max() <= tol
+    assert rec.counters["readbacks"] == groups == rec.counters[
+        "window_forwards"]
+    assert [s[0] for s in rec.spans].count("window") == groups
+
+
+def test_window_group_size():
+    """A window's K bytes from its caps, width and K dtype; groups fit
+    half of the free bytes, hold at least one window, and take every
+    window on the host or where no K is built."""
+    caps = ((512, 256, 256), (256, 256), (256, 256))
+    w2 = CFG.width ** 2
+    edges = sum(c for part in caps for c in part)
+    for k_cfg, size in ((CFG, 4),
+                        (dataclasses.replace(CFG, compute_dtype="bfloat16"),
+                         2),
+                        (dataclasses.replace(CFG, k_storage="float8_e4m3"),
+                         1)):
+        assert inference.window_k_bytes(caps, k_cfg) == edges * w2 * size
+    assert inference.window_k_bytes(
+        caps, dataclasses.replace(CFG, impl="reference")) == 512 * w2 * 4
+    for impl in ("auto", "pallas", "scan"):
+        assert inference.window_k_bytes(
+            caps, dataclasses.replace(CFG, impl=impl)) == 0
+    k = edges * w2 * 4
+    assert inference.window_group_size(caps, CFG, 19, 2 * 5 * k) == 5
+    assert inference.window_group_size(caps, CFG, 19, 2 * 5 * k - 1) == 4
+    assert inference.window_group_size(caps, CFG, 19, 10 ** 15) == 19
+    assert inference.window_group_size(caps, CFG, 19, 0) == 1
+    assert inference.window_group_size(caps, CFG, 19, None) == 19
+    assert inference.window_group_size(
+        caps, dataclasses.replace(CFG, impl="auto"), 19, 0) == 19
 
 
 def test_train_step_bit_equal_and_spans_nest(darcy):
