@@ -385,12 +385,7 @@ def _same_on_every_rank(res, key):
 
 # ------------------------------------------------------------ the tests
 #
-# Each test loops over its cases (the assertion names the case) rather
-# than being parametrised: pytest-xdist's loadfile scheduler queues a
-# file by its number of items, and a file of more than 12 would run
-# ahead of tests/test_parallel.py, the run's long pole, and move it onto
-# a worker whose earlier JAX files slow it (+100-230 s of wall time
-# measured on a 6-worker run on an 8-core CPU).
+# Each test loops over its cases; the assertion names the case.
 
 def test_partitions_match_jax(inputs):
     """Each host partition equals JAX's bit for bit (values, dtypes and
