@@ -584,6 +584,53 @@ def build_multilevel_graph(
     )
 
 
+def multilevel_graph_from_padded(
+    x: np.ndarray,
+    level_sizes,
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    attr: np.ndarray,
+    mask: np.ndarray,
+    caps,
+    *,
+    sample_idx: Optional[np.ndarray] = None,
+) -> MultiLevelGraph:
+    """A host MultiLevelGraph from its edge arrays already padded as
+    ``build_multilevel_graph`` pads them (``native.native_place_windows``
+    writes them so): the mid, down and up lists concatenated, list by
+    list at the capacities ``caps`` = (mid, down, up). The graph's edge
+    fields are views of the given arrays."""
+    level_sizes = tuple(int(m) for m in level_sizes)
+    points = (0,) + tuple(np.cumsum(level_sizes).tolist())
+    x = np.asarray(x, np.float32)
+    if x.shape[0] != points[-1]:
+        raise ValueError(f"x has {x.shape[0]} rows, the levels {points[-1]}")
+    groups, ranges, start = [], [], 0
+    for group_caps in caps:
+        end = start + sum(group_caps)
+        groups.append(slice(start, end))
+        bounds = np.concatenate([[0], np.cumsum(group_caps)]).tolist()
+        ranges.append(tuple(zip(bounds[:-1], bounds[1:])))
+        start = end
+    if start != senders.shape[0]:
+        raise ValueError(f"{senders.shape[0]} edges for capacities {caps}")
+    mid, down, up = groups
+    sip = None
+    if sample_idx is not None:
+        sip = np.asarray(sample_idx, np.int32).reshape(-1)
+    return MultiLevelGraph(
+        x=x,
+        mid_senders=senders[mid], mid_receivers=receivers[mid],
+        mid_attr=attr[mid], mid_mask=mask[mid],
+        down_senders=senders[down], down_receivers=receivers[down],
+        down_attr=attr[down], down_mask=mask[down],
+        up_senders=senders[up], up_receivers=receivers[up],
+        up_attr=attr[up], up_mask=mask[up],
+        sample_idx=sip, points=points, mid_ranges=ranges[0],
+        down_ranges=ranges[1], up_ranges=ranges[2],
+    )
+
+
 @dataclasses.dataclass
 class NodeBatch:
     """Per-sample node data on a SHARED edge structure.
@@ -605,6 +652,7 @@ __all__ = [
     "NodeBatch",
     "build_graph",
     "build_multilevel_graph",
+    "multilevel_graph_from_padded",
     "pad_capacities",
     "stack_graphs",
     "flatten_stacked",

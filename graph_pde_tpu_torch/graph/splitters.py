@@ -10,8 +10,11 @@ graph_pde_tpu/graph/splitters.py).
   re-interleaves the shards and Gaussian-smooths the field.
 - ``RandomMultiMeshSplitter`` walks one fixed permutation in circular
   windows, so that the finest levels of its splits tile every node once,
-  and builds the full multilevel graph of each split; ``assembler``
-  scatters the splits' predictions back onto the grid.
+  and builds the full multilevel graph of each split, one compiled pass
+  a window (``native.native_window_graphs``) where the library loads,
+  the numpy chain of radius graphs, attributes and padding where it does
+  not, with the same arrays; ``assembler`` scatters the splits'
+  predictions back onto the grid.
 """
 from __future__ import annotations
 
@@ -21,9 +24,10 @@ import numpy as np
 
 from ..utils import tracing
 from ..utils.filters import gaussian_filter
-from . import build
+from . import build, native
 from .graph import (Graph, MultiLevelGraph, build_graph,
-                    build_multilevel_graph, round_up)
+                    build_multilevel_graph, multilevel_graph_from_padded,
+                    round_up)
 from .mesh import make_box_grid
 
 
@@ -139,8 +143,10 @@ class RandomMultiMeshSplitter:
         coordinates. ``caps`` are minimums: a split whose edges exceed
         them grows them. Spans: ``split``, and inside it one
         ``split.connect`` a window (its radius graphs and edge
-        attributes) and ``split.pad`` (every window padded to the
-        caps)."""
+        attributes: the compiled pass, or the numpy chain) and
+        ``split.pad`` (every window placed into the caps). Counters:
+        ``split_native`` and ``split_numpy``, the windows each path
+        built."""
         with tracing.span("split"):
             theta_a = np.asarray(theta_a).reshape(self.n)
             theta_all = np.asarray(theta_all).reshape(self.n, -1)
@@ -148,15 +154,25 @@ class RandomMultiMeshSplitter:
             index = 0
             for i in range(self.splits):
                 with tracing.span("split.connect"):
-                    raw.append(self._connect(radius_inner, radius_inter,
-                                             theta_a, theta_all, i, index))
+                    idx, idx_all = self.sample(new_sample=(i == 0),
+                                               index0=index)
+                    raw.append(self._connect_native(
+                        radius_inner, radius_inter, theta_a, theta_all,
+                        idx, idx_all, slot=i))
+                    if raw[-1] is None:
+                        raw[-1] = self._connect(radius_inner, radius_inter,
+                                                theta_a, theta_all, idx,
+                                                idx_all)
+                        tracing.count("split_numpy")
+                    else:
+                        tracing.count("split_native")
                 index = (index + self.m) % self.n
 
             need_mid = tuple(
-                round_up(max(r[1][l].shape[1] for r in raw), edge_multiple)
+                round_up(max(r[0][l] for r in raw), edge_multiple)
                 for l in range(self.level))
             need_down = tuple(
-                round_up(max(r[3][l].shape[1] for r in raw), edge_multiple)
+                round_up(max(r[1][l] for r in raw), edge_multiple)
                 for l in range(self.level - 1))
             if caps is None:
                 caps = (need_mid, need_down, need_down)
@@ -165,21 +181,55 @@ class RandomMultiMeshSplitter:
                         tuple(max(a, b) for a, b in zip(caps[1], need_down)),
                         tuple(max(a, b) for a, b in zip(caps[2], need_down)))
             with tracing.span("split.pad"):
-                graphs = [
-                    build_multilevel_graph(
-                        x, self.ms, mid_e, mid_a, down_e, down_a, up_e, up_a,
-                        sample_idx=si, mid_caps=caps[0], down_caps=caps[1],
-                        up_caps=caps[2])
-                    for (x, mid_e, mid_a, down_e, down_a, up_e, up_a, si)
-                    in raw
-                ]
+                graphs = self._pad(raw, caps)
         return graphs, caps
 
+    def _connect_native(self, radius_inner, radius_inter, theta_a,
+                        theta_all, idx, idx_all, slot: int):
+        """A window's (mid counts, down counts, None, (x, sample ids))
+        from the compiled pass, built into the thread's slot ``slot``;
+        None where the library does not load or does not serve the
+        window (d > 3, or levels that do not lie in one union window)."""
+        if idx_all.shape[0] != sum(self.ms):
+            return None
+        grid_all = self.grid[idx_all]
+        try:
+            counts = native.native_window_graphs(
+                grid_all, self.ms, radius_inner, radius_inter,
+                theta_a[idx_all], slot).tolist()
+        except RuntimeError:
+            return None
+        x = np.concatenate([grid_all, theta_all[idx_all]], axis=1)
+        return (counts[:self.level], counts[self.level:2 * self.level - 1],
+                None, (x, idx[0]))
+
+    def _pad(self, raw, caps) -> List[MultiLevelGraph]:
+        """Every window's MultiLevelGraph at ``caps``: the compiled
+        pass's windows placed from their slots, one block a field; the
+        numpy chain's padded by its own ``pad``."""
+        slots = [i for i, r in enumerate(raw) if r[2] is None]
+        if slots:
+            n_inter = self.level - 1
+            block = native.native_place_windows(
+                slots, [c for group in caps for c in group],
+                list(self.ms) + [sum(self.ms)] * (2 * n_inter),
+                2 * self.d + 2)
+            rows = {slot: row for row, slot in enumerate(slots)}
+        graphs = []
+        for i, (_, _, pad, (x, sample_idx)) in enumerate(raw):
+            if pad is not None:
+                graphs.append(pad(caps))
+                continue
+            graphs.append(multilevel_graph_from_padded(
+                x, self.ms, *(a[rows[i]] for a in block), caps,
+                sample_idx=sample_idx))
+        return graphs
+
     def _connect(self, radius_inner, radius_inter, theta_a, theta_all,
-                 i: int, index: int) -> tuple:
-        """Split i's node draws (from ``index``), node features and
-        unpadded per-level edge lists with their attributes."""
-        idx, idx_all = self.sample(new_sample=(i == 0), index0=index)
+                 idx, idx_all) -> tuple:
+        """The numpy chain's (mid counts, down counts, pad, unused) of a
+        window: ``pad(caps)`` pads its per-level edge lists and their
+        attributes by ``build_multilevel_graph``."""
         grids = [self.grid[ids] for ids in idx]
         grid_all = self.grid[idx_all]
         th = theta_a[idx_all]
@@ -207,7 +257,15 @@ class RandomMultiMeshSplitter:
             off += grids[l].shape[0]
 
         x = np.concatenate([grid_all, theta_all[idx_all]], axis=1)
-        return (x, mid_e, mid_a, down_e, down_a, up_e, up_a, idx[0])
+
+        def pad(caps):
+            return build_multilevel_graph(
+                x, self.ms, mid_e, mid_a, down_e, down_a, up_e, up_a,
+                sample_idx=idx[0], mid_caps=caps[0], down_caps=caps[1],
+                up_caps=caps[2])
+
+        return ([e.shape[1] for e in mid_e], [e.shape[1] for e in down_e],
+                pad, (None, None))
 
     def assembler(self, out_list: Sequence[np.ndarray],
                   sample_idx_list: Sequence[np.ndarray]) -> np.ndarray:
