@@ -101,9 +101,14 @@ Phases, each fatal on failure:
      params bit for bit), `predict` on that bundle with a fresh s=241
      sample from a .mat file (the split path: K1 tc only; the written
      predictions within 5e-3 of the plain predictor), `run
-     uai1_full_resolution` (the runner's unfused kcached path: B3 on a
-     float32 K, no other kernel; its warm step logged beside phase 5's fused one; multires
-     at 16, 31, 61), `list` and a one-point smoke `sweep`;
+     uai1_full_resolution` (the runner's fused kcached path on a float32
+     K: each step K2 and B2-bwd `depth` times, the evaluations K2 and
+     B3-fwd only; the port's counters `iterate_k2` > 0 and no
+     `k_lowered`, and one step's `k_bytes` E_pad * 4096 * 4; its warm
+     step logged beside phase 5's; multires at 16, 31, 61), `list` and
+     a one-point smoke `sweep` (`--uai1` runs the uai1 run alone, then
+     the runner's fused step and the unfused kcached step, B3 on the
+     same float32 K, in turns on the s=61 graph);
   8. the orthogonal MGKN and Burgers slice (phase_ortho), from a
      temporary directory: K1 and B1-bwd against their plain versions at
      each of the ten level shapes of the full-width model (kappa (4, kw,
@@ -1874,9 +1879,10 @@ def phase_cli(warm_fused_uai1_ms: float) -> dict:
     temporary directory (its data cache and outputs go there). Trains
     uai4_full_grid_241 for one epoch of two steps at full width with a
     bundle; serves the bundle on a fresh s=241 sample read from a .mat
-    file; trains uai1_full_resolution (the unfused kcached path the
-    runner takes) with its multires evaluation; lists the registry and
-    runs a one-point smoke sweep. Returns each path's launches."""
+    file; trains uai1_full_resolution (the fused kcached path the
+    runner takes, ``cli_uai1``) with its multires evaluation; lists the
+    registry and runs a one-point smoke sweep. Returns each path's
+    launches."""
     import os
     import shutil
     import tempfile
@@ -1955,26 +1961,9 @@ def phase_cli(warm_fused_uai1_ms: float) -> dict:
             f"against the plain predictor (impl='scan') {rel:.3e} relative "
             f"max-abs (tol {BF16_TOL:g}); launches {got}")
 
-        steps, evals = [], []
-        with counted_steps(steps, evals):
-            lines = cli_call(["run", "uai1_full_resolution", "--set",
-                              "ntrain=2", "--set", "ntest=1", "--set",
-                              "epochs=1"])
-        counts = {k: sum(r["launches"][k] for r in steps + evals)
-                  for k in COUNTED}
-        require(only_b3(counts),
-                f"cli uai1 run (unfused kcached) launches {counts}")
-        require(len(steps) == 2 and len(evals) == 4,
-                f"uai1 run: {len(steps)} steps, {len(evals)} evaluations")
-        result = json.loads(lines[-1])
-        require(all(np.isfinite(v) for v in result["multires"].values())
-                and sorted(map(int, result["multires"])) == [16, 31, 61],
-                f"uai1 multires {result.get('multires')}")
-        warm = steps[-1]["ms"]
-        log(f"phase 7: uai1 run (unfused kcached, fp32): step times (ms) "
-            f"{[round(st['ms'], 1) for st in steps]}, warm step "
-            f"{warm:.1f} ms against {warm_fused_uai1_ms:.1f} ms for phase "
-            f"5's fused uai1 step; multires {result['multires']}")
+        warm = cli_uai1()
+        log(f"phase 7: uai1 run: warm step {warm:.1f} ms against "
+            f"{warm_fused_uai1_ms:.1f} ms for phase 5's uai1 step")
 
         lines = cli_call(["list"])
         require(lines == names(), "cli list prints every registry name")
@@ -1987,7 +1976,134 @@ def phase_cli(warm_fused_uai1_ms: float) -> dict:
     finally:
         os.chdir(here)
         shutil.rmtree(tmp, ignore_errors=True)
-    return dict(launches=launches, uai1_unfused_warm_step_ms=warm)
+    return dict(launches=launches, uai1_warm_step_ms=warm)
+
+
+def cli_uai1() -> float:
+    """`cli run uai1_full_resolution` (2 samples, 1 epoch, its multires
+    evaluation) inside a recording of the port's counters, from the
+    current directory: each step launches K2 and B2-bwd `depth` times
+    and nothing else, the evaluations K2 (s=31, 61) and B3-fwd (s=16)
+    only; K2 ran and no K was lowered. Then one counted step of the
+    runner's configuration on the s=61 graph: K is float32, E_pad *
+    4096 * 4 bytes. Returns the run's warm step in ms."""
+    import numpy as np
+    import torch
+
+    from graph_pde_tpu_torch.data.datasets import map_arrays
+    from graph_pde_tpu_torch.experiments import get
+    from graph_pde_tpu_torch.experiments import runners as trun
+    from graph_pde_tpu_torch.models import gkn_init
+    from graph_pde_tpu_torch.train import GKNTask, make_loss_fn
+    from graph_pde_tpu_torch.train.trainer import trainable
+    from graph_pde_tpu_torch.utils import tracing
+
+    steps, evals = [], []
+    with tracing.recording() as rec, counted_steps(steps, evals):
+        lines = cli_call(["run", "uai1_full_resolution", "--set",
+                          "ntrain=2", "--set", "ntest=1", "--set",
+                          "epochs=1"])
+    mcfg = trun._gkn_config(get("uai1_full_resolution"))
+    require(mcfg.kcached_fused == "auto", f"runner's uai1 config {mcfg}")
+    for st in steps:
+        require(st["launches"] == expected(mcfg, mcfg.depth, mcfg.depth),
+                f"cli uai1 step launches {st['launches']}")
+    for ev in evals:
+        require(not any(v for k, v in ev["launches"].items()
+                        if k not in ("K2", "B3-fwd")),
+                f"cli uai1 evaluation launches {ev['launches']}")
+    require(len(steps) == 2 and len(evals) == 4,
+            f"uai1 run: {len(steps)} steps, {len(evals)} evaluations")
+    c = rec.counters
+    require(c.get("iterate_k2", 0) > 0 and not c.get("k_lowered"),
+            f"cli uai1 run counters {c}")
+    result = json.loads(lines[-1])
+    require(all(np.isfinite(v) for v in result["multires"].values())
+            and sorted(map(int, result["multires"])) == [16, 31, 61],
+            f"uai1 multires {result.get('multires')}")
+    log(f"phase 7: uai1 run (the runner's kcached_fused='auto'): step "
+        f"times (ms) {[round(st['ms'], 1) for st in steps]}, launches a "
+        f"step {steps[-1]['launches']}, evaluations "
+        f"{[ev['launches'] for ev in evals]}; counters {c}; multires "
+        f"{result['multires']}")
+
+    dev = torch.device("cuda")
+    arrays, graphs = training_data(1, S_UAI1, R_UAI1, "gaussian", 0, SEED)
+    batch = map_arrays(lambda a: a[:1], graphs.to(dev))
+    params = trainable(gkn_init(torch.Generator().manual_seed(SEED), mcfg,
+                                device=dev))
+    task = GKNTask(mcfg, u_normalizer=arrays.u_normalizer, loss_type="l1")
+    e = graphs.senders.shape[1]
+    zero_counts()
+    with tracing.recording() as rec:
+        lv, _ = make_loss_fn(task, "l1")(params, batch)
+        lv.backward()
+    torch.cuda.synchronize()
+    c, got = rec.counters, read_counts()
+    require(c.get("k_bytes") == e * 4096 * 4 and not c.get("k_lowered")
+            and c.get("iterate_k2") == mcfg.depth
+            and got == expected(mcfg, mcfg.depth, mcfg.depth),
+            f"uai1 step counters {c}, launches {got}")
+    log(f"phase 7: uai1 step at s={S_UAI1} (E_pad {e}): counters {c} "
+        f"(float32 K, {e * 4096 * 4 / 2 ** 30:.3f} GiB)")
+    return steps[-1]["ms"]
+
+
+def uai1_turns() -> dict:
+    """The runner's uai1 step (fused: K2, B2-bwd) and the unfused kcached
+    step (kcached_fused='off': B3 on the same float32 K) on the full
+    s=61 graph, in turns (fused, unfused, unfused, fused), each timed
+    warm over 3 steps, with its peak device memory."""
+    import torch
+
+    from graph_pde_tpu_torch.data.datasets import map_arrays
+    from graph_pde_tpu_torch.experiments import get
+    from graph_pde_tpu_torch.experiments import runners as trun
+    from graph_pde_tpu_torch.models import gkn_init
+    from graph_pde_tpu_torch.train import (GKNTask, adam_steplr,
+                                           make_train_step)
+    from graph_pde_tpu_torch.train.trainer import param_leaves, trainable
+
+    dev = torch.device("cuda")
+    fused = trun._gkn_config(get("uai1_full_resolution"))
+    paths = {"fused": fused,
+             "unfused": dataclasses.replace(fused, kcached_fused="off")}
+    arrays, graphs = training_data(N_TRAIN, S_UAI1, R_UAI1, "gaussian", 0,
+                                   SEED + 1)
+    batch = map_arrays(lambda a: a[:1], graphs.to(dev))
+    init = gkn_init(torch.Generator().manual_seed(SEED), fused, device=dev)
+    times, peaks, launches = {k: [] for k in paths}, {}, {}
+    for which in ("fused", "unfused", "unfused", "fused"):
+        cfg = paths[which]
+        params = trainable(init)
+        opt, _ = adam_steplr(param_leaves(params), 1e-4, weight_decay=5e-4)
+        step = make_train_step(GKNTask(cfg, u_normalizer=arrays.u_normalizer,
+                                       loss_type="l1"), opt)
+        torch.cuda.reset_peak_memory_stats()
+        step(params, batch)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(params, batch)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3 / 3)
+        peaks[which] = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches[which] = {k: v // 3 for k, v in read_counts().items() if v}
+        del params, opt, step
+        torch.cuda.empty_cache()
+    require(launches["fused"] == {k: v for k, v in expected(
+        fused, fused.depth, fused.depth).items() if v},
+        f"uai1 fused launches {launches['fused']}")
+    require(launches["unfused"] == {"B3-fwd": fused.depth,
+                                    "B3-bwd": fused.depth},
+            f"uai1 unfused launches {launches['unfused']}")
+    out = {f"warm_step_{k}_ms": sum(v) / len(v) for k, v in times.items()}
+    out.update({f"peak_{k}_gib": v for k, v in peaks.items()},
+               turns=times, launches=launches)
+    log(f"uai1 turns (s={S_UAI1}, E_pad {graphs.senders.shape[1]}, float32 "
+        f"K): " + json.dumps(out))
+    return out
 
 
 def profile_kernels(name, fn, phase=6, reps=1) -> list:
@@ -4063,8 +4179,8 @@ def uai1_loop_vjp(dev) -> dict:
     batch = map_arrays(lambda a: a[:1], graphs.to(dev))
     init = gkn_init(torch.Generator().manual_seed(SEED), off, device=dev)
     e = graphs.senders.shape[1]
-    k_dtype = ("bf16" if e * 64 * 64 * 4 > gkn_model._KCACHED_F32_MAX_BYTES
-               else "fp32")
+    k_dtype = ("bf16" if gkn_model.cached_k_dtype(off, e, dev)
+               == torch.bfloat16 else "fp32")
     full = dist(grads(on, arrays, batch, init), grads(off, arrays, batch,
                                                       init))
     tol = GRAD_BF16_TOL if k_dtype == "bf16" else F32_TOL
@@ -4675,6 +4791,7 @@ def phase_parallel(dev) -> dict:
     (F32_TOL of the reference's max-abs; every rank the same output),
     then a world of one rank (NCCL) takes the DP + TP step, which must
     equal the single-process step bit for bit."""
+    import gc
     import os
     import pickle
     import tempfile
@@ -4689,6 +4806,10 @@ def phase_parallel(dev) -> dict:
                                             mgkn_orthogonal_init)
     from graph_pde_tpu_torch.train import trainable
 
+    # the ranks share the card: hand back what earlier phases cached (the
+    # uai1 steps' float32 K alone took 22 GiB)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     inp = par_inputs(dev)
     log(f"phase 12: inputs built in {time.perf_counter() - t0:.1f} s: "
@@ -5033,6 +5154,23 @@ def main(argv) -> int:
     if argv[:1] == ["--b3"]:
         kernels.build(["cached_contraction"])
         log("b3 cells " + json.dumps(b3_cells()))
+        log(ident)
+        return 0
+    if argv[:1] == ["--uai1"]:
+        import os
+        import shutil
+        import tempfile
+
+        kernels.build(["fused_iterate", "fused_iterate_bwd",
+                       "cached_contraction"])
+        here, tmp = os.getcwd(), tempfile.mkdtemp(prefix="chip_smoke_cli_")
+        os.chdir(tmp)
+        try:
+            cli_uai1()
+        finally:
+            os.chdir(here)
+            shutil.rmtree(tmp, ignore_errors=True)
+        uai1_turns()
         log(ident)
         return 0
     if argv[:1] == ["--mgkn"]:

@@ -178,7 +178,9 @@ def _emit_run_figures(figures_dir: str, cfg, task, params, test_data,
 
 def _gkn_config(cfg: ExperimentConfig) -> GKNConfig:
     # node features [x, y, a, a_smooth, a_gradx, a_grady] on Darcy, [x, a]
-    # on Burgers; edge attributes [x_i, x_j, a_i, a_j] in d dimensions
+    # on Burgers; edge attributes [x_i, x_j, a_i, a_j] in d dimensions.
+    # kcached_fused='auto': the fused depth loop (K2, B2-bwd) wherever the
+    # segment one-hot would exceed its gate (the full-grid graphs)
     ker_in, in_width = (6, 6) if cfg.dataset == "darcy" else (4, 2)
     return GKNConfig(
         width=cfg.width, ker_width=cfg.ker_width, depth=cfg.depth,
@@ -186,7 +188,8 @@ def _gkn_config(cfg: ExperimentConfig) -> GKNConfig:
         kernel_layers=_kernel_layers(cfg, ker_in),
         relu_last=(cfg.relu_last or cfg.kernel_variant == "nn"),
         decoder_mlp=cfg.decoder_mlp, impl=cfg.impl,
-        compute_dtype=cfg.compute_dtype, k_storage=cfg.k_storage)
+        compute_dtype=cfg.compute_dtype, k_storage=cfg.k_storage,
+        kcached_fused="auto")
 
 
 def _task(cfg: ExperimentConfig, mcfg: GKNConfig, arrays) -> GKNTask:

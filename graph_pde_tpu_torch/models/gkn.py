@@ -18,8 +18,19 @@ Functions with backward kernels, and autograd differentiates the cached
 K's build. ``loop_vjp`` (unfused path, flat graphs) runs the depth loop
 as one autograd Function whose backward builds dK once. A batch runs as
 one flattened graph, but its gates read one graph's sizes (as the JAX
-package's per-graph vmap does), so a config takes the same branch and
-the same K dtype in both packages.
+package's per-graph vmap does), so a config takes the same branch in
+both packages, and on the CPU the same K dtype.
+
+The cached K is stored in the configuration's dtype (bf16 under a bf16
+compute dtype, else float32; ``cached_k_dtype``). On a card that holds
+whatever the card holds: a K too large for it fails loudly. On the CPU
+the JAX package's 2 GiB gate stays, so that the parity tests keep its K
+dtype: a float32 K above it is bf16, and the counter ``k_lowered`` says
+so.
+
+Spans and counters (``utils.tracing``, impl='kcached'): ``kbuild`` around
+the K build and ``k_bytes`` adding K's bytes once a forward;
+``conv.iterate`` around each depth step of the fused loop.
 """
 from __future__ import annotations
 
@@ -36,11 +47,13 @@ from ..ops.edge_conv import edge_kernel_conv
 from ..ops.fused_iterate import (fused_iterate_supported,
                                  fused_iterate_total, sorted_iterate_setup)
 from ..ops.kcached_loop import build_cached_k, kcached_depth_loop
+from ..utils import tracing
 
 # The JAX package's one-hot gate (ops/segment.py _ONEHOT_MAX_BYTES): the
 # kcached_fused='auto' rule fuses only where that one-hot would not apply.
 _ONEHOT_MAX_BYTES = 64 * 1024 * 1024
-# Above this many bytes of float32 K per graph, the cached K is bf16.
+# On the CPU, above this many bytes of float32 K per graph the cached K
+# is bf16 (the JAX package's gate, models/gkn.py:154 there).
 _KCACHED_F32_MAX_BYTES = 2 * 1024 ** 3
 
 
@@ -119,15 +132,28 @@ def _relu_after(cfg: GKNConfig, t: int) -> bool:
     return t != cfg.depth - 1 or cfg.relu_last
 
 
+def cached_k_dtype(cfg: GKNConfig, gate_e: int,
+                   device: torch.device) -> torch.dtype:
+    """The dtype of the cached K of a graph of ``gate_e`` edges: bf16
+    under a bf16 compute dtype; else float32, except on the CPU above
+    ``_KCACHED_F32_MAX_BYTES``, where it is bf16, counted in
+    ``k_lowered``."""
+    if cfg.compute_dtype is not None:
+        return torch.bfloat16
+    if (device.type == "cuda"
+            or gate_e * cfg.width * cfg.width * 4 <= _KCACHED_F32_MAX_BYTES):
+        return torch.float32
+    tracing.count("k_lowered")
+    return torch.bfloat16
+
+
 def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask,
              gate_e: int, gate_n: int):
     """impl='kcached': builds K and runs the fused or loop_vjp depth loop
     where the config takes one, returning (its output, None); otherwise
     (x, K) for the model's depth loop."""
     w = cfg.width
-    big = gate_e * w * w * 4 > _KCACHED_F32_MAX_BYTES
-    k_dtype = (torch.bfloat16 if (cfg.compute_dtype is not None or big)
-               else torch.float32)
+    k_dtype = cached_k_dtype(cfg, gate_e, x.device)
     n = x.shape[0]
     use_fused = (not graph.node_block and not cfg.loop_vjp
                  and graph.sorted_span > 0
@@ -136,9 +162,11 @@ def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask,
                  and (cfg.kcached_fused == "on"
                       or (cfg.kcached_fused == "auto"
                           and gate_e * gate_n * 4 > _ONEHOT_MAX_BYTES)))
-    kk = build_cached_k(params["kernel"], graph.edge_attr,
-                        compute_dtype=cfg.compute_dtype, k_dtype=k_dtype,
-                        k_storage=None if use_fused else cfg.k_storage)
+    with tracing.span("kbuild"):
+        kk = build_cached_k(params["kernel"], graph.edge_attr,
+                            compute_dtype=cfg.compute_dtype, k_dtype=k_dtype,
+                            k_storage=None if use_fused else cfg.k_storage)
+    tracing.count("k_bytes", kk.numel() * kk.element_size())
     if use_fused:
         # fp8 storage: both kernels stream the 1-byte copy; dK lands on
         # the full-precision kk (gkn.py:185-195 in JAX)
@@ -147,13 +175,15 @@ def _kcached(params, cfg: GKNConfig, graph: Graph, x, edge_mask,
         setup = sorted_iterate_setup(graph.receivers, edge_mask, n)
         recip = (1.0 / setup.counts) if cfg.aggr == "mean" else None
         for t in range(cfg.depth):
-            out = fused_iterate_total(x, graph.senders, kk, setup,
-                                      in_channels=w, out_channels=w, k8=k8)
-            if recip is not None:
-                out = out * recip
-            x = _root_bias(params, x, out)
-            if _relu_after(cfg, t):
-                x = torch.relu(x)
+            with tracing.span("conv.iterate"):
+                out = fused_iterate_total(x, graph.senders, kk, setup,
+                                          in_channels=w, out_channels=w,
+                                          k8=k8)
+                if recip is not None:
+                    out = out * recip
+                x = _root_bias(params, x, out)
+                if _relu_after(cfg, t):
+                    x = torch.relu(x)
         return x, None
     if cfg.loop_vjp and not graph.node_block:
         # one backward for the whole depth loop, dK built once
@@ -254,4 +284,4 @@ def _member(graphs: Graph, b: int) -> Graph:
 
 
 __all__ = ["GKNConfig", "gkn_init", "gkn_apply", "gkn_apply_batched",
-           "params_to"]
+           "params_to", "cached_k_dtype"]

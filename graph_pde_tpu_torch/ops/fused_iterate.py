@@ -31,6 +31,10 @@ fp8 storage (``k8``, fused_iterate.py:160-182 in JAX) both kernels
 stream the 1-byte copy k8 of K instead (e4m3 or e5m2, upcast exactly),
 and dK lands on the full-precision K argument, in K's dtype: a
 straight-through estimator.
+
+While a recording is open (``utils.tracing``) the counters
+``iterate_k2`` and ``iterate_plain`` count the calls of
+``fused_iterate_total`` that launch K2 and that take the plain version.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ import dataclasses
 
 import torch
 
+from ..utils import tracing
 from . import kernels
 from .segment import segment_counts
 
@@ -328,6 +333,7 @@ def fused_iterate_total(x, senders, K, setup: IterateSetup, *,
                            or k8.shape != K.shape):
         raise ValueError(f"k8 must be an fp8 copy of K, not {k8.dtype} "
                          f"{tuple(k8.shape)}")
+    tracing.count("iterate_k2" if x.is_cuda else "iterate_plain")
     return _FusedIterateTotal.apply(x, K, senders, setup, in_channels,
                                     out_channels, k8)
 

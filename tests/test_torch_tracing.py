@@ -23,6 +23,7 @@ from graph_pde_tpu_torch import inference
 from graph_pde_tpu_torch.graph import RandomMultiMeshSplitter
 from graph_pde_tpu_torch.inference import MGKNGeneralPredictor, _np
 from graph_pde_tpu_torch.models import mgkn_general as mg
+from graph_pde_tpu_torch.models.gkn import _member
 from graph_pde_tpu_torch.train import (MGKNGeneralTask, adam_steplr,
                                        make_train_step, param_leaves,
                                        profile_trace)
@@ -260,6 +261,39 @@ def test_counters(darcy, monkeypatch):
         to_device({"a": np.zeros(5, np.float32)}, CPU)
         _np(torch.ones(3))                        # a host tensor
     assert rec.counters == {"h2d_copies": 3, "h2d_bytes": 120 + 32 + 20}
+
+
+def test_kcached_gkn_spans_and_counters(darcy, monkeypatch):
+    """A CPU forward of the fused kcached GKN records its K build, each
+    depth step, K's bytes and a plain K2 a step; off, nothing."""
+    from graph_pde_tpu_torch.data import darcy_gkn_graphs
+    from graph_pde_tpu_torch.models import gkn
+
+    _, arrays, _ = darcy
+    graph = _member(darcy_gkn_graphs(arrays, radius=0.15), 0).to("cpu")
+    cfg = gkn.GKNConfig(width=8, ker_width=16, depth=3, impl="kcached",
+                        kcached_fused="on")
+    params = gkn.gkn_init(torch.Generator().manual_seed(5), cfg, device=CPU)
+    with tracing.recording() as rec:
+        on = gkn.gkn_apply(params, cfg, graph)
+    names = [s[0] for s in rec.spans]
+    assert {n: names.count(n) for n in set(names)} == {
+        "kbuild": 1, "conv.iterate": cfg.depth}
+    e = graph.num_edges_padded
+    assert rec.counters == {"k_bytes": e * cfg.width ** 2 * 4,
+                            "iterate_plain": cfg.depth}
+    made = []
+
+    class Seen(tracing._Span):
+        def __init__(self, rec, name):
+            made.append(name)
+            super().__init__(rec, name)
+
+    monkeypatch.setattr(tracing, "_Span", Seen)
+    before = tracing.profiled()
+    off = gkn.gkn_apply(params, cfg, graph)
+    assert made == [] and tracing.profiled() is before
+    assert torch.equal(on, off)
 
 
 def test_profiler_session_records(darcy):
